@@ -1,0 +1,148 @@
+"""Structure of the PyTorch port: what it imports, where it runs, how it builds."""
+
+import ast
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import wavecap_tpu_torch
+from wavecap_tpu_torch.kernels import build
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "wavecap_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PKG.rglob("*.py")
+)
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    """In a fresh interpreter, importing every module of the port adds no
+    ``jax`` and no ``wavecap_tpu`` module to ``sys.modules``."""
+    code = (
+        "import sys, importlib, json\n"
+        "before = set(sys.modules)\n"
+        f"for name in {MODULES!r}: importlib.import_module(name)\n"
+        "print(json.dumps(sorted(set(sys.modules) - before)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    added = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "wavecap_tpu_torch.capture.pipeline" in added
+    bad = [m for m in added
+           if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "wavecap_tpu"
+           or m.startswith("wavecap_tpu.")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "wavecap_tpu"), (path, name)
+
+
+def test_kernel_wrappers_have_no_fallback():
+    """A CUDA tensor reaches a kernel or an error: the wrappers and the
+    launcher hold no ``try``."""
+    wrappers = {
+        "ops/channelizer.py": {"unpack_arms", "arm_dft"},
+        "models/channel_bank.py": {"slot_frontend", "voice_fir"},
+        "kernels/build.py": {"launch"},
+    }
+    for rel, names in wrappers.items():
+        tree = ast.parse((PKG / rel).read_text())
+        found = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+        assert names <= set(found), (rel, names - set(found))
+        for name in names:
+            assert not any(isinstance(n, ast.Try) for n in ast.walk(found[name])), (rel, name)
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from wavecap_tpu_torch import convert
+    from wavecap_tpu_torch.capture import pipeline
+    from wavecap_tpu_torch.models import channel_bank
+    from wavecap_tpu_torch.ops import channelizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mode = ("nbfm", (("filter_impl", "fir"), ("fast_discriminator", True)))
+    cfg = pipeline.CapturePipelineConfig(
+        sample_rate=1_000_000, block_size=16_000, narrow_modes=(mode,),
+        channel_bandwidth=12_500.0, audio_rate=25_000,
+    )
+    calls = [
+        lambda **kw: pipeline.pipeline_init(cfg, **kw),
+        lambda **kw: pipeline.control_init(cfg, **kw),
+        lambda **kw: channelizer.channelizer_init(cfg.channelizer(), **kw),
+        lambda **kw: channel_bank.bank_init(cfg.bank_cfg(mode), **kw),
+        lambda **kw: channel_bank.assignment_init(4, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        call(device="cpu")
+    state = pipeline.pipeline_init(cfg, device="cpu")
+    assert state.chan_state.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.capture_state_from_numpy(cfg, {"chan_state": None, "banks": {}, "wide": None,
+                                               "p25": None, "p25p2": None})
+
+
+def test_build_targets_sm90a_without_fast_math():
+    cmd = build.nvcc_command(Path("a.cu"), Path("liba.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
+    assert not any("fast" in c and "math" in c for c in cmd)
+    assert not any(c.startswith(("-use_fast_math", "--use_fast_math", "-ftz", "-prec")) for c in cmd)
+    assert build.BUILD_DIR.relative_to(ROOT).as_posix() + "/" in (ROOT / ".gitignore").read_text()
+    stems = {stem for stem, _, _ in build.KERNELS.values()}
+    assert stems == {p.stem for p in build.CSRC.glob("*.cu")}
+    for src in build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        # the note each kernel carries: what it replaces, what bounds it
+        assert "Bound on the H100" in text and "Replaces" in text and "wavecap_tpu/" in text, src
+
+
+def test_launch_counts_start_at_zero_and_reset():
+    build.reset_launch_counts()
+    counts = build.launch_counts()
+    assert set(counts) == {"K1_unpack_arms", "K2_arm_dft", "K3_slot_frontend", "K4_voice_fir"}
+    assert not any(counts.values())
+
+
+def test_package_sets_full_f32():
+    assert wavecap_tpu_torch is not None
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path, where):
+    """No CUDA card here: the script exits non-zero and prints no result;
+    a directory that holds only the script fails the same way."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run in full")
+    cwd = ROOT
+    if where == "alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,276 @@
+"""Per-capture block step: spectrum + channel banks (narrow subset).
+
+Counterpart of ``wavecap_tpu/capture/pipeline.py``.  One block becomes,
+in one step on the card: the sampled spectrum, the whole-block RSSI,
+every narrowband channel through one channelizer pass and one demod bank
+per bank key, and one packed uint8 wire buffer that the host fetches.
+
+This slice ports the NBFM banks with the voice-band FIR at an audio rate
+equal to the channel rate.  The wide (WBFM) groups, the P25 banks and
+the engine's listener-selected audio fetch (``audio_fetch_slots``) raise
+``NotImplementedError`` naming their ROADMAP item, as do the i8 and i4
+transports.
+
+With i16-pair words as input, kernel K1 unpacks the words while it
+builds the channelizer's arms, and also writes the complex block for the
+spectrum, the RSSI and the next history.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from .. import ops
+from ..models.channel_bank import (
+    ChannelAssignment,
+    ChannelBankConfig,
+    assignment_init,
+    bank_demod_step,
+    bank_init,
+)
+from ..models.registry import get_demod
+from ..ops.channelizer import ChannelizerConfig, _channelize, _unpack_i16_words, channelizer_init
+from ..utils.torchenv import DeviceLike, resolve_device
+
+# --- device->host wire formats ----------------------------------------------
+# Each output leaf rides its natural wire width instead of f32: audio as
+# i16; the rest (spectrum dB, rssi) as f32.  The P25 soft symbols (i8)
+# and the wide baseband (i16) join with their banks.  ``pack_wire`` builds the one fetched
+# uint8 buffer on the device; ``unpack_wire`` reverses it on the host
+# from the shapes of the unfetched leaves.
+_WIRE_SPECS: dict[str, tuple] = {
+    "audio": (torch.int16, 32767.0),
+}
+_NP_DTYPES = {
+    torch.int16: np.dtype(np.int16),
+    torch.float32: np.dtype(np.float32),
+}
+
+
+def wire_spec(name: str) -> tuple:
+    """Wire (dtype, scale) for an output-leaf name; f32 passthrough default."""
+    return _WIRE_SPECS.get(name, (torch.float32, 1.0))
+
+
+def _leaves(tree, name: str = ""):
+    """(leaf name, leaf) of nested dicts in the reference's flatten order
+    (``jax.tree_util`` sorts dict keys)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], str(key))
+    else:
+        yield name, tree
+
+
+def _rebuild(tree, leaves):
+    if isinstance(tree, dict):
+        return {key: _rebuild(tree[key], leaves) for key in sorted(tree)}
+    return next(leaves)
+
+
+def pack_wire(out: dict) -> torch.Tensor:
+    """Concatenate every output leaf into ONE uint8 buffer (one fetch)."""
+    parts = []
+    for name, leaf in _leaves(out):
+        dtype, scale = wire_spec(name)
+        if dtype == torch.float32:
+            enc = leaf.to(torch.float32)
+        else:
+            info = torch.iinfo(dtype)
+            enc = torch.clamp(
+                torch.round(leaf.to(torch.float32) * scale), info.min + 1, info.max
+            ).to(dtype)
+        parts.append(enc.contiguous().reshape(-1).view(torch.uint8))
+    return torch.cat(parts)
+
+
+def unpack_wire(unpacked: dict, flat_u8: np.ndarray) -> dict:
+    """Host-side inverse of :func:`pack_wire` for a stacked batch.
+
+    ``unpacked`` holds the unfetched leaves (only their shapes are read,
+    with a leading block axis); ``flat_u8`` is the fetched ``(n, bytes)``
+    uint8 buffer."""
+    flat_u8 = np.asarray(flat_u8)
+    rebuilt = []
+    off = 0
+    for name, leaf in _leaves(unpacked):
+        dtype, scale = wire_spec(name)
+        np_dtype = _NP_DTYPES[dtype]
+        shape = tuple(leaf.shape)
+        per = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        nb = per * np_dtype.itemsize
+        raw = np.ascontiguousarray(flat_u8[:, off : off + nb]).view(np_dtype)
+        arr = raw.reshape(shape)
+        if np_dtype != np.float32:
+            arr = arr.astype(np.float32) * np.float32(1.0 / scale)
+        rebuilt.append(arr)
+        off += nb
+    return _rebuild(unpacked, iter(rebuilt))
+
+
+def bank_key_parts(entry) -> tuple[str, tuple]:
+    """A ``narrow_modes`` entry -> ``(mode, dsp_overrides)``."""
+    if isinstance(entry, str):
+        return entry, ()
+    mode, opts = entry
+    return mode, tuple(opts)
+
+
+@dataclass(frozen=True)
+class CapturePipelineConfig:
+    sample_rate: int
+    block_size: int
+    fft_size: int = 2048
+    # bank keys present: mode strings and/or (mode, dsp_overrides) tuples
+    narrow_modes: tuple = ()
+    narrow_capacity: int = 8
+    channel_bandwidth: float = 25_000.0
+    wide_capacity: int = 0
+    p25_capacity: int = 0
+    p25_modulation: str = "c4fm"
+    p25p2_capacity: int = 0
+    p25_equalizer_taps: int = 0
+    audio_rate: int = 48_000
+    export_wide_baseband: bool = False
+    wide_groups: tuple = ()
+    # > 0: only these listener-selected slots' audio rides the wire
+    audio_fetch_slots: int = 0
+    spectrum_frames: int = 2
+
+    def channelizer(self) -> ChannelizerConfig:
+        return ChannelizerConfig(
+            sample_rate=float(self.sample_rate),
+            channel_bandwidth=self.channel_bandwidth,
+        )
+
+    def bank_cfg(self, entry) -> ChannelBankConfig:
+        ch = self.channelizer()
+        rate = int(ch.channel_rate)
+        mode, opts = bank_key_parts(entry)
+        spec = get_demod(mode)
+        kwargs: dict[str, Any] = dict(sample_rate=rate, audio_rate=self.audio_rate)
+        if mode == "nbfm":
+            kwargs.update(enable_highpass=True, enable_lowpass=True)
+        if mode in ("usb", "lsb"):
+            kwargs.update(mode=mode)
+        kwargs.update(dict(opts))  # per-channel DSP overrides win
+        return ChannelBankConfig(
+            channelizer=ch,
+            mode=mode,
+            demod_cfg=spec.config_cls(**kwargs),
+            capacity=self.narrow_capacity,
+        )
+
+
+def _check_supported(cfg: CapturePipelineConfig) -> None:
+    if cfg.wide_capacity > 0:
+        raise NotImplementedError("wide (WBFM) slot groups are ROADMAP Queue 1 item 7 (K7, K9)")
+    if cfg.p25_capacity > 0 or cfg.p25p2_capacity > 0:
+        raise NotImplementedError("P25 banks are ROADMAP Queue 1 item 8 (K12-K14)")
+    if cfg.audio_fetch_slots > 0:
+        raise NotImplementedError(
+            "the listener-selected audio fetch comes with the engine, ROADMAP Queue 1 item 9"
+        )
+
+
+class CaptureState(NamedTuple):
+    chan_state: torch.Tensor | None  # shared channelizer history
+    banks: dict  # bank key -> ChannelBankState
+    wide: dict | None = None
+    p25: Any = None
+    p25p2: Any = None
+
+
+class CaptureControl(NamedTuple):
+    banks: dict  # bank key -> ChannelAssignment
+    wide: dict | None = None
+    p25: ChannelAssignment | None = None
+    p25p2: ChannelAssignment | None = None
+
+
+def pipeline_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> CaptureState:
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    banks = {m: bank_init(cfg.bank_cfg(m), device=dev) for m in cfg.narrow_modes}
+    chan = channelizer_init(cfg.channelizer(), device=dev) if cfg.narrow_modes else None
+    return CaptureState(chan_state=chan, banks=banks)
+
+
+def control_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> CaptureControl:
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    banks = {m: assignment_init(cfg.narrow_capacity, device=dev) for m in cfg.narrow_modes}
+    return CaptureControl(banks=banks)
+
+
+def _to_complex(x_in: torch.Tensor) -> torch.Tensor:
+    """Transport words -> complex64: int32 words hold i16 pairs (low half
+    I) scaled 1/32768; f32 holds interleaved floats."""
+    if x_in.dtype == torch.int32:
+        return _unpack_i16_words(x_in)
+    if x_in.dtype == torch.float32:
+        return torch.complex(x_in[..., 0::2], x_in[..., 1::2])
+    raise NotImplementedError(
+        f"{x_in.dtype} transport (adaptive i8 / i4) is not ported yet; use i16 words"
+    )
+
+
+def capture_step(
+    x: torch.Tensor,
+    state: CaptureState,
+    ctl: CaptureControl,
+    cfg: CapturePipelineConfig,
+):
+    """One block through the whole capture.  Returns ``(outputs, state)``.
+
+    ``x`` is the complex64 block, or its int32 i16-pair words, which K1
+    unpacks on the card as it builds the channelizer's arms.
+    """
+    _check_supported(cfg)
+    new_chan_state = state.chan_state
+    chans = None
+    if state.chan_state is not None:
+        x, chans, new_chan_state = _channelize(x, state.chan_state, cfg.channelizer())
+    elif not x.is_complex():
+        x = _to_complex(x)
+
+    out: dict[str, Any] = {}
+    out["spectrum"] = ops.spectrogram_sampled(x, cfg.fft_size, n_out=max(cfg.spectrum_frames, 1))
+    out["rssi"] = ops.rssi_dbfs(x)
+
+    new_banks = {}
+    bank_out = {}
+    for key in cfg.narrow_modes:
+        o, s = bank_demod_step(chans, state.banks[key], ctl.banks[key], cfg.bank_cfg(key))
+        bank_out[key] = o
+        new_banks[key] = s
+    out["banks"] = bank_out
+    out["_packed"] = pack_wire(out)
+    return out, CaptureState(chan_state=new_chan_state, banks=new_banks)
+
+
+def _stack(trees: list):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def capture_multi(
+    x_rows: torch.Tensor,
+    state: CaptureState,
+    ctl: CaptureControl,
+    cfg: CapturePipelineConfig,
+):
+    """Consecutive stacked blocks ``(n, N)`` through :func:`capture_step`,
+    threading the state (the counterpart of ``jit_capture_multi``).
+    Outputs gain a leading block axis; ``_packed`` is ``(n, bytes)``."""
+    outs = []
+    for row in x_rows:
+        out, state = capture_step(row, state, ctl, cfg)
+        outs.append(out)
+    return _stack(outs), state

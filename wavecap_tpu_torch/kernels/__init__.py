@@ -1,0 +1,24 @@
+"""Hand-written Hopper kernels (CUDA C++ under ``csrc/``) and their launcher.
+
+The wrappers live beside their plain PyTorch versions in the modules
+that call them: K1 and K2 in ``ops/channelizer.py``, K3 and K4 in
+``models/channel_bank.py``.
+"""
+
+from .build import (
+    KERNELS,
+    build_all,
+    launch,
+    launch_counts,
+    nvcc_command,
+    reset_launch_counts,
+)
+
+__all__ = [
+    "KERNELS",
+    "build_all",
+    "launch",
+    "launch_counts",
+    "nvcc_command",
+    "reset_launch_counts",
+]

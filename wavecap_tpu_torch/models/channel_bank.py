@@ -1,0 +1,245 @@
+"""Channel bank: one wideband stream -> many demodulated audio channels.
+
+Counterpart of ``wavecap_tpu/models/channel_bank.py``.  The channelizer
+produces every channel at once, and the NBFM demod runs over a static
+number of slots; where the reference ``vmap``s a per-slot function, the
+port writes the slot axis out.  Per-slot routing (channel index, fine
+offset, active mask, squelch) is data, so retuning changes no shape.
+
+Two kernels carry the bank on the card, each with its plain version here:
+
+* K3 ``slot_frontend``: gather of the slot's channel row, the exact
+  uint32 NCO shift, RSSI and the FM discriminator;
+* K4 ``voice_fir``: the 127-tap voice-band FIR with its overlap-save
+  carry, RMS normalization, soft clip, squelch and the active mask.
+
+This slice ports the NBFM bank with the voice-band FIR
+(``filter_impl="fir"``) at an audio rate equal to the channel rate.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from .. import ops
+from ..kernels import launch
+from ..ops.channelizer import ChannelizerConfig, channelize, channelizer_init
+from ..utils.torchenv import DeviceLike, resolve_device
+from .analog import NbfmConfig, check_supported, voice_band_taps
+from .registry import get_demod
+
+_CLIP_GAIN = float(np.float32(1.0 / np.tanh(1.5)) * np.float32(0.95))  # soft_clip's
+_MIN_RMS = 1e-4  # rms_normalize's default
+_MAX_ROW = 27_000  # samples per slot row that K3 and K4 stage in shared memory
+
+
+@dataclass(frozen=True)
+class ChannelBankConfig:
+    channelizer: ChannelizerConfig
+    mode: str  # demod mode for every slot in this bank
+    demod_cfg: Any  # demod config at the channelizer's channel rate
+    capacity: int = 8  # static slot count
+
+
+class ChannelBankState(NamedTuple):
+    chan_state: torch.Tensor  # channelizer history
+    demod_states: Any  # stacked demod state, leading axis = capacity
+    nco_phase: torch.Tensor  # (capacity,) uint32 fine-shift phase
+
+
+class ChannelAssignment(NamedTuple):
+    """Per-slot routing (update freely; no shape changes)."""
+
+    channel_index: torch.Tensor  # (capacity,) int32 channelizer bin
+    fine_offset_hz: torch.Tensor  # (capacity,) f32 residual offset
+    active: torch.Tensor  # (capacity,) bool
+    squelch_db: torch.Tensor  # (capacity,) f32 dBFS threshold (-1e9 = open)
+
+
+def _check_bank(cfg: ChannelBankConfig) -> NbfmConfig:
+    get_demod(cfg.mode)  # raises for the reference's modes not ported yet
+    if cfg.mode.lower() != "nbfm" or not isinstance(cfg.demod_cfg, NbfmConfig):
+        raise NotImplementedError(f"bank mode {cfg.mode!r} is not ported yet")
+    dc = cfg.demod_cfg
+    check_supported(dc)
+    if not (dc.enable_highpass or dc.enable_lowpass):
+        raise NotImplementedError("the NBFM bank runs with its voice-band FIR on (kernel K4)")
+    return dc
+
+
+def assignment_init(capacity: int, device: DeviceLike = None) -> ChannelAssignment:
+    dev = resolve_device(device)
+    return ChannelAssignment(
+        channel_index=torch.zeros(capacity, dtype=torch.int32, device=dev),
+        fine_offset_hz=torch.zeros(capacity, dtype=torch.float32, device=dev),
+        active=torch.zeros(capacity, dtype=torch.bool, device=dev),
+        squelch_db=torch.full((capacity,), -1e9, dtype=torch.float32, device=dev),
+    )
+
+
+def _stack_states(state, capacity: int):
+    if isinstance(state, torch.Tensor):
+        return state.expand((capacity,) + tuple(state.shape)).contiguous()
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_stack_states(s, capacity) for s in state))
+    return tuple(_stack_states(s, capacity) for s in state)
+
+
+def bank_init(cfg: ChannelBankConfig, device: DeviceLike = None) -> ChannelBankState:
+    _check_bank(cfg)
+    dev = resolve_device(device)
+    spec = get_demod(cfg.mode)
+    return ChannelBankState(
+        chan_state=channelizer_init(cfg.channelizer, device=dev),
+        demod_states=_stack_states(spec.init(cfg.demod_cfg, device=dev), cfg.capacity),
+        nco_phase=torch.zeros(cfg.capacity, dtype=torch.uint32, device=dev),
+    )
+
+
+def _on(t: torch.Tensor, device: torch.device, dtype: torch.dtype, shape: tuple, what: str):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{what} must be {dtype} of shape {shape} on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+# --- K3: gather + NCO + RSSI + discriminator ---------------------------------
+
+
+def slot_frontend_plain(chans, assign: ChannelAssignment, nco_phase, disc_prev,
+                        cfg: ChannelBankConfig):
+    """Plain version of K3: ``(fm, rssi, nco_phase, disc_prev)`` per slot."""
+    dc = cfg.demod_cfg
+    idx = assign.channel_index.clamp(0, chans.shape[0] - 1).long()  # the reference clamps
+    shifted, phase1 = ops.freq_shift(
+        chans[idx], -assign.fine_offset_hz, cfg.channelizer.channel_rate, nco_phase
+    )
+    rssi = ops.rssi_dbfs(shifted)
+    fm, last = ops.quadrature_demod(
+        shifted, dc.sample_rate, disc_prev, max_deviation_hz=dc.max_deviation_hz,
+        atan_impl="fast" if dc.fast_discriminator else "exact",
+    )
+    return fm, rssi, phase1, last
+
+
+def slot_frontend(chans, assign: ChannelAssignment, nco_phase, disc_prev,
+                  cfg: ChannelBankConfig):
+    """K3: see :func:`slot_frontend_plain`.  Only a CPU tensor takes the
+    plain version; the tuning words are the plain per-slot torch math."""
+    if chans.device.type == "cpu":
+        return slot_frontend_plain(chans, assign, nco_phase, disc_prev, cfg)
+    dev = chans.device
+    if chans.dim() != 2 or chans.dtype != torch.complex64 or not chans.is_contiguous():
+        raise ValueError("K3 takes contiguous complex64 channels of shape (M, S)")
+    m, s = chans.shape
+    if not 0 < s <= _MAX_ROW:
+        raise NotImplementedError(f"K3 stages rows of 1..{_MAX_ROW} samples, not {s}")
+    c = cfg.capacity
+    _on(assign.channel_index, dev, torch.int32, (c,), "channel_index")
+    _on(assign.fine_offset_hz, dev, torch.float32, (c,), "fine_offset_hz")
+    _on(nco_phase, dev, torch.uint32, (c,), "nco_phase")
+    _on(disc_prev, dev, torch.complex64, (c,), "disc_prev")
+    dc = cfg.demod_cfg
+    dphi = ops.tuning_word(-assign.fine_offset_hz, cfg.channelizer.channel_rate).contiguous()
+    fm = torch.empty((c, s), dtype=torch.float32, device=dev)
+    rssi = torch.empty(c, dtype=torch.float32, device=dev)
+    phase1 = torch.empty(c, dtype=torch.uint32, device=dev)
+    last = torch.empty(c, dtype=torch.complex64, device=dev)
+    scale = float(np.float32(dc.sample_rate / (2.0 * np.pi * dc.max_deviation_hz)))
+    launch(
+        "K3_slot_frontend", dev, chans, assign.channel_index, dphi, nco_phase, disc_prev,
+        fm, rssi, phase1, last, c, m, s, scale, int(bool(dc.fast_discriminator)),
+    )
+    return fm, rssi, phase1, last
+
+
+# --- K4: voice FIR + normalize + clip + squelch ------------------------------
+
+
+@lru_cache(maxsize=32)
+def _taps(dc: NbfmConfig, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(voice_band_taps(dc)).to(device)
+
+
+def voice_fir_plain(fm, hp_z, rssi, assign: ChannelAssignment, cfg: ChannelBankConfig):
+    """Plain version of K4: ``(audio, rssi, hp_z)`` per slot."""
+    dc = cfg.demod_cfg
+    audio, hp_z = ops.fir_filter(fm, _taps(dc, fm.device), hp_z)
+    audio = ops.soft_clip(ops.rms_normalize(audio, dc.target_rms))
+    audio = ops.squelch_gate(audio, rssi, assign.squelch_db)
+    audio = torch.where(assign.active[:, None], audio, torch.zeros_like(audio))
+    rssi = torch.where(assign.active, rssi, torch.full_like(rssi, -200.0))
+    return audio, rssi, hp_z
+
+
+def voice_fir(fm, hp_z, rssi, assign: ChannelAssignment, cfg: ChannelBankConfig):
+    """K4: see :func:`voice_fir_plain`.  Only a CPU tensor takes the plain
+    version."""
+    if fm.device.type == "cpu":
+        return voice_fir_plain(fm, hp_z, rssi, assign, cfg)
+    dev = fm.device
+    c = cfg.capacity
+    if fm.dim() != 2 or fm.shape[0] != c:
+        raise ValueError(f"K4 takes discriminator rows of shape ({c}, S)")
+    s = fm.shape[1]
+    if not 0 < s <= _MAX_ROW:
+        raise NotImplementedError(f"K4 stages rows of 1..{_MAX_ROW} samples, not {s}")
+    taps = _taps(cfg.demod_cfg, dev)
+    n_taps = taps.shape[0]
+    _on(fm, dev, torch.float32, (c, s), "fm")
+    _on(hp_z, dev, torch.float32, (c, n_taps - 1), "hp_z")
+    _on(rssi, dev, torch.float32, (c,), "rssi")
+    _on(assign.squelch_db, dev, torch.float32, (c,), "squelch_db")
+    _on(assign.active, dev, torch.bool, (c,), "active")
+    audio = torch.empty((c, s), dtype=torch.float32, device=dev)
+    rssi_out = torch.empty(c, dtype=torch.float32, device=dev)
+    tail_out = torch.empty((c, n_taps - 1), dtype=torch.float32, device=dev)
+    launch(
+        "K4_voice_fir", dev, fm, hp_z, taps, rssi, assign.squelch_db, assign.active,
+        audio, rssi_out, tail_out, c, s, n_taps, float(cfg.demod_cfg.target_rms),
+        _MIN_RMS, _CLIP_GAIN,
+    )
+    return audio, rssi_out, tail_out
+
+
+# --- the bank ----------------------------------------------------------------
+
+
+def bank_demod_step(
+    chans: torch.Tensor,
+    state: ChannelBankState,
+    assign: ChannelAssignment,
+    cfg: ChannelBankConfig,
+):
+    """Demod bank over pre-channelized output ``chans`` of shape (M, S).
+
+    Returns ``(out, state)``; ``state.chan_state`` passes through untouched
+    (the caller owns the shared channelizer history).
+    """
+    dc = _check_bank(cfg)
+    ds = state.demod_states
+    fm, rssi, nco_phase, disc_prev = slot_frontend(
+        chans, assign, state.nco_phase, ds.disc_prev, cfg
+    )
+    fm, rs_tail = ops.resample_poly_stream(fm, dc.sample_rate, dc.audio_rate, ds.rs_tail)
+    audio, rssi, hp_z = voice_fir(fm, ds.hp_z, rssi, assign, cfg)
+    demod_states = ds._replace(disc_prev=disc_prev, hp_z=hp_z, rs_tail=rs_tail)
+    out = {"audio": audio, "rssi": rssi}
+    return out, ChannelBankState(state.chan_state, demod_states, nco_phase)
+
+
+def bank_step(
+    iq: torch.Tensor,
+    state: ChannelBankState,
+    assign: ChannelAssignment,
+    cfg: ChannelBankConfig,
+):
+    """Standalone wideband step: channelize + demod bank (single-bank use)."""
+    chans, chan_state = channelize(iq, state.chan_state, cfg.channelizer)
+    out, state = bank_demod_step(chans, state, assign, cfg)
+    return out, state._replace(chan_state=chan_state)

@@ -1,0 +1,300 @@
+"""Non-maximally-decimated polyphase filter-bank channelizer (NMDPFB).
+
+Counterpart of ``wavecap_tpu/ops/channelizer.py``: one wideband block
+becomes M channels, each 2x oversampled (rate ``2 fs / M``), with the
+standard Fred Harris M/2 scheme.  Even and odd output steps come from
+two polyphase stacks,
+
+    u[r, c] = sum_{k<T} arms_rev[k, c] * x_ext[off + (r + T-1-k) M + c],
+
+(``off`` = 1 for even steps, 1 + M/2 for odd), then a forward DFT across
+the arms, a twiddle ``e^{-2 pi i c / M}``, the ``(-1)^c`` sign on odd
+steps, and the interleave and transpose to ``(M, S)``.
+
+Two kernels carry it on the card, each with its plain version here:
+
+* K1 ``unpack_arms``: the packed i16-pair words (or complex samples) and
+  the history in, both parity stacks (and the unpacked block) out;
+* K2 ``arm_dft``: the factored matmul DFT across arms with the twiddle,
+  sign, interleave and transpose.
+
+For a power-of-two M, ``dft_impl="auto"`` takes ``torch.fft.fft``, as
+the reference takes XLA's FFT there.  Streaming state is the last
+``M*T`` input samples; the block length must be a multiple of ``M``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+from scipy import signal as _sps
+
+from ..kernels import launch
+from ..utils.torchenv import DeviceLike, resolve_device
+from .planar import (
+    _dft_factor,
+    _factored_mats,
+    dft_matrices,
+    planar_factored_dft,
+    planar_matmul_dft,
+)
+
+_SMEM_LIMIT = 200 * 1024  # bytes of shared memory K2 asks for, at most
+
+
+@lru_cache(maxsize=32)
+def design_prototype(
+    channel_count: int, taps_per_channel: int, cutoff_scale: float = 0.5, beta: float = 8.0
+) -> np.ndarray:
+    """Kaiser lowpass prototype, unity DC gain, length ``M*T`` (zero-padded)."""
+    m, t = channel_count, taps_per_channel
+    cutoff = 2.0 * cutoff_scale / m  # normalized to Nyquist
+    h = _sps.firwin(m * t - 1, cutoff, window=("kaiser", beta))
+    return np.concatenate([h, [0.0]]).astype(np.float32)
+
+
+@dataclass(frozen=True)
+class ChannelizerConfig:
+    sample_rate: float
+    channel_bandwidth: float = 25_000.0
+    taps_per_channel: int = 9
+    cutoff_scale: float = 0.5
+    # Cross-arm DFT: "fft" (torch.fft), "matmul" (the factored matmul DFT,
+    # kernel K2 on the card), or "auto" (matmul for non-power-of-2 M <= 2048)
+    dft_impl: str = "auto"
+
+    def _use_matmul_dft(self) -> bool:
+        if self.dft_impl == "matmul":
+            return True
+        if self.dft_impl == "fft":
+            return False
+        m = self.channel_count
+        return m <= 2048 and (m & (m - 1)) != 0
+
+    @property
+    def channel_count(self) -> int:
+        m = int(self.sample_rate / self.channel_bandwidth)
+        return m - (m % 2)
+
+    @property
+    def channel_rate(self) -> float:
+        """Per-channel output rate (2x oversampled)."""
+        return 2.0 * self.sample_rate / self.channel_count
+
+    def channel_index(self, offset_hz: float) -> int:
+        """FFT-bin channel index for a frequency offset from band center."""
+        m = self.channel_count
+        idx = int(round(offset_hz / (self.sample_rate / m)))
+        return idx % m
+
+    def channel_offset_hz(self, index: int) -> float:
+        m = self.channel_count
+        if index >= m // 2:
+            index -= m
+        return index * self.sample_rate / m
+
+
+def channelizer_init(cfg: ChannelizerConfig, device: DeviceLike = None) -> torch.Tensor:
+    """History carry: last ``M*T`` input samples (zeros at stream start)."""
+    n = cfg.channel_count * cfg.taps_per_channel
+    return torch.zeros(n, dtype=torch.complex64, device=resolve_device(device))
+
+
+# --- host-built tables, cached per device -----------------------------------
+
+
+@lru_cache(maxsize=32)
+def _arms_rev(m: int, t: int, cutoff_scale: float, device: torch.device) -> torch.Tensor:
+    # column-reversed arms fold the per-window sample reversal into the taps
+    proto = design_prototype(m, t, cutoff_scale)
+    return torch.from_numpy(proto.reshape(t, m)[:, ::-1].copy()).to(device)
+
+
+def _twiddle_np(m: int) -> np.ndarray:
+    return np.exp(-2j * np.pi * np.arange(m) / m).astype(np.complex64)
+
+
+@lru_cache(maxsize=32)
+def _epilogue_tables(m: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    sign = np.where(np.arange(m) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    return torch.from_numpy(_twiddle_np(m)).to(device), torch.from_numpy(sign).to(device)
+
+
+def _k2_factors(m: int) -> tuple[int, int]:
+    """(m1, m2) of K2's two stages; an unfactorable m runs as 1 x m, which
+    is the single matmul DFT of ``planar_matmul_dft``."""
+    return _dft_factor(m) or (1, m)
+
+
+@lru_cache(maxsize=32)
+def _k2_tables(m: int, device: torch.device) -> torch.Tensor:
+    """K2's tables in one f32 buffer: W1 (cos, sin), W2 (cos, sin), the
+    stage twiddle (cos, sin), then the channel twiddle as (re, im) pairs."""
+    if _dft_factor(m) is not None:
+        (c1, s1), (c2, s2), (twc, tws) = _factored_mats(m, False)
+    else:
+        c1, s1 = np.ones((1, 1), np.float32), np.zeros((1, 1), np.float32)
+        c2, s2 = dft_matrices(m, False)
+        twc, tws = np.ones((1, m), np.float32), np.zeros((1, m), np.float32)
+    parts = [a.ravel() for a in (c1, s1, c2, s2, twc, tws)]
+    parts.append(_twiddle_np(m).view(np.float32))
+    return torch.from_numpy(np.concatenate(parts)).to(device)
+
+
+def _k2_b_stride(m1: int, m2: int) -> int:
+    base = m1 * (m2 + 1)
+    return base + (2 - base % 16) % 16
+
+
+# --- K1: unpack + polyphase arms ---------------------------------------------
+
+
+def _unpack_i16_words(words: torch.Tensor) -> torch.Tensor:
+    """i16 pairs in int32 words -> complex64 scaled 1/32768 (low half I).
+
+    The low half is sign-extended by masking: a left shift of a signed
+    int32 is not guaranteed to wrap in torch."""
+    lo = ((words & 0xFFFF) ^ 0x8000) - 0x8000
+    hi = words >> 16
+    s = 1.0 / 32768.0
+    return torch.complex(lo.to(torch.float32) * s, hi.to(torch.float32) * s)
+
+
+def _check_block(x: torch.Tensor, hist: torch.Tensor, m: int, t: int) -> None:
+    if x.dim() != 1 or x.shape[0] % m != 0:
+        raise ValueError(f"block must be 1-D with a length that is a multiple of M={m}")
+    if x.dtype not in (torch.int32, torch.complex64):
+        raise TypeError(f"block must be int32 i16-pair words or complex64, not {x.dtype}")
+    if hist.shape != (m * t,) or hist.dtype != torch.complex64:
+        raise ValueError(f"history must be complex64 of shape ({m * t},)")
+    if hist.device != x.device:
+        raise ValueError("block and history lie on different devices")
+
+
+def unpack_arms_plain(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig):
+    """Plain version of K1: ``(x_complex, u)`` with ``u`` of shape
+    ``(2, N/M, M)`` complex64 (even stack, odd stack)."""
+    m, t = cfg.channel_count, cfg.taps_per_channel
+    _check_block(x, hist, m, t)
+    x_c = _unpack_i16_words(x) if x.dtype == torch.int32 else x
+    r_steps = x_c.shape[-1] // m
+    arms = _arms_rev(m, t, cfg.cutoff_scale, x_c.device)
+    x_ext = torch.cat([hist, x_c])
+
+    def parity_stack(offset: int) -> torch.Tensor:
+        w = x_ext[offset : offset + (r_steps + t - 1) * m].reshape(r_steps + t - 1, m)
+        u = torch.zeros((r_steps, m), dtype=torch.complex64, device=x_c.device)
+        for k in range(t):
+            u = u + w[t - 1 - k : t - 1 - k + r_steps] * arms[k]
+        return u
+
+    return x_c, torch.stack([parity_stack(1), parity_stack(1 + m // 2)])
+
+
+def unpack_arms(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig):
+    """K1: ``(x_complex, u)``; see :func:`unpack_arms_plain`.
+
+    On a CUDA tensor this launches the kernel (which also writes the
+    unpacked block for word input); only a CPU tensor takes the plain
+    version."""
+    if x.device.type == "cpu":
+        return unpack_arms_plain(x, hist, cfg)
+    m, t = cfg.channel_count, cfg.taps_per_channel
+    _check_block(x, hist, m, t)
+    if not (x.is_contiguous() and hist.is_contiguous()):
+        raise ValueError("K1 takes contiguous tensors")
+    n = x.shape[0]
+    r_steps = n // m
+    u = torch.empty((2, r_steps, m), dtype=torch.complex64, device=x.device)
+    words = x.dtype == torch.int32
+    x_c = torch.empty(n, dtype=torch.complex64, device=x.device) if words else x
+    arms = _arms_rev(m, t, cfg.cutoff_scale, x.device)
+    launch(
+        "K1_unpack_arms", x.device,
+        x if words else None, None if words else x, hist, arms, u,
+        x_c if words else None, m, t, r_steps,
+    )
+    return x_c, u
+
+
+# --- K2: cross-arm DFT + epilogue --------------------------------------------
+
+
+def _arm_epilogue(y: torch.Tensor, m: int) -> torch.Tensor:
+    """DFT'd stacks ``(2, R, M)`` -> channels ``(M, 2R)``: twiddle, the
+    odd-step sign, interleave even/odd steps, transpose."""
+    tw, sign = _epilogue_tables(m, y.device)
+    y = y * tw
+    r_steps = y.shape[1]
+    inter = torch.stack([y[0], y[1] * sign], dim=1).reshape(2 * r_steps, m)
+    return inter.T.contiguous()
+
+
+def _fft_arms(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
+    """The ``dft_impl="fft"`` route: ``torch.fft`` across arms (the
+    counterpart of the reference's XLA FFT), then the epilogue."""
+    return _arm_epilogue(torch.fft.fft(u, dim=-1), cfg.channel_count)
+
+
+def arm_dft_plain(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
+    """Plain version of K2: the matmul DFT across arms (factored where M
+    factors, else one matmul), then the epilogue; ``(M, S)`` complex64."""
+    m = cfg.channel_count
+    dft = planar_factored_dft if _dft_factor(m) is not None else planar_matmul_dft
+    yr, yi = dft(u.real, u.imag, m, inverse=False)
+    return _arm_epilogue(torch.complex(yr, yi), m)
+
+
+def arm_dft(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
+    """K2: channels ``(M, S)`` from the stacks ``(2, R, M)``; see
+    :func:`arm_dft_plain`.  Only a CPU tensor takes the plain version."""
+    if u.device.type == "cpu":
+        return arm_dft_plain(u, cfg)
+    m = cfg.channel_count
+    if u.dim() != 3 or u.shape[0] != 2 or u.shape[2] != m or u.dtype != torch.complex64:
+        raise ValueError(f"K2 takes complex64 stacks of shape (2, R, {m})")
+    if not u.is_contiguous():
+        raise ValueError("K2 takes a contiguous tensor")
+    m1, m2 = _k2_factors(m)
+    per_pair = 8 * 2 * (m + _k2_b_stride(m1, m2))
+    row_pairs = next((rp for rp in (4, 2, 1) if rp * per_pair <= _SMEM_LIMIT), 0)
+    if row_pairs == 0:
+        raise NotImplementedError(f"K2 stages one step pair in shared memory; M={m} is too large")
+    r_steps = u.shape[1]
+    out = torch.empty((m, 2 * r_steps), dtype=torch.complex64, device=u.device)
+    tables = _k2_tables(m, u.device)
+    launch("K2_arm_dft", u.device, u, tables, out, m1, m2, r_steps, row_pairs)
+    return out
+
+
+# --- the channelizer ---------------------------------------------------------
+
+
+def _channelize(x: torch.Tensor, state: torch.Tensor, cfg: ChannelizerConfig):
+    """``(x_complex, channels, state)`` for complex or i16-word input."""
+    m, t = cfg.channel_count, cfg.taps_per_channel
+    x_c, u = unpack_arms(x, state, cfg)
+    chans = arm_dft(u, cfg) if cfg._use_matmul_dft() else _fft_arms(u, cfg)
+    h = m * t
+    n = x_c.shape[-1]
+    new_state = x_c[n - h :].clone() if n >= h else torch.cat([state, x_c])[-h:]
+    return x_c, chans, new_state
+
+
+def channelize(x: torch.Tensor, state: torch.Tensor, cfg: ChannelizerConfig):
+    """Channelize one block.
+
+    Args:
+        x: ``(N,)`` complex64 wideband IQ, ``N % M == 0``.
+        state: history from :func:`channelizer_init` / previous call.
+
+    Returns:
+        ``(channels, state)`` with ``channels`` of shape ``(M, S)``
+        complex64, ``S = 2N/M``; channel ``c`` is centered at offset
+        ``c*fs/M`` (FFT bin order, negative offsets wrap).
+    """
+    _, chans, new_state = _channelize(x, state, cfg)
+    return chans, new_state
