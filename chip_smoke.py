@@ -5,25 +5,40 @@ Run from the repository root on a machine with one NVIDIA card::
 
     python3 chip_smoke.py
 
-It drives the port's main path, the 800-channel NBFM capture step
-(i16 words -> K1 unpack + polyphase arms -> K2 cross-arm DFT -> K3 slot
-front end -> K4 voice FIR -> wire buffer), at full width:
+It drives the port's two paths at full width (10 Msps, 12.5 kHz
+channels: M = 800, 1,968,000-sample blocks):
+
+* the 800-channel NBFM capture of the first slice (i16 words -> K1 unpack
+  + polyphase arms -> K2 cross-arm DFT -> K3 slot front end -> K4 voice
+  FIR -> wire buffer), audio at the 25 kHz channel rate;
+* the mixed-analog capture at the server's default channel settings:
+  five banks of 160 slots (``am``, ``lsb``, ``nbfm``, ``sam``, ``usb``, one
+  slot per channelizer bin) with 48 kHz audio, K3 -> the mode's detector
+  (K10 for SAM) -> K5 resampler -> K9 IIR filters and AGC, plus one group
+  of 2 WBFM wide slots (K7 shift and decimate -> discriminator -> K5 -> K9
+  deemphasis and MPX low-pass).
+
+Phases:
 
 0. identity: the card's name and power limit, torch and CUDA versions;
 1. build: every kernel from ``wavecap_tpu_torch/kernels/csrc`` with nvcc;
 2. kernel checks: each kernel against its plain PyTorch version on the
-   card, at the slice's shapes, with inputs from a numpy seed; the
+   card, at the paths' shapes, with inputs from a numpy seed; the
    kernel's, the plain version's and the yardstick library call's time on
    the card (CUPTI, through torch.profiler) beside the kernel's bound, and
    the wrapper's wall time between CUDA events; then K1 on complex input
    and K2 at M = 80 and M = 38 (unfactorable) against their plain versions;
-3. the slice: a fake 10 Msps receiver with NBFM stations on known bins,
-   8 consecutive 1,968,000-sample blocks through ``pack_i16_words`` ->
-   upload -> ``capture_multi`` (800 active slots) -> ``unpack_wire``:
-   each station's 1 kHz tone, the squelch of empty slots, one launch of
-   each kernel per block, and the first block against the plain path on
-   the card;
-4. a JSON line of the kernels and the final ``{"ok": true, ...}`` line.
+3. the first slice: a fake 10 Msps receiver with NBFM stations on known
+   bins, 8 consecutive blocks through ``pack_i16_words`` -> upload ->
+   ``capture_multi`` (800 active slots) -> ``unpack_wire``: each station's
+   1 kHz tone, the squelch of empty slots, one launch of each of K1-K4
+   per block, and the first block against the plain path on the card;
+4. the mixed-analog capture: two stations per narrow mode and one WBFM
+   station, 8 blocks the same way: every station's 1 kHz tone, the
+   squelch of empty slots, the launch count of each kernel that the
+   configuration implies, the first two blocks against the plain path on
+   the card, the wire within 1 LSB; warm ms per block;
+5. a JSON line of the kernels and the final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
@@ -32,6 +47,7 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -49,6 +65,28 @@ MODE = ("nbfm", (("filter_impl", "fir"), ("fast_discriminator", True)))
 # 4 kHz deviation, amplitude 0.1 each
 STATIONS = ((7, 0.0), (40, 0.0), (123, 800.0), (399, -500.0), (520, 0.0), (777, 300.0))
 SQUELCH_DB = -45.0  # between the noise floor (~-86 dBFS) and a station (-20 dBFS)
+FMA_CYCLES = 4  # latency of a dependent f32 multiply-add on Hopper, in SM cycles
+
+# --- the mixed-analog capture (phase 4) ---
+MIXED_MODES = ("am", "lsb", "nbfm", "sam", "usb")  # engine._narrow_modes(), sorted
+MIXED_CAPACITY = 160  # five banks x 160 slots = one slot per bin; bank k takes 160k..160k+159
+# bank -> (FakeStation kind, carrier offset from the bin centre Hz): every
+# detector hears a 1 kHz tone (USB/LSB: the +-1.5 kHz BFO moves the carrier
+# to 1 kHz)
+MIXED_KINDS = {"am": ("am", 0.0), "lsb": ("carrier", 500.0), "nbfm": ("nbfm", 0.0),
+               "sam": ("am", 0.0), "usb": ("carrier", -500.0)}
+MIXED_STATION_SLOTS = (17, 101)  # slots (= bins within the bank) with a station
+MIXED_AMPLITUDE = 0.05  # 11 stations: the sum stays inside the i16 range
+WIDE_OFFSETS = (700_000.0, -1_200_000.0)  # the WBFM station (bin 56); empty spectrum
+WIDE_CLEAR_BINS = range(44, 69)  # narrow bins the WBFM station's +-150 kHz covers
+# kernel launches per block of the mixed capture, one bank per mode and one
+# wide group: K3 and K5 once per bank, K5 and K7 once per wide group; K9 per
+# bank: nbfm high- and low-pass 2, am and sam high-pass, low-pass and AGC
+# envelope 3 each, usb and lsb band-pass and envelope 2 each; per wide group
+# deemphasis and MPX low-pass 2; K10 once for the sam bank
+MIXED_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 5,
+                  "K4_voice_fir": 0, "K5_resample_poly": 5 + 1, "K7_strided_fir": 1,
+                  "K9_iir_cascade": 2 + 3 + 3 + 2 + 2 + 2, "K10_pll": 1}
 
 
 class CheckFailed(Exception):
@@ -106,7 +144,7 @@ def time_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel: str = "", reps: int = 20) -> float:
+def device_ms(fn, kernel: str = "", reps: int = 20, warm: int = 3) -> float:
     """Warm mean time on the card of one call: the kernels and copies it
     ran (only those whose name holds ``kernel``, when given), as CUPTI
     traced them through torch.profiler, without the host's gaps."""
@@ -114,7 +152,7 @@ def device_ms(fn, kernel: str = "", reps: int = 20) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -130,6 +168,40 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), for the serial-chain bounds."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper swapped for its plain version (the reference
+    path on the card)."""
+    from wavecap_tpu_torch.models import channel_bank as cb
+    from wavecap_tpu_torch.ops import agc, channelizer as chz, fir, iir, pll
+
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in (
+            (chz, "unpack_arms", chz.unpack_arms_plain), (chz, "arm_dft", chz.arm_dft_plain),
+            (cb, "slot_frontend", cb.slot_frontend_plain), (cb, "voice_fir", cb.voice_fir_plain),
+            (fir, "polyphase_resample", fir.polyphase_resample_plain),
+            (fir, "strided_fir", fir.strided_fir_plain),
+            (iir, "sos_filter", iir.sos_filter_plain), (iir, "onepole_filter", iir.onepole_filter_plain),
+            (agc, "envelope", agc.envelope_plain), (pll, "_loop", pll._loop_plain),
+        ):
+            stack.enter_context(mock.patch.object(module, name, plain))
+        yield
+
+
+def plain_call(fn):
+    def call():
+        with plain_kernels():
+            return fn()
+    return call
 
 
 def slice_config():
@@ -374,15 +446,10 @@ def slice_control(cfg, device):
 
 def plain_capture_step(words, state, ctl, cfg):
     """The same capture step with every kernel swapped for its plain
-    version (the reference for the first block)."""
+    version (the reference for the first blocks)."""
     from wavecap_tpu_torch.capture.pipeline import capture_step
-    from wavecap_tpu_torch.models import channel_bank as cb
-    from wavecap_tpu_torch.ops import channelizer as chz
 
-    with mock.patch.object(chz, "unpack_arms", chz.unpack_arms_plain), \
-            mock.patch.object(chz, "arm_dft", chz.arm_dft_plain), \
-            mock.patch.object(cb, "slot_frontend", cb.slot_frontend_plain), \
-            mock.patch.object(cb, "voice_fir", cb.voice_fir_plain):
+    with plain_kernels():
         return capture_step(words, state, ctl, cfg)
 
 
@@ -440,7 +507,8 @@ def run_slice(cfg, device, sync=None) -> dict:
     empty = [i for i in range(cfg.narrow_capacity) if i % m not in near]
     check(not audio[:, empty].any(), "an empty slot's squelch opened")
     check(rssi[:, empty].max() < SQUELCH_DB, "an empty slot's RSSI is above the squelch")
-    expected = {name: N_BLOCKS for name in counts}
+    path = ("K1_unpack_arms", "K2_arm_dft", "K3_slot_frontend", "K4_voice_fir")
+    expected = {name: N_BLOCKS if name in path else 0 for name in counts}
     check(counts == expected, f"launch counts {counts} != one per block {expected}")
 
     # first block against the plain path on the card
@@ -482,6 +550,519 @@ def run_slice(cfg, device, sync=None) -> dict:
     )
 
 
+# --- phase 2, continued: the mixed capture's kernels -----------------------------
+
+
+def mixed_config():
+    from wavecap_tpu_torch.capture.pipeline import CapturePipelineConfig
+
+    return CapturePipelineConfig(
+        sample_rate=10_000_000,
+        block_size=1_968_000,
+        narrow_modes=MIXED_MODES,
+        narrow_capacity=MIXED_CAPACITY,
+        channel_bandwidth=12_500.0,
+        audio_rate=48_000,
+        fft_size=2048,
+        spectrum_frames=2,
+        wide_capacity=2,
+        wide_groups=((),),
+    )
+
+
+def chain_ms(steps: float, cycles_per_step: float, clock_hz: float) -> float:
+    """A serial dependency chain's least time: steps x cycles at the clock."""
+    return steps * cycles_per_step / clock_hz * 1e3
+
+
+def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_hz=None):
+    """K3's exact discriminator and row output, K5, K7, K9 and K10 against
+    their plain versions at the mixed capture's shapes.  Returns
+    ``(lines, cases)``: one line per kernel for the kernels record (the
+    case the mixed capture runs most) and every case checked."""
+    import torch
+    import torch.nn.functional as F
+    from scipy import signal as sps
+
+    from wavecap_tpu_torch.models import channel_bank as cb
+    from wavecap_tpu_torch.models.channel_bank import ChannelAssignment
+    from wavecap_tpu_torch.ops import agc, fir, iir, pll
+    from wavecap_tpu_torch.ops.nco import tuning_word
+
+    clock_hz = clock_hz or sm_clock_hz()
+    rng = np.random.default_rng(SEED + 2)
+    ch = cfg.channelizer()
+    m, n = ch.channel_count, cfg.block_size
+    s = 2 * n // m
+    c = cfg.narrow_capacity
+    ar = cfg.audio_rate
+    lines, cases = {}, []
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def record(name, case, source, replaces, lib, **k):
+        k.update(name=name, case=case, route="cuda", source=source, replaces=replaces,
+                 library_ms=lib)
+        cases.append(k)
+        if name not in lines:  # the first case of a kernel is its line
+            lines[name] = k
+
+    # K3: the exact discriminator (the default NBFM bank) and the rows
+    chans = dev(fm_rows(rng, m, s, ch.channel_rate))
+    assign = ChannelAssignment(
+        channel_index=dev(rng.permutation(m)[:c].astype(np.int32)),
+        fine_offset_hz=dev(rng.uniform(-1500.0, 1500.0, c).astype(np.float32)),
+        active=dev(np.ones(c, bool)), squelch_db=dev(np.full(c, -1e9, np.float32)),
+    )
+    phase0 = dev(rng.integers(0, 2**32, c, dtype=np.uint64).astype(np.uint32))
+    prev = dev(np.exp(1j * rng.uniform(-np.pi, np.pi, c)).astype(np.complex64) * 0.3)
+    for mode in ("nbfm", "am"):
+        bank = cfg.bank_cfg(mode)
+        k_out = [host(v) for v in cb.slot_frontend(chans, assign, phase0, prev, bank)]
+        p_out = [host(v) for v in cb.slot_frontend_plain(chans, assign, phase0, prev, bank)]
+        check(np.array_equal(k_out[2], p_out[2]), f"K3 ({mode}) NCO phases are not bit-exact")
+        d_rssi = float(np.max(np.abs(k_out[1] - p_out[1])))
+        check(d_rssi <= 1e-3, f"K3 ({mode}) RSSI differs by {d_rssi:.3g} dB > 1e-3")
+        if mode == "nbfm":
+            err = snr_db(p_out[0], k_out[0])
+            # atan2f against torch's atan2 on the same products: a few ulp
+            check(err >= 80.0, f"K3 exact discriminator SNR {err:.1f} dB < 80")
+            check(rel_l2(p_out[3], k_out[3]) <= 1e-5, "K3 last sample differs")
+            b, f = bound(c * s * 8 + c * s * 4 + c * 36, 40.0 * c * s)
+            extra = dict(fm_snr_db=err, case_note="exact atan2f (mode 0), never run by the first slice")
+        else:
+            err = rel_l2(p_out[0], k_out[0])
+            # the same f32 mix on both sides; cos/sin and the product may differ by an ulp
+            check(err <= 1e-6, f"K3 shifted rows rel L2 {err:.3g} > 1e-6")
+            b, f = bound(c * s * 8 * 2 + c * 24, 16.0 * c * s)
+            extra = dict(rows_rel_l2=err, case_note="complex-row output (mode 2) for am/ssb/sam")
+        cases.append(dict(
+            name="K3_slot_frontend", case=f"{mode} bank", max_abs_err=max_abs(p_out[0], k_out[0]),
+            rssi_max_abs_db=d_rssi, bound_ms=b, bound_by=f,
+            ms=timer(lambda: cb.slot_frontend(chans, assign, phase0, prev, bank), "slot_frontend_kernel"),
+            wrapper_ms=wall_timer(lambda: cb.slot_frontend(chans, assign, phase0, prev, bank)),
+            plain_ms=timer(lambda: cb.slot_frontend_plain(chans, assign, phase0, prev, bank)),
+            library_ms=None, **extra,
+        ))
+
+    k5_src, k5_rep = ("wavecap_tpu_torch/kernels/csrc/resample_poly.cu",
+                      "wavecap_tpu/ops/fir.py:285 resample_poly_stream (+ :331 resample_poly)")
+    wide = cfg.wide_cfg()
+    if_rate = wide.if_rate
+    n_if = n // wide.decim
+    # K5: narrow one-shot 48/25 at (800, S), wide one-shot at (2, n_if),
+    # streaming 24/25 at (96, 10000) over 3 blocks (the engine's default
+    # 2.4 Msps / 25 kHz geometry)
+    for case, rows, n_in, rate_in in (("narrow one-shot", m, s, int(ch.channel_rate)),
+                                      ("wide one-shot", 2, n_if, if_rate)):
+        x = dev(rng.standard_normal((rows, n_in)).astype(np.float32))
+        y_k = host(fir.resample_poly(x, rate_in, ar))
+        y_p = host(plain_call(lambda: fir.resample_poly(x, rate_in, ar))())
+        err = rel_l2(y_p, y_k)
+        check(err <= 1e-5, f"K5 {case} rel L2 {err:.3g} > 1e-5")
+        up, down, taps = fir._resample_plan(rate_in, ar)
+        ph_len = -(-len(taps) // up)
+        n_out = y_k.shape[-1]
+        used_rows = len(np.unique(((len(taps) - 1) // 2 + np.arange(n_out, dtype=np.int64) * down) % up))
+        b, f = bound(rows * n_in * 4 + rows * n_out * 4 + used_rows * ph_len * 4,
+                     2.0 * rows * n_out * ph_len)
+        record("K5_resample_poly", f"{case} {up}/{down} ({rows}, {n_in}) -> ({rows}, {n_out})",
+               k5_src, k5_rep, None, max_abs_err=max_abs(y_p, y_k), rel_l2=err,
+               ms=timer(lambda: fir.resample_poly(x, rate_in, ar), "resample_poly_kernel"),
+               wrapper_ms=wall_timer(lambda: fir.resample_poly(x, rate_in, ar)),
+               plain_ms=timer(plain_call(lambda: fir.resample_poly(x, rate_in, ar))),
+               bound_ms=b, bound_by=f,
+               library_note="no single PyTorch call computes a rational resample with up > 1")
+    x3 = dev(rng.standard_normal((3, 96, 10_000)).astype(np.float32))
+    tail_k = tail_p = fir.resample_stream_init(50_000, 48_000, device=device).expand(96, -1)
+    errs = []
+    for k in range(3):
+        y_k, tail_k = fir.resample_poly_stream(x3[k], 50_000, 48_000, tail_k)
+        with plain_kernels():
+            y_p, tail_p = fir.resample_poly_stream(x3[k], 50_000, 48_000, tail_p)
+        errs.append(rel_l2(host(y_p), host(y_k)))
+        check(torch.equal(tail_k, tail_p), "K5 streaming tail differs")
+    check(max(errs) <= 1e-5, f"K5 streaming rel L2 {max(errs):.3g} > 1e-5")
+    up, down, taps = fir._resample_plan(50_000, 48_000)
+    ph_len = -(-len(taps) // up)
+    n_out = 10_000 * up // down
+    b, f = bound(96 * (10_000 + 2 * (ph_len - 1) + n_out) * 4 + up * ph_len * 4,
+                 2.0 * 96 * n_out * ph_len)
+
+    def k5_stream():
+        return fir.resample_poly_stream(x3[0], 50_000, 48_000, tail_k)
+
+    cases.append(dict(name="K5_resample_poly", case="streaming 24/25 (96, 10000) x 3 blocks",
+                      rel_l2=max(errs), bound_ms=b, bound_by=f,
+                      ms=timer(k5_stream, "resample_poly_kernel"), wrapper_ms=wall_timer(k5_stream),
+                      plain_ms=timer(plain_call(k5_stream)), library_ms=None))
+
+    # K7: the wide slots' shift and decimate; resample_poly_stream's up == 1
+    k7_src, k7_rep = ("wavecap_tpu_torch/kernels/csrc/strided_fir.cu",
+                      "wavecap_tpu/ops/fir.py:52 _conv_valid_direct, :202 fir_decimate "
+                      "(+ ops/nco.py:51 in capture/pipeline.py:415-416)")
+    from wavecap_tpu_torch.capture.pipeline import _wide_taps_on
+
+    taps = _wide_taps_on(wide, device)
+    t_len = taps.shape[0]
+    xw = dev((rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64) * 0.1)
+    head = dev((rng.standard_normal((2, t_len - 1)) + 1j * rng.standard_normal((2, t_len - 1)))
+               .astype(np.complex64) * 0.1)
+    dphi = tuning_word(-dev(np.array(WIDE_OFFSETS, np.float32)), cfg.sample_rate)
+    p0 = dev(rng.integers(0, 2**32, 2, dtype=np.uint64).astype(np.uint32))
+
+    def k7_wide():
+        return fir.strided_fir(xw, taps, wide.decim, head=head, nco=(dphi, p0))
+
+    out_k = [host(v) for v in k7_wide()]
+    out_p = [host(v) for v in fir.strided_fir_plain(xw, taps, wide.decim, head, (dphi, p0))]
+    err = rel_l2(out_p[0], out_k[0])
+    check(err <= 1e-5, f"K7 wide rel L2 {err:.3g} > 1e-5")
+    check(rel_l2(out_p[1], out_k[1]) <= 1e-6, "K7 wide tail differs")
+    check(np.array_equal(out_p[2], out_k[2]), "K7 NCO phases are not bit-exact")
+    n_out = out_k[0].shape[-1]
+    # the input read once, the heads, outputs and tails; per input sample and
+    # slot the NCO (3), cos and sin (2) and the mix (6), per output tap 4
+    b, f = bound(n * 8 + 2 * (t_len - 1) * 8 * 2 + t_len * 4 + 2 * n_out * 8,
+                 2.0 * n * 11 + 2.0 * n_out * t_len * 4)
+    mixed = host(fir.strided_fir_plain(xw, taps, 1, None, (dphi, p0))[0])
+    planes = dev(np.concatenate([np.concatenate([host(head), mixed], -1).real,
+                                 np.concatenate([host(head), mixed], -1).imag]).astype(np.float32))
+    kern = taps.flip(0).reshape(1, 1, -1)
+    record("K7_strided_fir", f"wide: NCO + decimate by {wide.decim}, {t_len} taps, 2 x {n} complex",
+           k7_src, k7_rep,
+           # yardstick: cuDNN's strided conv1d of the four mixed planes (TF32 off), no NCO
+           timer(lambda: F.conv1d(planes.unsqueeze(1), kern, stride=wide.decim)),
+           max_abs_err=max_abs(out_p[0], out_k[0]), rel_l2=err,
+           ms=timer(k7_wide, "strided_fir_kernel"), wrapper_ms=wall_timer(k7_wide),
+           plain_ms=timer(lambda: fir.strided_fir_plain(xw, taps, wide.decim, head, (dphi, p0))),
+           bound_ms=b, bound_by=f)
+    x5 = dev(rng.standard_normal((2, 48_000)).astype(np.float32))
+    tail5 = dev(rng.standard_normal((2, 100)).astype(np.float32))
+    y_k, t_k = fir.resample_poly_stream(x5, 240_000, 48_000, tail5)
+    with plain_kernels():
+        y_p, t_p = fir.resample_poly_stream(x5, 240_000, 48_000, tail5)
+    err = rel_l2(host(y_p), host(y_k))
+    check(err <= 1e-5 and torch.equal(t_k, t_p), f"K7 stride-5 rel L2 {err:.3g} > 1e-5")
+    taps5 = fir._resample_taps(1, 5, device)
+    b, f = bound(2 * 48_000 * 4 + 2 * 100 * 4 * 2 + 101 * 4 + 2 * 9600 * 4, 2.0 * 2 * 9600 * 101)
+    xin5 = torch.cat([tail5, x5], -1).unsqueeze(1)
+    cases.append(dict(
+        name="K7_strided_fir", case="up == 1: 1/5, 101 taps, (2, 48000) real", rel_l2=err,
+        max_abs_err=max_abs(host(y_p), host(y_k)), bound_ms=b, bound_by=f,
+        ms=timer(lambda: fir.resample_poly_stream(x5, 240_000, 48_000, tail5), "strided_fir_kernel"),
+        wrapper_ms=wall_timer(lambda: fir.resample_poly_stream(x5, 240_000, 48_000, tail5)),
+        plain_ms=timer(plain_call(lambda: fir.resample_poly_stream(x5, 240_000, 48_000, tail5))),
+        library_ms=timer(lambda: F.conv1d(xin5, taps5.flip(0).reshape(1, 1, -1), stride=5)),
+    ))
+
+    # K9: the mixed capture's cascades at their shapes
+    k9_src, k9_rep = ("wavecap_tpu_torch/kernels/csrc/iir_cascade.cu",
+                      "wavecap_tpu/ops/iir.py:88 _biquad_scan / :130 sos_filter, :40 onepole_filter "
+                      "(+ ops/agc.py:38 envelope)")
+    n_audio = -(-s * 48 // 25)
+    tt = np.arange(2 * n_audio) / ar
+    tone = np.sin(2 * np.pi * rng.uniform(200, 4000, (c, 1)) * tt)
+    # a tone per row in noise; the first half only sets each cascade's
+    # carried state (float64 scipy, cast to f32 as a block boundary leaves it)
+    both = (0.3 * tone + 0.05 * rng.standard_normal((c, 2 * n_audio))).astype(np.float32)
+    prev_np, xa_np = both[:, :n_audio], both[:, n_audio:]
+    xa = dev(xa_np)
+    xw2 = xa[:2].contiguous()
+
+    def carried(sos, rows):
+        zi = np.zeros((sos.shape[0], rows, 2))
+        zf = sps.sosfilt(sos, prev_np[:rows].astype(np.float64), axis=-1, zi=zi)[1]
+        return dev(zf.transpose(1, 0, 2).astype(np.float32))
+    k9_cases = [
+        ("nbfm high-pass 300 Hz", xa, iir.butter_sos("high", (300.0,), 5, ar)),
+        ("nbfm low-pass 3 kHz", xa, iir.butter_sos("low", (3000.0,), 5, ar)),
+        ("am/sam high-pass 100 Hz", xa, iir.butter_sos("high", (100.0,), 5, ar)),
+        ("ssb band-pass 300-3000 Hz", xa, iir.butter_sos("band", (300.0, 3000.0), 5, ar)),
+        ("notch 1 kHz", xa, iir.notch_sos(1000.0, 30.0, ar)),
+        ("wide MPX low-pass 15 kHz", xw2, iir.butter_sos("low", (15000.0,), 5, ar)),
+    ]
+    for case, x, sos in k9_cases:
+        rows, n_sec = x.shape[0], sos.shape[0]
+        z0 = carried(sos, rows)
+        y_k, z_k = (host(v) for v in iir.sos_filter(x, sos, z0))
+        y_p, _ = (host(v) for v in iir.sos_filter_plain(x, sos, z0))
+        err = snr_db(y_p, y_k)
+        check(err >= 50.0, f"K9 {case}: {err:.1f} dB < 50 against the plain scan")
+        xs = host(x)[:4].astype(np.float64)
+        ref64 = np.stack([sps.sosfilt(sos, xs[i], zi=host(z0)[i].astype(np.float64))[0] for i in range(len(xs))])
+        err64 = snr_db(ref64, y_k[:4])
+        check(err64 >= 55.0, f"K9 {case}: {err64:.1f} dB < 55 against float64 scipy")
+        b, f = bound(2 * rows * n_audio * 4 + 2 * rows * n_sec * 8 + n_sec * 20, 10.0 * rows * n_audio * n_sec)
+        record("K9_iir_cascade", f"{case}: {n_sec} sections, ({rows}, {n_audio})", k9_src, k9_rep,
+               None, max_abs_err=float(np.max(np.abs(y_k - y_p))), snr_vs_plain_db=err,
+               snr_vs_float64_db=err64, bound_ms=b, bound_by=f,
+               chain_ms=chain_ms(n_audio * n_sec, FMA_CYCLES, clock_hz),
+               ms=timer(lambda: iir.sos_filter(x, sos, z0), "iir_cascade_kernel"),
+               wrapper_ms=wall_timer(lambda: iir.sos_filter(x, sos, z0)),
+               plain_ms=timer(lambda: iir.sos_filter_plain(x, sos, z0)),
+               library_note="no torch op runs an IIR recurrence")
+    b0, a = iir.deemphasis_coeffs(ar)
+    y0 = dev(np.array([0.1, -0.2], np.float32))
+    y_k, l_k = (host(v) for v in iir.onepole_filter(xw2, b0, a, y0))
+    y_p, _ = (host(v) for v in iir.onepole_filter_plain(xw2, b0, a, y0))
+    ref64 = np.stack([sps.lfilter([b0], [1.0, -a], host(xw2)[i].astype(np.float64),
+                                  zi=[a * host(y0)[i]])[0] for i in range(2)])
+    err, err64 = snr_db(y_p, y_k), snr_db(ref64, y_k)
+    check(err >= 50.0 and err64 >= 70.0, f"K9 deemphasis: {err:.1f} / {err64:.1f} dB")
+    b, f = bound(2 * 2 * n_audio * 4 + 2 * 2 * 4, 2.0 * 2 * n_audio * 2)
+    cases.append(dict(name="K9_iir_cascade", case="deemphasis 75 us one-pole, (2, %d)" % n_audio,
+                      snr_vs_plain_db=err, snr_vs_float64_db=err64,
+                      max_abs_err=float(np.max(np.abs(y_k - y_p))), bound_ms=b, bound_by=f,
+                      ms=timer(lambda: iir.onepole_filter(xw2, b0, a, y0), "iir_cascade_kernel"),
+                      wrapper_ms=wall_timer(lambda: iir.onepole_filter(xw2, b0, a, y0)),
+                      plain_ms=timer(lambda: iir.onepole_filter_plain(xw2, b0, a, y0)),
+                      library_ms=None, chain_ms=chain_ms(n_audio, FMA_CYCLES, clock_hz)))
+    ca, cr = agc._coef(5.0, ar), agc._coef(50.0, ar)
+    st = agc.AgcState(dev(np.full(c, 0.1, np.float32)), dev(np.full(c, 0.2, np.float32)))
+    e_k, s_k = agc.envelope(xa, ca, cr, st)
+    e_p, s_p = agc.envelope_plain(xa, ca, cr, st)
+    err = snr_db(host(e_p), host(e_k))
+    check(err >= 50.0, f"K9 AGC envelope: {err:.1f} dB < 50 against the plain scans")
+    check(float(torch.max(torch.abs(s_k.env_release - s_p.env_release))) <= 1e-4, "K9 AGC carry differs")
+    # |x|, two one-poles (2 each) and the max per sample
+    b, f = bound(2 * c * n_audio * 4 + 4 * c * 4, 6.0 * c * n_audio)
+    cases.append(dict(name="K9_iir_cascade", case=f"AGC envelope, two one-poles + max, ({c}, {n_audio})",
+                      snr_vs_plain_db=err, max_abs_err=float(torch.max(torch.abs(e_k - e_p))),
+                      bound_ms=b, bound_by=f,
+                      ms=timer(lambda: agc.envelope(xa, ca, cr, st), "iir_cascade_kernel"),
+                      wrapper_ms=wall_timer(lambda: agc.envelope(xa, ca, cr, st)),
+                      plain_ms=timer(lambda: agc.envelope_plain(xa, ca, cr, st)),
+                      library_ms=None, chain_ms=chain_ms(2 * n_audio, FMA_CYCLES, clock_hz)))
+
+    # K10: SAM's carrier PLL and the Costas loop at (160, S)
+    k10_src, k10_rep = ("wavecap_tpu_torch/kernels/csrc/pll.cu",
+                        "wavecap_tpu/ops/pll.py:36 carrier_recovery_pll, :70 costas_loop_qpsk")
+    ts = np.arange(s) / ch.channel_rate
+    f_off = rng.uniform(-40, 40, (c, 1))
+    am = 0.3 * (1 + 0.6 * np.sin(2 * np.pi * 1000 * ts)) * np.exp(1j * (2 * np.pi * f_off * ts + rng.uniform(-3, 3, (c, 1))))
+    sym = rng.integers(0, 4, (c, s // 5 + 1)).repeat(5, axis=1)[:, :s]
+    qpsk = np.exp(1j * (np.pi / 4 + np.pi / 2 * sym + 2 * np.pi * f_off * ts))
+    st0 = pll.PllState(dev(rng.uniform(-3, 3, c).astype(np.float32)), dev(np.zeros(c, np.float32)))
+    alpha, beta = pll.pll_coeffs(50.0, ch.channel_rate)
+    for case, sig, fn in (
+        ("SAM carrier PLL", am, lambda z: pll.carrier_recovery_pll(z, ch.channel_rate, st0)),
+        ("Costas QPSK", qpsk, lambda z: pll.costas_loop_qpsk(z, st0, alpha, beta)),
+    ):
+        z = dev((sig + 1e-3 * (rng.standard_normal((c, s)) + 1j * rng.standard_normal((c, s))))
+                .astype(np.complex64))
+        o_k, st_k = fn(z)
+        with plain_kernels():
+            o_p, st_p = fn(z)
+        o_k, o_p = host(o_k), host(o_p)
+        err = min(snr_db(o_p.real, o_k.real), snr_db(o_p.imag, o_k.imag))
+        d_ph = float(np.max(np.abs(np.angle(np.exp(1j * (host(st_k.phase) - host(st_p.phase)))))))
+        check(err >= 50.0, f"K10 {case}: coherent output {err:.1f} dB < 50")
+        check(d_ph <= 1e-3, f"K10 {case}: final phase differs by {d_ph:.3g} rad")
+        # per sample: cos, sin, the mix (6), the detector (~4), the loop (6)
+        b, f = bound(2 * c * s * 8 + 4 * c * 4, 18.0 * c * s)
+        record("K10_pll", f"{case} ({c}, {s})", k10_src, k10_rep, None,
+               max_abs_err=float(np.max(np.abs(o_k - o_p))), coherent_snr_db=err,
+               final_phase_max_abs_rad=d_ph, bound_ms=b, bound_by=f,
+               # ~60 dependent f32 operations a step: cosf and sinf (range
+               # reduction + polynomial) then the mix, atan2f, the loop
+               chain_ms=chain_ms(s * 60, FMA_CYCLES, clock_hz),
+               ms=timer(lambda: fn(z), "pll_kernel"), wrapper_ms=wall_timer(lambda: fn(z)),
+               plain_ms=timer(plain_call(lambda: fn(z)), reps=1, warm=1),
+               library_note="no torch op runs a phase-locked loop")
+    return [lines[k] for k in ("K5_resample_poly", "K7_strided_fir", "K9_iir_cascade", "K10_pll")], cases
+
+
+# --- phase 4: the mixed-analog capture at full width --------------------------------
+
+
+def mixed_station_bins(cfg) -> dict:
+    """bank -> the channelizer bins of its stations."""
+    return {mode: [k * cfg.narrow_capacity + i for i in MIXED_STATION_SLOTS]
+            for k, mode in enumerate(cfg.narrow_modes)}
+
+
+def mixed_scene(cfg):
+    from wavecap_tpu_torch.devices import DeviceConfig, FakeDriver, FakeStation
+
+    ch = cfg.channelizer()
+    stations = []
+    for mode, bins in mixed_station_bins(cfg).items():
+        kind, carrier = MIXED_KINDS[mode]
+        stations += [FakeStation(offset_hz=ch.channel_offset_hz(b) + carrier, kind=kind,
+                                 tone_hz=1000.0, deviation_hz=4000.0, amplitude=MIXED_AMPLITUDE)
+                     for b in bins]
+    stations.append(FakeStation(offset_hz=WIDE_OFFSETS[0], kind="wbfm", tone_hz=1000.0,
+                                deviation_hz=75_000.0, amplitude=MIXED_AMPLITUDE))
+    device = FakeDriver(1, stations).open("fake0")
+    device.configure(DeviceConfig(sample_rate=cfg.sample_rate))
+    return device.start_stream()
+
+
+def mixed_control(cfg, device):
+    """Bank k's slot i on bin 160k + i, all active, squelch at SQUELCH_DB;
+    wide slot 0 on the WBFM station, slot 1 on empty spectrum."""
+    import torch
+
+    from wavecap_tpu_torch.capture.pipeline import control_init
+
+    c = cfg.narrow_capacity
+    ctl = control_init(cfg, device=device)
+    banks = {}
+    for k, mode in enumerate(cfg.narrow_modes):
+        banks[mode] = ctl.banks[mode]._replace(
+            channel_index=torch.arange(k * c, (k + 1) * c, dtype=torch.int32, device=device),
+            active=torch.ones(c, dtype=torch.bool, device=device),
+            squelch_db=torch.full((c,), SQUELCH_DB, dtype=torch.float32, device=device),
+        )
+    g = cfg.wide_groups[0]
+    wide = {g: ctl.wide[g]._replace(
+        offset_hz=torch.tensor(WIDE_OFFSETS, dtype=torch.float32, device=device),
+        active=torch.ones(2, dtype=torch.bool, device=device),
+        squelch_db=torch.full((2,), SQUELCH_DB, dtype=torch.float32, device=device),
+    )}
+    return ctl._replace(banks=banks, wide=wide)
+
+
+def run_mixed(cfg, device, sync=None) -> dict:
+    import torch
+
+    from wavecap_tpu_torch.capture.engine import pack_i16_words
+    from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init, unpack_wire
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    sync = sync or torch.cuda.synchronize
+    g = cfg.wide_groups[0]
+    c = cfg.narrow_capacity
+    stream = mixed_scene(cfg)
+    blocks = [stream.read(cfg.block_size)[0] for _ in range(N_BLOCKS)]
+    words_np = pack_i16_words(blocks)
+    ctl = mixed_control(cfg, device)
+    state0 = pipeline_init(cfg, device=device)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    words = torch.from_numpy(words_np).to(device)
+    outs, _ = capture_multi(words, state0, ctl, cfg)
+    packed = host(outs["_packed"])
+    sync()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    expected = {name: N_BLOCKS * MIXED_LAUNCHES[name] for name in counts}
+    check(counts == expected, f"mixed launch counts {counts} != {expected}")
+    meta = {k: v for k, v in outs.items() if k != "_packed"}
+    wire = unpack_wire(meta, packed)
+
+    n_audio = -(-2 * cfg.block_size // cfg.channelizer().channel_count * 48 // 25)
+    lsb = 0.0
+    for top, key in [("banks", mode) for mode in cfg.narrow_modes] + [("wide", g)]:
+        dev_audio = host(outs[top][key]["audio"])
+        audio = wire[top][key]["audio"]
+        check(audio.shape[0] == N_BLOCKS and audio.shape[-1] == n_audio, f"{key} audio shape")
+        check(np.isfinite(audio).all(), f"{key} audio not finite")
+        # the wire clips at +-1 (AGC'd audio reaches 1.105, soft_clip's ceiling)
+        lsb = max(lsb, float(np.max(np.abs(audio - np.clip(dev_audio, -1.0, 1.0)))))
+    check(np.isfinite(wire["spectrum"]).all(), "non-finite spectrum")
+    check(lsb <= 1.0 / 32767 + 1e-6, f"unpacked wire audio off by {lsb:.3g} > 1 LSB")
+
+    station_bins = mixed_station_bins(cfg)
+    all_station_bins = [b for bins in station_bins.values() for b in bins]
+    margins = {}
+    for k, mode in enumerate(cfg.narrow_modes):
+        audio = wire["banks"][mode]["audio"]
+        for b in station_bins[mode]:
+            row = audio[2:, b - k * c].ravel()  # blocks 3-8: IIR, AGC and PLL carries settled
+            margins[f"{mode}:{b}"] = tone_margin_db(row, cfg.audio_rate)
+    margins["wbfm:0"] = tone_margin_db(wire["wide"][g]["audio"][2:, 0].ravel(), cfg.audio_rate)
+    for key, v in margins.items():
+        check(v >= 20.0, f"station {key}: 1 kHz line only {v:.1f} dB up")
+    near = {b + d for b in all_station_bins for d in (-2, -1, 0, 1, 2)} | set(WIDE_CLEAR_BINS)
+    empty_rssi = -1e9
+    for k, mode in enumerate(cfg.narrow_modes):
+        empty = [i for i in range(c) if k * c + i not in near]
+        audio, rssi = wire["banks"][mode]["audio"], wire["banks"][mode]["rssi"]
+        check(not audio[:, empty].any(), f"an empty {mode} slot's squelch opened")
+        empty_rssi = max(empty_rssi, float(rssi[:, empty].max()))
+    check(empty_rssi < SQUELCH_DB, "an empty slot's RSSI is above the squelch")
+    check(not wire["wide"][g]["audio"][:, 1].any(), "the empty wide slot's squelch opened")
+
+    # the first two blocks against the plain path on the card
+    reset_launch_counts()
+    st = pipeline_init(cfg, device=device)
+    worst, d_rssi, d_spec = float("inf"), 0.0, 0.0
+    for blk in range(2):
+        out_p, st = plain_capture_step(words[blk], st, ctl, cfg)
+        for k, mode in enumerate(cfg.narrow_modes):
+            a_p = host(out_p["banks"][mode]["audio"])
+            a_k = host(outs["banks"][mode]["audio"][blk])
+            for b in station_bins[mode]:
+                worst = min(worst, snr_db(a_p[b - k * c], a_k[b - k * c]))
+            d_rssi = max(d_rssi, float(np.max(np.abs(host(out_p["banks"][mode]["rssi"])
+                                                     - host(outs["banks"][mode]["rssi"][blk])))))
+        worst = min(worst, snr_db(host(out_p["wide"][g]["audio"])[0], host(outs["wide"][g]["audio"][blk])[0]))
+        d_rssi = max(d_rssi, float(np.max(np.abs(host(out_p["wide"][g]["rssi"])
+                                                 - host(outs["wide"][g]["rssi"][blk])))))
+        spec_p = host(out_p["spectrum"])
+        strong = spec_p >= spec_p.max() - 60.0
+        d_spec = max(d_spec, float(np.max(np.abs(spec_p - wire["spectrum"][blk])[strong])))
+    check(sum(launch_counts().values()) == 0, "the plain path launched a kernel")
+    check(worst >= 50.0, f"first blocks' audio SNR {worst:.1f} dB < 50 against the plain path")
+    check(d_rssi <= 1e-3, f"first blocks' slot RSSI differs by {d_rssi:.3g} dB")
+    check(d_spec <= 0.05, f"first blocks' spectrum differs by {d_spec:.3g} dB")
+
+    def one_pass():
+        o, _ = capture_multi(words, pipeline_init(cfg, device=device), ctl, cfg)
+        host(o["_packed"])
+
+    one_pass()
+    sync()
+    t0 = time.perf_counter()
+    one_pass()
+    sync()
+    ms_block = (time.perf_counter() - t0) * 1e3 / N_BLOCKS
+    return dict(
+        phase="mixed", blocks=N_BLOCKS, block_size=cfg.block_size, modes=list(cfg.narrow_modes),
+        slots_per_bank=c, wide_slots=cfg.wide_capacity, launches=counts, first_run_s=first_s,
+        warm_ms_per_block=ms_block, msps=cfg.block_size / ms_block / 1e3,
+        profile=profile_blocks(one_pass, N_BLOCKS, sync),
+        tone_margin_db=margins, empty_rssi_max_dbfs=empty_rssi,
+        wide_rssi_dbfs=[float(v) for v in wire["wide"][g]["rssi"][0]],
+        first_blocks_audio_snr_db=worst, first_blocks_rssi_max_abs_db=d_rssi,
+        first_blocks_spectrum_max_abs_db=d_spec, wire_audio_max_abs=lsb,
+    )
+
+
+def profile_blocks(one_pass, blocks: int, sync) -> dict:
+    """One warm pass under torch.profiler, per block: traced wall ms, the
+    card's busy ms (kernels and copies, CUPTI), its idle share, the host's
+    CPU ms and the ops with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / blocks
+
+    def dev_ms(e) -> float:
+        return float(getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3 / blocks
+
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_ms(e) for e in on_card)
+    top = sorted(on_card, key=dev_ms, reverse=True)[:14]
+    return dict(
+        traced_wall_ms_per_block=wall_ms, device_busy_ms_per_block=busy,
+        device_idle_share=1.0 - busy / wall_ms,
+        host_self_cpu_ms_per_block=sum(e.self_cpu_time_total for e in events
+                                       if e.device_type == DeviceType.CPU) / 1e3 / blocks,
+        top_device_ms_per_block=[dict(op=e.key[:80], calls_per_block=e.count / blocks, ms=dev_ms(e))
+                                 for e in top if dev_ms(e) > 0],
+    )
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -519,23 +1100,34 @@ def main() -> int:
                 log(f"ptxas {stem}: {line.strip()}")
 
     cfg = slice_config()
+    mixed = mixed_config()
     try:
         kernels = kernel_checks(cfg, device)
         for k in kernels:
             log(dict(phase="kernel", **k))
+        mixed_lines, cases = mixed_kernel_checks(mixed, device)
+        for k in cases:
+            log(dict(phase="kernel-case", **k))
+        kernels += mixed_lines
         for g in other_geometry_checks(device):
             log(g)
         sl = run_slice(cfg, device)
         log(sl)
+        mx = run_mixed(mixed, device)
+        log(mx)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for k in kernels:
-        k["launches"] = sl["launches"][k["name"]]
-    check_names = set(launch_counts())
-    if {k["name"] for k in kernels} != check_names:
+        # each kernel's launches on its path: K4 on the first slice's, the
+        # others on the mixed capture's
+        k["launches"] = (sl if k["name"] == "K4_voice_fir" else mx)["launches"][k["name"]]
+        if k["launches"] == 0:
+            print(f"chip_smoke: FAILED: {k['name']} was not launched on its path", file=sys.stderr)
+            return 1
+    if {k["name"] for k in kernels} != set(launch_counts()):
         print("chip_smoke: FAILED: a kernel was not checked", file=sys.stderr)
         return 1
     log({"kernels": [{key: k[key] for key in keys} for k in kernels]})

@@ -3,7 +3,8 @@
 NBFM with the voice-band FIR and the fast discriminator, M = 80
 (1 Msps / 12.5 kHz), 8 slots, 3 blocks: nonzero fine offsets, open and
 shut squelch, inactive slots.  The K3/K4 wrappers take their plain
-versions here (CPU tensors).
+versions here (CPU tensors).  The other modes' banks are held against
+the reference through the capture step (``test_torch_pipeline.py``).
 """
 
 import numpy as np
@@ -142,15 +143,34 @@ def test_nbfm_demod_matches(rng):
     (dict(audio_rate=48_000), "K5"),
 ])
 def test_unported_nbfm_options_raise(override, kernel):
+    """The NBFM options the first slice refused: those of K9 (IIR filters,
+    deemphasis, notches) and K5 (48 kHz audio) now run and match the
+    reference (>= 50 dB, two f32 IIR scans); the noise blanker (K11)
+    still raises."""
     cfg = tmodels.NbfmConfig(**{**DEMOD, **override})
-    with pytest.raises(NotImplementedError, match=kernel):
-        tmodels.nbfm_init(cfg, device="cpu")
+    if kernel == "K11":
+        with pytest.raises(NotImplementedError, match=kernel):
+            tmodels.nbfm_init(cfg, device="cpu")
+        return
+    jcfg = jmodels.NbfmConfig(**{**DEMOD, **override})
+    n, fs = 5000, 25_000
+    tt = np.arange(n) / fs
+    x = (0.5 * np.exp(2j * np.pi * (300.0 * tt - 3000.0 * np.cos(2 * np.pi * 800.0 * tt)
+                                    / (2 * np.pi * 800.0)))).astype(np.complex64)
+    got, _ = tmodels.nbfm_demod(torch.from_numpy(x), tmodels.nbfm_init(cfg, device="cpu"), cfg)
+    ref, _ = jmodels.nbfm_demod(jnp.asarray(x), jmodels.nbfm_init(jcfg), jcfg)
+    assert got.shape == ref.shape
+    assert snr_db(np.asarray(ref), got.numpy()) >= 50.0
 
 
 def test_unported_modes_raise():
-    from wavecap_tpu_torch.models.registry import get_demod
+    """The six analog modes are ported; the P25 soft-symbol modes raise
+    naming their ROADMAP item."""
+    from wavecap_tpu_torch.models.registry import REGISTRY, get_demod
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_demod("wbfm")
+    assert set(REGISTRY) == {"wbfm", "nbfm", "am", "sam", "usb", "lsb"}
+    for mode in ("p25-soft", "p25-cqpsk-soft"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_demod(mode)
     with pytest.raises(ValueError):
         get_demod("nonsense")

@@ -64,6 +64,10 @@ def test_kernel_wrappers_have_no_fallback():
     wrappers = {
         "ops/channelizer.py": {"unpack_arms", "arm_dft"},
         "models/channel_bank.py": {"slot_frontend", "voice_fir"},
+        "ops/fir.py": {"strided_fir", "polyphase_resample"},
+        "ops/iir.py": {"onepole_filter", "sos_filter", "_k9"},
+        "ops/agc.py": {"envelope"},
+        "ops/pll.py": {"_loop"},
         "kernels/build.py": {"launch"},
     }
     for rel, names in wrappers.items():
@@ -97,6 +101,20 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         call(device="cpu")
+    mixed = pipeline.CapturePipelineConfig(
+        sample_rate=1_000_000, block_size=20_000, narrow_modes=("am", "sam", "usb"),
+        channel_bandwidth=12_500.0, wide_capacity=2, wide_groups=((),),
+    )
+    calls += [
+        lambda **kw: pipeline.pipeline_init(mixed, **kw),
+        lambda **kw: pipeline.control_init(mixed, **kw),
+        lambda **kw: pipeline.wide_init(mixed.wide_cfg(), **kw),
+        lambda **kw: pipeline.wide_assignment_init(2, **kw),
+    ]
+    for call in calls[-4:]:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        call(device="cpu")
     state = pipeline.pipeline_init(cfg, device="cpu")
     assert state.chan_state.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -122,7 +140,8 @@ def test_build_targets_sm90a_without_fast_math():
 def test_launch_counts_start_at_zero_and_reset():
     build.reset_launch_counts()
     counts = build.launch_counts()
-    assert set(counts) == {"K1_unpack_arms", "K2_arm_dft", "K3_slot_frontend", "K4_voice_fir"}
+    assert set(counts) == {"K1_unpack_arms", "K2_arm_dft", "K3_slot_frontend", "K4_voice_fir",
+                           "K5_resample_poly", "K7_strided_fir", "K9_iir_cascade", "K10_pll"}
     assert not any(counts.values())
 
 
@@ -146,3 +165,25 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path, where):
                          text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_registry_gives_the_six_analog_modes():
+    """Every analog mode builds its state and demodulates a block; the
+    noise options (K11) and the P25 modes raise naming their ROADMAP
+    item."""
+    from wavecap_tpu_torch.models import registry
+
+    for mode in ("wbfm", "nbfm", "am", "sam", "usb", "lsb"):
+        spec = registry.get_demod(mode)
+        cfg = registry.make_config(mode, 25_000)
+        if mode in ("usb", "lsb"):
+            assert cfg.mode == mode
+        audio, _ = spec.demod(torch.ones(500, dtype=torch.complex64), spec.init(cfg, device="cpu"), cfg)
+        assert audio.shape == (960,) and torch.isfinite(audio).all()
+        for opt in ("enable_noise_blanker", "enable_noise_reduction"):
+            if opt in cfg.__dataclass_fields__:
+                with pytest.raises(NotImplementedError, match="K11"):
+                    spec.init(registry.make_config(mode, 25_000, **{opt: True}), device="cpu")
+    for mode in ("p25-soft", "p25-cqpsk-soft"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            registry.get_demod(mode)

@@ -1,9 +1,17 @@
-"""The slice as a whole: the port's capture step against the JAX package's.
+"""The slices as a whole: the port's capture step against the JAX package's.
 
-1 Msps / 12.5 kHz (M = 80), 8 NBFM slots with the voice-band FIR and the
-fast discriminator, audio at the 25 kHz channel rate, i16 word transport,
-3 blocks; then a stream handed from the JAX package to the port
-mid-flight through ``convert.py``.
+1 Msps / 12.5 kHz (M = 80), i16 word transport, 3 blocks, then a stream
+handed from the JAX package to the port mid-flight through
+``convert.py``, for two configurations:
+
+* 8 NBFM slots with the voice-band FIR and the fast discriminator, audio
+  at the 25 kHz channel rate (the first slice);
+* the mixed-analog capture at the server's default channel settings:
+  five banks of 4 slots (``am``, ``lsb``, ``nbfm``, ``sam``, ``usb`` at
+  their config defaults), one WBFM group of 2 wide slots with the wide
+  baseband exported, 48 kHz audio.  Blocks of 20,000 samples stream every
+  resampler; blocks of 20,240 send both the narrow (48/25) and the wide
+  (24/125) resampler to the reference's one-shot fallback.
 """
 
 import numpy as np
@@ -160,7 +168,8 @@ def test_audio_fetch_slots_raises():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(wide_capacity=2, wide_groups=((),)), "item 7"),
+    # the wide slots run; a group with the noise blanker (K11) does not yet
+    (dict(wide_capacity=2, wide_groups=((("enable_noise_blanker", True),),)), "item 7"),
     (dict(p25_capacity=2), "item 8"),
     (dict(p25p2_capacity=2), "item 8"),
 ])
@@ -173,3 +182,146 @@ def test_unported_banks_raise(override, item):
 def test_unported_transport_raises():
     with pytest.raises(NotImplementedError, match="i16"):
         tpipe._to_complex(torch.zeros(8, dtype=torch.int16))
+
+
+# --- the mixed-analog capture ---------------------------------------------------
+
+MIXED_MODES = ("am", "lsb", "nbfm", "sam", "usb")
+# bank -> (station bin, station kind, carrier offset from the bin centre Hz):
+# every detector hears a 1 kHz tone
+MIXED_STATIONS = {"nbfm": (3, "nbfm", 0.0), "am": (10, "am", 0.0), "sam": (20, "am", 0.0),
+                  "usb": (30, "carrier", -500.0), "lsb": (-30, "carrier", 500.0)}
+EMPTY_BIN = 37
+WIDE_OFFSETS = (-250_000.0, 120_000.0)  # a WBFM station; the band near the AM stations
+
+
+def mixed_kw(block: int) -> dict:
+    return dict(sample_rate=FS, block_size=block, narrow_modes=MIXED_MODES, narrow_capacity=4,
+                channel_bandwidth=12_500.0, wide_capacity=2, wide_groups=((),),
+                export_wide_baseband=True, fft_size=2048, spectrum_frames=2)
+
+
+def mixed_blocks(block: int, n_blocks: int):
+    stations = [FakeStation(offset_hz=b * FS / 80 + f, kind=k, tone_hz=1000.0, deviation_hz=4000.0,
+                            amplitude=0.1) for b, k, f in MIXED_STATIONS.values()]
+    stations.append(FakeStation(offset_hz=WIDE_OFFSETS[0], kind="wbfm", tone_hz=1000.0,
+                                deviation_hz=75_000.0, amplitude=0.1))
+    dev = FakeDriver(1, stations).open("fake0")
+    dev.configure(DeviceConfig(sample_rate=FS))
+    stream = dev.start_stream()
+    return [stream.read(block)[0] for _ in range(n_blocks)]
+
+
+def mixed_controls(jcfg, tcfg):
+    """Per bank: the station (open), an empty bin (shut by the squelch),
+    the station 150 Hz off its centre with the squelch open, an inactive
+    slot; the wide slots on the WBFM station and elsewhere."""
+    jctl = jpipe.control_init(jcfg)
+    banks = {}
+    for mode in MIXED_MODES:
+        b = MIXED_STATIONS[mode][0] % 80
+        banks[mode] = jctl.banks[mode]._replace(
+            channel_index=jnp.asarray([b, EMPTY_BIN, b, 60], jnp.int32),
+            fine_offset_hz=jnp.asarray([0.0, 0.0, 150.0, 0.0], jnp.float32),
+            active=jnp.asarray([True, True, True, False]),
+            squelch_db=jnp.asarray([-45.0, -45.0, -1e9, -1e9], jnp.float32),
+        )
+    wide = {(): jctl.wide[()]._replace(
+        offset_hz=jnp.asarray(WIDE_OFFSETS, jnp.float32), active=jnp.asarray([True, True]),
+        squelch_db=jnp.asarray([-45.0, -1e9], jnp.float32))}
+    jctl = jctl._replace(banks=banks, wide=wide)
+    return jctl, convert.capture_control_from_numpy(tcfg, jax.device_get(jctl), device="cpu")
+
+
+def assert_mixed_match(jo, to):
+    """One block: audio >= 50 dB per open slot (IIR scans, AGC and PLL in
+    two libraries) and silent where the reference is; rssi |dB| <= 1e-3;
+    spectrum |dB| <= 0.05 within 60 dB of the peak; wide baseband rel. L2
+    <= 1e-5; the port's unpacked wire buffer within 1 LSB of its own
+    outputs, and against the reference's at the floors above."""
+    n_open = 0
+    groups = [(("banks", m), 4) for m in MIXED_MODES] + [(("wide", ()), 2)]
+    for (top, key), slots in groups:
+        jg, tg = jo[top][key], to[top][key]
+        np.testing.assert_allclose(tg["rssi"].numpy(), np.asarray(jg["rssi"]), rtol=0, atol=1e-3)
+        ja, ta = np.asarray(jg["audio"]), tg["audio"].numpy()
+        assert ja.shape == ta.shape
+        for i in range(slots):
+            if np.abs(ja[i]).max() > 0:
+                assert snr_db(ja[i], ta[i]) >= 50.0, (key, i)
+                n_open += 1
+            else:
+                assert not ta[i].any(), (key, i)
+    jb, tb = np.asarray(jo["wide"][()]["baseband"]), to["wide"][()]["baseband"].numpy()
+    assert np.linalg.norm(jb - tb) <= 1e-5 * np.linalg.norm(jb)
+    assert n_open == 2 * len(MIXED_MODES) + 2
+    js, ts = np.asarray(jo["spectrum"]), to["spectrum"].numpy()
+    strong = js >= js.max() - 60.0
+    assert float(np.max(np.abs(ts - js)[strong])) <= 0.05
+    np.testing.assert_allclose(to["rssi"].numpy(), np.asarray(jo["rssi"]), rtol=0, atol=1e-3)
+    jmeta = jax.tree.map(lambda v: np.asarray(v)[None], {k: v for k, v in jo.items() if k != "_packed"})
+    tmeta = {k: v for k, v in to.items() if k != "_packed"}
+    tmeta = tpipe._rebuild(tmeta, iter(v[None] for _, v in tpipe._leaves(tmeta)))
+    jp, tp = np.asarray(jo["_packed"]), to["_packed"].numpy()
+    assert jp.shape == tp.shape
+    jw = jax.tree_util.tree_leaves_with_path(jpipe.unpack_wire(jmeta, jp[None]))
+    tw = list(tpipe._leaves(tpipe.unpack_wire(tmeta, tp[None])))
+    own = [v.numpy() for _, v in tpipe._leaves(tmeta)]
+    assert len(jw) == len(tw) == len(own)
+    for (path, jv), (name, tv), ov in zip(jw, tw, own):
+        assert str(getattr(path[-1], "key", path[-1])) == name
+        if name in ("audio", "baseband"):
+            # the wire rounds to 1/scale and clips at +-32767/scale (AGC'd
+            # audio reaches 1.105, soft_clip's ceiling at headroom 1)
+            scale = tpipe.wire_spec(name)[1]
+            ov = np.clip(ov, -32767 / scale, 32767 / scale)
+            assert float(np.max(np.abs(tv - ov))) <= 0.5 / scale + 1e-6, name  # + f32 rounding
+            assert snr_db(jv.ravel(), tv.ravel()) >= 50.0, name
+        elif name == "spectrum":
+            assert float(np.max(np.abs(tv - jv)[jv >= jv.max() - 60.0])) <= 0.05
+        else:
+            np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-3)
+
+
+@pytest.fixture(scope="module", params=[20_000, 20_240], ids=["streaming", "fallback"])
+def mixed_run(request):
+    """The JAX package's mixed capture, block by block (its jitted
+    ``capture_step``), and its state after block 2."""
+    block = request.param
+    jcfg = jpipe.CapturePipelineConfig(**mixed_kw(block))
+    tcfg = tpipe.CapturePipelineConfig(**mixed_kw(block))
+    words = pack_i16_words(mixed_blocks(block, 3))
+    jctl, tctl = mixed_controls(jcfg, tcfg)
+    step = jpipe.jit_capture_step(jcfg)
+    jstate = jpipe.pipeline_init(jcfg)
+    jouts, jstate2 = [], None
+    for k in range(3):
+        jo, jstate = step(jnp.asarray(words[k]), jstate, jctl)
+        jouts.append(jax.device_get(jo))
+        if k == 1:
+            jstate2 = jax.device_get(jstate)
+    return tcfg, words, tctl, jouts, jstate2
+
+
+def test_mixed_capture_multi_matches(mixed_run):
+    tcfg, words, tctl, jouts, _ = mixed_run
+    touts, tstate = tpipe.capture_multi(
+        torch.from_numpy(words), tpipe.pipeline_init(tcfg, device="cpu"), tctl, tcfg
+    )
+    for k in range(3):
+        tk = tpipe._rebuild(touts, iter(v[k] for _, v in tpipe._leaves(touts)))
+        assert_mixed_match(jouts[k], tk)
+    assert tstate.wide[()].fir_tail.shape == (2, len(tpipe._wide_taps(tcfg.wide_cfg())) - 1)
+
+
+def test_mixed_mid_stream_handover_through_convert(mixed_run):
+    """The JAX package runs blocks 1-2 of the mixed capture; its state
+    (IIR sections, AGC envelopes, PLLs, BFO phases, resampler and FIR
+    tails) moves to the port, which runs block 3 and matches."""
+    tcfg, words, tctl, jouts, jstate2 = mixed_run
+    tstate = convert.capture_state_from_numpy(tcfg, jstate2, device="cpu")
+    assert tstate.banks["sam"].demod_states.pll.phase.shape == (4,)
+    assert tstate.banks["usb"].demod_states.nco_phase.dtype == torch.uint32
+    np.testing.assert_array_equal(tstate.wide[()].nco_phase.numpy(), jstate2.wide[()].nco_phase)
+    to, _ = tpipe.capture_step(torch.from_numpy(words[2]), tstate, tctl, tcfg)
+    assert_mixed_match(jouts[2], to)

@@ -1,24 +1,26 @@
-"""Per-capture block step: spectrum + channel banks (narrow subset).
+"""Per-capture block step: spectrum, channel banks and wide (WBFM) slots.
 
 Counterpart of ``wavecap_tpu/capture/pipeline.py``.  One block becomes,
 in one step on the card: the sampled spectrum, the whole-block RSSI,
 every narrowband channel through one channelizer pass and one demod bank
-per bank key, and one packed uint8 wire buffer that the host fetches.
+per bank key (any analog mode), the wide slots (an NCO shift and a
+decimating FIR of the whole block, then WBFM), and one packed uint8 wire
+buffer that the host fetches.
 
-This slice ports the NBFM banks with the voice-band FIR at an audio rate
-equal to the channel rate.  The wide (WBFM) groups, the P25 banks and
-the engine's listener-selected audio fetch (``audio_fetch_slots``) raise
-``NotImplementedError`` naming their ROADMAP item, as do the i8 and i4
-transports.
+The P25 banks and the engine's listener-selected audio fetch
+(``audio_fetch_slots``) raise ``NotImplementedError`` naming their
+ROADMAP item, as do the i8 and i4 transports.
 
 With i16-pair words as input, kernel K1 unpacks the words while it
 builds the channelizer's arms, and also writes the complex block for the
-spectrum, the RSSI and the next history.
+spectrum, the RSSI, the wide slots and the next history.  Kernel K7
+shifts and decimates the block for each wide slot group in one launch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -28,22 +30,29 @@ from .. import ops
 from ..models.channel_bank import (
     ChannelAssignment,
     ChannelBankConfig,
+    _stack_states,
     assignment_init,
     bank_demod_step,
     bank_init,
 )
+from ..models.analog import WbfmConfig, wbfm_demod_baseband, wbfm_init
 from ..models.registry import get_demod
 from ..ops.channelizer import ChannelizerConfig, _channelize, _unpack_i16_words, channelizer_init
+from ..ops import fir as fir_ops
 from ..utils.torchenv import DeviceLike, resolve_device
+
+WIDE_RATE = 240_000  # WBFM intermediate rate
 
 # --- device->host wire formats ----------------------------------------------
 # Each output leaf rides its natural wire width instead of f32: audio as
-# i16; the rest (spectrum dB, rssi) as f32.  The P25 soft symbols (i8)
-# and the wide baseband (i16) join with their banks.  ``pack_wire`` builds the one fetched
-# uint8 buffer on the device; ``unpack_wire`` reverses it on the host
-# from the shapes of the unfetched leaves.
+# i16, the wide slots' pre-MPX baseband as i16 at +-8; the rest
+# (spectrum dB, rssi) as f32.  The P25 soft symbols (i8) join with their
+# bank.  ``pack_wire`` builds the one fetched uint8 buffer on the device;
+# ``unpack_wire`` reverses it on the host from the shapes of the
+# unfetched leaves.
 _WIRE_SPECS: dict[str, tuple] = {
     "audio": (torch.int16, 32767.0),
+    "baseband": (torch.int16, 4095.0),
 }
 _NP_DTYPES = {
     torch.int16: np.dtype(np.int16),
@@ -121,6 +130,27 @@ def bank_key_parts(entry) -> tuple[str, tuple]:
 
 
 @dataclass(frozen=True)
+class WideSlotConfig:
+    """Direct-path (WBFM) slot group config."""
+
+    sample_rate: int
+    capacity: int = 2
+    audio_rate: int = 48_000
+    dsp: tuple = ()  # WbfmConfig overrides ((field, value), ...)
+
+    @property
+    def decim(self) -> int:
+        return max(1, int(self.sample_rate) // WIDE_RATE)
+
+    @property
+    def if_rate(self) -> int:
+        return int(self.sample_rate) // self.decim
+
+    def wbfm_cfg(self) -> WbfmConfig:
+        return WbfmConfig(sample_rate=self.if_rate, audio_rate=self.audio_rate, **dict(self.dsp))
+
+
+@dataclass(frozen=True)
 class CapturePipelineConfig:
     sample_rate: int
     block_size: int
@@ -165,10 +195,16 @@ class CapturePipelineConfig:
             capacity=self.narrow_capacity,
         )
 
+    def wide_cfg(self, dsp: tuple = ()) -> WideSlotConfig:
+        return WideSlotConfig(
+            sample_rate=self.sample_rate,
+            capacity=self.wide_capacity,
+            audio_rate=self.audio_rate,
+            dsp=dsp,
+        )
+
 
 def _check_supported(cfg: CapturePipelineConfig) -> None:
-    if cfg.wide_capacity > 0:
-        raise NotImplementedError("wide (WBFM) slot groups are ROADMAP Queue 1 item 7 (K7, K9)")
     if cfg.p25_capacity > 0 or cfg.p25p2_capacity > 0:
         raise NotImplementedError("P25 banks are ROADMAP Queue 1 item 8 (K12-K14)")
     if cfg.audio_fetch_slots > 0:
@@ -177,34 +213,104 @@ def _check_supported(cfg: CapturePipelineConfig) -> None:
         )
 
 
+class WideState(NamedTuple):
+    nco_phase: torch.Tensor  # (W,) uint32
+    fir_tail: torch.Tensor  # (W, taps-1) complex64
+    demod_states: Any  # stacked WbfmState
+
+
+class WideAssignment(NamedTuple):
+    offset_hz: torch.Tensor  # (W,) f32 from capture center
+    active: torch.Tensor  # (W,) bool
+    squelch_db: torch.Tensor  # (W,) f32
+
+
 class CaptureState(NamedTuple):
     chan_state: torch.Tensor | None  # shared channelizer history
     banks: dict  # bank key -> ChannelBankState
-    wide: dict | None = None
+    wide: dict | None = None  # dsp key -> WideState (one group per DSP set)
     p25: Any = None
     p25p2: Any = None
 
 
 class CaptureControl(NamedTuple):
     banks: dict  # bank key -> ChannelAssignment
-    wide: dict | None = None
+    wide: dict | None = None  # dsp key -> WideAssignment
     p25: ChannelAssignment | None = None
     p25p2: ChannelAssignment | None = None
+
+
+def wide_assignment_init(capacity: int, device: DeviceLike = None) -> WideAssignment:
+    dev = resolve_device(device)
+    return WideAssignment(
+        offset_hz=torch.zeros(capacity, dtype=torch.float32, device=dev),
+        active=torch.zeros(capacity, dtype=torch.bool, device=dev),
+        squelch_db=torch.full((capacity,), -1e9, dtype=torch.float32, device=dev),
+    )
+
+
+def _wide_taps(cfg: WideSlotConfig) -> np.ndarray:
+    return fir_ops.design_decimation_fir(cfg.decim, float(cfg.sample_rate))
+
+
+@lru_cache(maxsize=16)
+def _wide_taps_on(cfg: WideSlotConfig, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_wide_taps(cfg)).to(device)
+
+
+def wide_init(cfg: WideSlotConfig, device: DeviceLike = None) -> WideState:
+    dev = resolve_device(device)
+    taps = _wide_taps(cfg)
+    w = cfg.capacity
+    return WideState(
+        nco_phase=torch.zeros(w, dtype=torch.uint32, device=dev),
+        fir_tail=torch.zeros((w, len(taps) - 1), dtype=torch.complex64, device=dev),
+        demod_states=_stack_states(wbfm_init(cfg.wbfm_cfg(), device=dev), w),
+    )
 
 
 def pipeline_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> CaptureState:
     _check_supported(cfg)
     dev = resolve_device(device)
     banks = {m: bank_init(cfg.bank_cfg(m), device=dev) for m in cfg.narrow_modes}
+    wide = ({g: wide_init(cfg.wide_cfg(g), device=dev) for g in cfg.wide_groups}
+            if cfg.wide_capacity > 0 else None)
     chan = channelizer_init(cfg.channelizer(), device=dev) if cfg.narrow_modes else None
-    return CaptureState(chan_state=chan, banks=banks)
+    return CaptureState(chan_state=chan, banks=banks, wide=wide)
 
 
 def control_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> CaptureControl:
     _check_supported(cfg)
     dev = resolve_device(device)
     banks = {m: assignment_init(cfg.narrow_capacity, device=dev) for m in cfg.narrow_modes}
-    return CaptureControl(banks=banks)
+    wide = ({g: wide_assignment_init(cfg.wide_capacity, device=dev) for g in cfg.wide_groups}
+            if cfg.wide_capacity > 0 else None)
+    return CaptureControl(banks=banks, wide=wide)
+
+
+def _wide_step(
+    iq: torch.Tensor,
+    state: WideState,
+    assign: WideAssignment,
+    cfg: WideSlotConfig,
+    export_baseband: bool = False,
+):
+    """The wide slots of one group: K7 shifts each slot's offset to 0 Hz
+    (the exact NCO) and decimates the whole block to the IF rate, then
+    RSSI, WBFM, squelch and the active mask."""
+    taps = _wide_taps_on(cfg, iq.device)
+    dphi = ops.tuning_word(-assign.offset_hz, cfg.sample_rate)
+    dec, tails, phases = fir_ops.strided_fir(iq, taps, cfg.decim, head=state.fir_tail,
+                                     nco=(dphi, state.nco_phase))
+    rssi = ops.rssi_dbfs(dec)
+    audio, fm, dstates = wbfm_demod_baseband(dec, state.demod_states, cfg.wbfm_cfg())
+    audio = ops.squelch_gate(audio, rssi, assign.squelch_db)
+    audio = torch.where(assign.active[:, None], audio, torch.zeros_like(audio))
+    rssi = torch.where(assign.active, rssi, torch.full_like(rssi, -200.0))
+    out = {"audio": audio, "rssi": rssi}
+    if export_baseband:
+        out["baseband"] = fm
+    return out, WideState(phases, tails, dstates)
 
 
 def _to_complex(x_in: torch.Tensor) -> torch.Tensor:
@@ -249,8 +355,17 @@ def capture_step(
         bank_out[key] = o
         new_banks[key] = s
     out["banks"] = bank_out
+
+    new_wide = state.wide
+    if cfg.wide_capacity > 0 and state.wide is not None and ctl.wide is not None:
+        wide_out, new_wide = {}, {}
+        for g in cfg.wide_groups:
+            wide_out[g], new_wide[g] = _wide_step(
+                x, state.wide[g], ctl.wide[g], cfg.wide_cfg(g), cfg.export_wide_baseband
+            )
+        out["wide"] = wide_out
     out["_packed"] = pack_wire(out)
-    return out, CaptureState(chan_state=new_chan_state, banks=new_banks)
+    return out, CaptureState(chan_state=new_chan_state, banks=new_banks, wide=new_wide)
 
 
 def _stack(trees: list):

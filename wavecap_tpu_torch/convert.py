@@ -2,11 +2,14 @@
 
 The system has no weights: its parameters are the carried stream state
 (channelizer history, per-slot NCO phases, discriminator samples, FIR
-tails) plus filter taps, which both packages design with scipy.  These
-functions take the reference's ``CaptureState`` / ``CaptureControl`` as
-NamedTuples or nested dicts of numpy arrays (for example after
-``jax.device_get``) and return the port's on the requested device, so a
-stream can move from one package to the other mid-flight.
+tails, IIR sections, AGC envelopes, PLL phases, resampler tails) plus
+filter taps, which both packages design with scipy.  These functions
+take the reference's ``CaptureState`` / ``CaptureControl`` as NamedTuples
+or nested dicts of numpy arrays (for example after ``jax.device_get``)
+and return the port's on the requested device, so a stream can move from
+one package to the other mid-flight.  The port's own initial state is
+the template: every leaf is taken from the reference by field name and
+must match the template's shape.
 """
 
 from __future__ import annotations
@@ -15,62 +18,59 @@ import numpy as np
 import torch
 
 from .capture.pipeline import CaptureControl, CaptureState, CapturePipelineConfig
-from .models.analog import NbfmState
-from .models.channel_bank import ChannelAssignment, ChannelBankState
+from .capture.pipeline import control_init, pipeline_init
 from .utils.torchenv import DeviceLike, resolve_device
 
 
-def _field(tree, name: str):
-    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+def _field(tree, name):
+    if isinstance(tree, dict):
+        return tree[name]
+    return getattr(tree, name)
 
 
-def _tensor(a, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+def _fill(template, src, where: str):
+    """``template``'s structure with every leaf taken from ``src``."""
+    if isinstance(template, torch.Tensor):
+        arr = np.array(src, copy=True)
+        if tuple(arr.shape) != tuple(template.shape):
+            raise ValueError(f"{where}: shape {arr.shape} != {tuple(template.shape)}")
+        return torch.from_numpy(arr).to(device=template.device, dtype=template.dtype)
+    if isinstance(template, dict):
+        return {k: _fill(v, _field(src, k), f"{where}[{k!r}]") for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(_fill(getattr(template, f), _field(src, f), f"{where}.{f}")
+                                for f in template._fields))
+    if isinstance(template, tuple):
+        if len(src) != len(template):
+            raise ValueError(f"{where}: {len(src)} entries != {len(template)}")
+        return tuple(_fill(t, s, f"{where}[{i}]") for i, (t, s) in enumerate(zip(template, src)))
+    if template is None:
+        return None
+    raise TypeError(f"{where}: unexpected {type(template)}")
+
+
+def _refuse_p25(tree) -> None:
+    if any(_field(tree, k) is not None for k in ("p25", "p25p2")):
+        raise NotImplementedError("P25 bank state is ROADMAP Queue 1 item 8")
 
 
 def capture_state_from_numpy(
     cfg: CapturePipelineConfig, tree, device: DeviceLike = None
 ) -> CaptureState:
-    """The reference's capture state (narrow NBFM banks) as the port's."""
+    """The reference's capture state (narrow banks, wide groups) as the port's."""
     dev = resolve_device(device)
-    if any(_field(tree, k) is not None for k in ("wide", "p25", "p25p2")):
-        raise NotImplementedError("wide and P25 bank state are ROADMAP Queue 1 items 7-8")
-    chan = _field(tree, "chan_state")
-    banks = {}
-    src_banks = _field(tree, "banks")
-    for key in cfg.narrow_modes:
-        b = src_banks[key]
-        ds = _field(b, "demod_states")
-        banks[key] = ChannelBankState(
-            chan_state=_tensor(_field(b, "chan_state"), dev),
-            demod_states=NbfmState(
-                *(_tensor(_field(ds, f), dev) for f in ("disc_prev", "deemph", "hp_z", "lp_z")),
-                notch_z=tuple(_tensor(z, dev) for z in _field(ds, "notch_z")),
-                rs_tail=_tensor(_field(ds, "rs_tail"), dev),
-            ),
-            nco_phase=_tensor(_field(b, "nco_phase"), dev),
-        )
-    return CaptureState(
-        chan_state=None if chan is None else _tensor(chan, dev), banks=banks
-    )
+    _refuse_p25(tree)
+    return _fill(pipeline_init(cfg, device=dev), tree, "state")
 
 
 def capture_control_from_numpy(
     cfg: CapturePipelineConfig, tree, device: DeviceLike = None
 ) -> CaptureControl:
-    """The reference's capture control (narrow bank assignments) as the port's."""
+    """The reference's capture control (narrow and wide assignments) as the port's."""
     dev = resolve_device(device)
-    if any(_field(tree, k) is not None for k in ("wide", "p25", "p25p2")):
-        raise NotImplementedError("wide and P25 assignments are ROADMAP Queue 1 items 7-8")
+    _refuse_p25(tree)
     if _field(tree, "audio_sel") is not None:
         raise NotImplementedError(
             "the listener-selected audio fetch comes with the engine, ROADMAP Queue 1 item 9"
         )
-    src_banks = _field(tree, "banks")
-    banks = {
-        key: ChannelAssignment(
-            *(_tensor(_field(src_banks[key], f), dev) for f in ChannelAssignment._fields)
-        )
-        for key in cfg.narrow_modes
-    }
-    return CaptureControl(banks=banks)
+    return _fill(control_init(cfg, device=dev), tree, "control")

@@ -29,6 +29,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # kernel name -> (source stem, C symbol, argtypes); the last argument of
 # every entry is the CUDA stream
@@ -45,6 +46,18 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
         "voice_fir", "k4_voice_fir",
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     ),
+    "K5_resample_poly": (
+        "resample_poly", "k5_resample_poly",
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P),
+    ),
+    "K7_strided_fir": (
+        "strided_fir", "k7_strided_fir",
+        (_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    ),
+    "K9_iir_cascade": (
+        "iir_cascade", "k9_iir_cascade", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    ),
+    "K10_pll": ("pll", "k10_pll", (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P)),
 }
 
 _LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}

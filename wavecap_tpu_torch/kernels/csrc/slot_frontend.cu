@@ -4,14 +4,17 @@
 // wavecap_tpu/models/channel_bank.py:bank_demod_step up to the demod's
 // audio filter: the gather of the slot's channelizer row,
 // wavecap_tpu/ops/nco.py:freq_shift (exact uint32 NCO), ops/clip.py:rssi_dbfs
-// and ops/demod.py:quadrature_demod (fast_atan2, or atan2f when fast = 0).
+// and ops/demod.py:quadrature_demod (mode 1: fast_atan2; mode 0: atan2f).
+// Mode 2 writes the shifted rows themselves (complex) and skips the
+// discriminator: the AM, SSB and SAM banks detect from them.
 // Per slot s, over its row x of S samples:
 //
 //   acc[n]   = phase0 + n * dphi                   (uint32, wraps mod 2^32)
 //   y[n]     = x[n] * (cos, sin)(float(acc[n]) * 2 pi / 2^32)
 //   rssi     = 10 log10(max(mean |y|^2, 1e-20))
 //   fm[n]    = atan2(Im(y[n] y*[n-1]), Re(...)) * fs / (2 pi dev),  y[-1] = prev
-//   phase1   = phase0 + S * dphi,  last = y[S-1].
+//   phase1   = phase0 + S * dphi,  last = y[S-1]   (modes 0 and 1)
+//   rows[n]  = y[n]                               (mode 2)
 //
 // The tuning word dphi is computed per slot on the host side in torch
 // (the reference's hi/lo f32 split), so accumulators match bit for bit.
@@ -19,9 +22,10 @@
 // Bound on the H100: bytes.  At 800 slots x 4,920 samples it reads 31.5 MB
 // of channel rows and writes 15.7 MB of discriminator output (~14 us at
 // 3.35 TB/s); the arithmetic (~32 flops a sample with cosf and sinf counted
-// once each) is a few microseconds.  Design: one block per slot; the mixed
-// row is kept in shared memory (39 KB) so the discriminator reads its
-// neighbour there, and the power is a block reduction.
+// once each) is a few microseconds.  Mode 2 writes 31.5 MB instead.
+// Design: one block per slot; the mixed row is kept in shared memory
+// (39 KB) so the discriminator reads its neighbour there, and the power is
+// a block reduction.
 #include "common.cuh"
 
 namespace {
@@ -44,7 +48,7 @@ __global__ void slot_frontend_kernel(const float2* __restrict__ chans,
                                      const float2* __restrict__ prev, float* __restrict__ fm,
                                      float* __restrict__ rssi, unsigned* __restrict__ phase1,
                                      float2* __restrict__ last, int m, int s_len, float scale,
-                                     int fast) {
+                                     int mode) {
     extern __shared__ float2 y[];
     __shared__ float scratch[32];
     const int slot = blockIdx.x;
@@ -61,10 +65,21 @@ __global__ void slot_frontend_kernel(const float2* __restrict__ chans,
         const float c = cosf(ph), s = sinf(ph);
         const float2 v = x[n];
         const float2 w = make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
-        y[n] = w;
+        if (mode == 2) {
+            reinterpret_cast<float2*>(fm)[static_cast<long>(slot) * s_len + n] = w;
+        } else {
+            y[n] = w;
+        }
         power += w.x * w.x + w.y * w.y;
     }
     power = block_sum(power, scratch);  // its barrier also publishes y
+    if (mode == 2) {
+        if (threadIdx.x == 0) {
+            rssi[slot] = 10.f * log10f(fmaxf(power / static_cast<float>(s_len), 1e-20f));
+            phase1[slot] = p0 + static_cast<unsigned>(s_len) * d;
+        }
+        return;
+    }
 
     float* out = fm + static_cast<long>(slot) * s_len;
     const float2 before = prev[slot];
@@ -73,7 +88,7 @@ __global__ void slot_frontend_kernel(const float2* __restrict__ chans,
         const float2 b = n > 0 ? y[n - 1] : before;
         const float re = a.x * b.x + a.y * b.y;
         const float im = a.y * b.x - a.x * b.y;
-        out[n] = (fast ? fast_atan2(im, re) : atan2f(im, re)) * scale;
+        out[n] = (mode == 1 ? fast_atan2(im, re) : atan2f(im, re)) * scale;
     }
     if (threadIdx.x == 0) {
         rssi[slot] = 10.f * log10f(fmaxf(power / static_cast<float>(s_len), 1e-20f));
@@ -87,8 +102,9 @@ __global__ void slot_frontend_kernel(const float2* __restrict__ chans,
 WAVECAP_EXPORT int k3_slot_frontend(const void* chans, const void* index, const void* dphi,
                                     const void* phase0, const void* prev, void* fm,
                                     void* rssi, void* phase1, void* last, int n_slots, int m,
-                                    int s_len, float scale, int fast, void* stream) {
-    const size_t smem = sizeof(float2) * static_cast<size_t>(s_len);
+                                    int s_len, float scale, int mode, void* stream) {
+    if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = mode == 2 ? 0 : sizeof(float2) * static_cast<size_t>(s_len);
     cudaError_t err = cudaFuncSetAttribute(
         slot_frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -96,6 +112,6 @@ WAVECAP_EXPORT int k3_slot_frontend(const void* chans, const void* index, const 
         static_cast<const float2*>(chans), static_cast<const int*>(index),
         static_cast<const unsigned*>(dphi), static_cast<const unsigned*>(phase0),
         static_cast<const float2*>(prev), static_cast<float*>(fm), static_cast<float*>(rssi),
-        static_cast<unsigned*>(phase1), static_cast<float2*>(last), m, s_len, scale, fast);
+        static_cast<unsigned*>(phase1), static_cast<float2*>(last), m, s_len, scale, mode);
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,12 @@
-"""NBFM demodulator, FIR path (counterpart of ``wavecap_tpu/models/analog.py``).
+"""Analog demodulators: WBFM, NBFM, AM, SSB, SAM.
 
-``nbfm_demod(iq, state, cfg) -> (audio, state)`` on a batch of channels
-(``B + (n,)``), with the reference's config and state types.  This slice
-ports the linear-phase voice-band FIR path (``filter_impl="fir"``) at an
-audio rate equal to the channel rate; the IIR filters, deemphasis,
-notches, noise blanker and noise reduction, and rate changes raise
-``NotImplementedError`` naming the ROADMAP kernel that brings them.
+Counterpart of ``wavecap_tpu/models/analog.py``: pure block functions
+``demod(iq, state, cfg) -> (audio, state)`` over a batch of channels
+(``B + (n,)``, the states stacked with the same leading axes), with the
+reference's config and state types.  As in the reference, every linear
+audio filter runs at ``audio_rate``, after the detector and the
+resampler.  The noise blanker and the spectral noise reduction (kernel
+K11) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,107 @@ import torch
 from scipy import signal as _sps
 
 from .. import ops
+from ..ops import iir as iir_ops
+from ..ops import pll as pll_ops
 from ..utils.torchenv import DeviceLike, resolve_device
+
+
+def check_supported(cfg) -> None:
+    """Raise for the options of the reference that are not ported yet."""
+    if getattr(cfg, "enable_noise_blanker", False) or getattr(cfg, "enable_noise_reduction", False):
+        raise NotImplementedError(
+            "the noise blanker and noise reduction are ROADMAP Queue 1 item 7's "
+            "last part, kernel K11 (ops/noise.py)"
+        )
+
+
+# --- shared audio post-chain ---------------------------------------------------
+
+
+def _notch_states(n_notch: int, device: torch.device) -> tuple:
+    return tuple(ops.sos_init(1, device=device) for _ in range(n_notch))
+
+
+def _apply_notches(audio, rate, freqs, states):
+    new_states = []
+    for f, z in zip(freqs, states):
+        if 0 < f < rate / 2:
+            audio, z = iir_ops.notch(audio, rate, f, z)
+        new_states.append(z)
+    return audio, tuple(new_states)
+
+
+# --- WBFM ----------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class WbfmConfig:
+    sample_rate: int
+    audio_rate: int = 48_000
+    enable_deemphasis: bool = True
+    deemphasis_tau: float = 75e-6
+    enable_mpx_filter: bool = True
+    mpx_cutoff_hz: float = 15_000.0
+    enable_highpass: bool = False
+    highpass_hz: float = 100.0
+    enable_noise_blanker: bool = False
+    noise_blanker_threshold_db: float = 10.0
+    notch_frequencies: tuple = ()
+    enable_noise_reduction: bool = False
+    noise_reduction_db: float = 12.0
+    target_rms: float = 0.18
+
+
+class WbfmState(NamedTuple):
+    disc_prev: torch.Tensor
+    deemph: torch.Tensor
+    mpx_z: torch.Tensor
+    hp_z: torch.Tensor
+    notch_z: tuple
+    rs_tail: torch.Tensor
+
+
+def wbfm_init(cfg: WbfmConfig, device: DeviceLike = None) -> WbfmState:
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return WbfmState(
+        disc_prev=ops.fm_discriminator_init(device=dev),
+        deemph=ops.onepole_init(device=dev),
+        mpx_z=ops.sos_init(iir_ops.n_sections("low", 5), device=dev),
+        hp_z=ops.sos_init(iir_ops.n_sections("high", 5), device=dev),
+        notch_z=_notch_states(len(cfg.notch_frequencies), dev),
+        rs_tail=ops.resample_stream_init(cfg.sample_rate, cfg.audio_rate, device=dev),
+    )
+
+
+def wbfm_demod(iq: torch.Tensor, state: WbfmState, cfg: WbfmConfig):
+    """Wideband broadcast FM -> mono audio at ``cfg.audio_rate``."""
+    audio, _fm, st = wbfm_demod_baseband(iq, state, cfg)
+    return audio, st
+
+
+def wbfm_demod_baseband(iq: torch.Tensor, state: WbfmState, cfg: WbfmConfig):
+    """Like :func:`wbfm_demod`, also returning the pre-MPX discriminator
+    baseband at the input rate (where the 57 kHz RDS subcarrier lives)."""
+    check_supported(cfg)
+    ar = cfg.audio_rate
+    fm, disc_prev = ops.quadrature_demod(iq, cfg.sample_rate, state.disc_prev)
+    audio, rs_tail = ops.resample_poly_stream(fm, cfg.sample_rate, ar, state.rs_tail)
+    deemph = state.deemph
+    if cfg.enable_deemphasis:
+        audio, deemph = ops.deemphasis(audio, ar, cfg.deemphasis_tau, deemph)
+    mpx_z = state.mpx_z
+    if cfg.enable_mpx_filter and cfg.mpx_cutoff_hz < ar / 2:
+        audio, mpx_z = iir_ops.lowpass(audio, ar, cfg.mpx_cutoff_hz, mpx_z)
+    hp_z = state.hp_z
+    if cfg.enable_highpass and cfg.highpass_hz > 0:
+        audio, hp_z = iir_ops.highpass(audio, ar, cfg.highpass_hz, hp_z)
+    audio, notch_z = _apply_notches(audio, ar, cfg.notch_frequencies, state.notch_z)
+    audio = ops.soft_clip(ops.rms_normalize(audio, cfg.target_rms))
+    return audio, fm, WbfmState(disc_prev, deemph, mpx_z, hp_z, notch_z, rs_tail)
+
+
+# --- NBFM ----------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -39,7 +140,7 @@ class NbfmConfig:
     enable_noise_reduction: bool = False
     noise_reduction_db: float = 12.0
     target_rms: float = 0.18
-    filter_impl: str = "iir"  # "iir" (biquad scans, not ported yet) | "fir"
+    filter_impl: str = "iir"  # "iir" (biquad cascades, kernel K9) | "fir" (kernel K4)
     fast_discriminator: bool = False  # polynomial atan2 (~1e-4 rad)
 
 
@@ -50,18 +151,6 @@ class NbfmState(NamedTuple):
     lp_z: torch.Tensor
     notch_z: tuple
     rs_tail: torch.Tensor
-
-
-def check_supported(cfg: NbfmConfig) -> None:
-    """Raise for the parts of NBFM this slice does not port yet."""
-    if cfg.filter_impl != "fir":
-        raise NotImplementedError("NBFM filter_impl='iir' is ROADMAP kernel K9 (biquad scans)")
-    if cfg.enable_deemphasis or cfg.notch_frequencies:
-        raise NotImplementedError("NBFM deemphasis and notches are ROADMAP kernel K9")
-    if cfg.enable_noise_blanker or cfg.enable_noise_reduction:
-        raise NotImplementedError("NBFM noise blanker / reduction are ROADMAP kernel K11")
-    if int(cfg.sample_rate) != int(cfg.audio_rate):
-        raise NotImplementedError("NBFM audio at another rate is ROADMAP kernel K5")
 
 
 @lru_cache(maxsize=32)
@@ -87,33 +176,243 @@ def voice_band_taps(cfg: NbfmConfig) -> np.ndarray:
 def nbfm_init(cfg: NbfmConfig, device: DeviceLike = None) -> NbfmState:
     check_supported(cfg)
     dev = resolve_device(device)
-    taps = voice_band_taps(cfg)
+    if cfg.filter_impl == "fir":
+        hp_z = ops.fir_init(len(voice_band_taps(cfg)), torch.float32, device=dev)
+        lp_z = torch.zeros((0,), dtype=torch.float32, device=dev)
+    else:
+        hp_z = ops.sos_init(iir_ops.n_sections("high", 5), device=dev)
+        lp_z = ops.sos_init(iir_ops.n_sections("low", 5), device=dev)
     return NbfmState(
         disc_prev=ops.fm_discriminator_init(device=dev),
-        deemph=torch.zeros((), dtype=torch.float32, device=dev),
-        hp_z=ops.fir_init(len(taps), torch.float32, device=dev),
-        lp_z=torch.zeros((0,), dtype=torch.float32, device=dev),
-        notch_z=(),
+        deemph=ops.onepole_init(device=dev),
+        hp_z=hp_z,
+        lp_z=lp_z,
+        notch_z=_notch_states(len(cfg.notch_frequencies), dev),
         rs_tail=ops.resample_stream_init(cfg.sample_rate, cfg.audio_rate, device=dev),
     )
+
+
+def nbfm_audio(fm: torch.Tensor, state: NbfmState, cfg: NbfmConfig):
+    """NBFM after the discriminator: resample, deemphasis, the voice
+    filters, notches, normalize and clip.  ``state.disc_prev`` passes
+    through."""
+    check_supported(cfg)
+    ar = cfg.audio_rate
+    audio, rs_tail = ops.resample_poly_stream(fm, cfg.sample_rate, ar, state.rs_tail)
+    deemph = state.deemph
+    if cfg.enable_deemphasis:
+        audio, deemph = ops.deemphasis(audio, ar, cfg.deemphasis_tau, deemph)
+    hp_z, lp_z = state.hp_z, state.lp_z
+    if cfg.filter_impl == "fir" and (cfg.enable_highpass or cfg.enable_lowpass):
+        taps = torch.from_numpy(voice_band_taps(cfg)).to(audio.device)
+        audio, hp_z = ops.fir_filter(audio, taps, hp_z)
+    else:
+        if cfg.enable_highpass and cfg.highpass_hz > 0:
+            audio, hp_z = iir_ops.highpass(audio, ar, cfg.highpass_hz, hp_z)
+        if cfg.enable_lowpass and 0 < cfg.lowpass_hz < ar / 2:
+            audio, lp_z = iir_ops.lowpass(audio, ar, cfg.lowpass_hz, lp_z)
+    audio, notch_z = _apply_notches(audio, ar, cfg.notch_frequencies, state.notch_z)
+    audio = ops.soft_clip(ops.rms_normalize(audio, cfg.target_rms))
+    return audio, NbfmState(state.disc_prev, deemph, hp_z, lp_z, notch_z, rs_tail)
 
 
 def nbfm_demod(iq: torch.Tensor, state: NbfmState, cfg: NbfmConfig):
     """Narrowband FM voice -> audio; discriminator scaled to max deviation."""
     check_supported(cfg)
-    ar = cfg.audio_rate
     fm, disc_prev = ops.quadrature_demod(
-        iq,
-        cfg.sample_rate,
-        state.disc_prev,
-        max_deviation_hz=cfg.max_deviation_hz,
+        iq, cfg.sample_rate, state.disc_prev, max_deviation_hz=cfg.max_deviation_hz,
         atan_impl="fast" if cfg.fast_discriminator else "exact",
     )
-    audio, rs_tail = ops.resample_poly_stream(fm, cfg.sample_rate, ar, state.rs_tail)
-    hp_z = state.hp_z
-    if cfg.enable_highpass or cfg.enable_lowpass:
-        taps = torch.from_numpy(voice_band_taps(cfg)).to(audio.device)
-        audio, hp_z = ops.fir_filter(audio, taps, hp_z)
-    audio = ops.rms_normalize(audio, cfg.target_rms)
-    audio = ops.soft_clip(audio)
-    return audio, NbfmState(disc_prev, state.deemph, hp_z, state.lp_z, state.notch_z, rs_tail)
+    return nbfm_audio(fm, state._replace(disc_prev=disc_prev), cfg)
+
+
+# --- AM ------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AmConfig:
+    sample_rate: int
+    audio_rate: int = 48_000
+    enable_agc: bool = True
+    agc_target_db: float = -20.0
+    enable_highpass: bool = True
+    highpass_hz: float = 100.0
+    enable_lowpass: bool = True
+    lowpass_hz: float = 5_000.0
+    enable_noise_blanker: bool = False
+    noise_blanker_threshold_db: float = 10.0
+    notch_frequencies: tuple = ()
+
+
+class AmState(NamedTuple):
+    hp_z: torch.Tensor
+    lp_z: torch.Tensor
+    agc: ops.AgcState
+    notch_z: tuple
+    rs_tail: torch.Tensor
+
+
+def am_init(cfg: AmConfig, device: DeviceLike = None) -> AmState:
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return AmState(
+        hp_z=ops.sos_init(iir_ops.n_sections("high", 5), device=dev),
+        lp_z=ops.sos_init(iir_ops.n_sections("low", 5), device=dev),
+        agc=ops.agc_init(device=dev),
+        notch_z=_notch_states(len(cfg.notch_frequencies), dev),
+        rs_tail=ops.resample_stream_init(cfg.sample_rate, cfg.audio_rate, device=dev),
+    )
+
+
+def _voice_post(audio, hp_z, lp_z, agc, notch_z, cfg):
+    """AM and SAM after the detector and the resampler: high-pass,
+    low-pass, notches, then AGC (or a plain soft clip)."""
+    ar = cfg.audio_rate
+    if cfg.enable_highpass and cfg.highpass_hz > 0:
+        audio, hp_z = iir_ops.highpass(audio, ar, cfg.highpass_hz, hp_z)
+    if cfg.enable_lowpass and 0 < cfg.lowpass_hz < ar / 2:
+        audio, lp_z = iir_ops.lowpass(audio, ar, cfg.lowpass_hz, lp_z)
+    audio, notch_z = _apply_notches(audio, ar, cfg.notch_frequencies, notch_z)
+    if cfg.enable_agc:
+        audio, agc = ops.apply_agc(audio, ar, agc, target_db=cfg.agc_target_db)
+    else:
+        audio = ops.soft_clip(audio)
+    return audio, hp_z, lp_z, agc, notch_z
+
+
+def am_demod(iq: torch.Tensor, state: AmState, cfg: AmConfig):
+    """AM envelope detection -> audio."""
+    check_supported(cfg)
+    audio = ops.am_envelope(iq)
+    audio, rs_tail = ops.resample_poly_stream(audio, cfg.sample_rate, cfg.audio_rate,
+                                              state.rs_tail)
+    audio, hp_z, lp_z, agc, notch_z = _voice_post(
+        audio, state.hp_z, state.lp_z, state.agc, state.notch_z, cfg)
+    return audio, AmState(hp_z, lp_z, agc, notch_z, rs_tail)
+
+
+# --- SSB -----------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SsbConfig:
+    sample_rate: int
+    audio_rate: int = 48_000
+    mode: str = "usb"  # "usb" | "lsb"
+    bfo_offset_hz: float = 1_500.0
+    enable_agc: bool = True
+    agc_target_db: float = -20.0
+    enable_bandpass: bool = True
+    bandpass_low: float = 300.0
+    bandpass_high: float = 3_000.0
+    enable_noise_blanker: bool = False
+    noise_blanker_threshold_db: float = 10.0
+    notch_frequencies: tuple = ()
+
+
+class SsbState(NamedTuple):
+    nco_phase: torch.Tensor
+    bp_z: torch.Tensor
+    agc: ops.AgcState
+    notch_z: tuple
+    rs_tail: torch.Tensor
+
+
+def ssb_init(cfg: SsbConfig, device: DeviceLike = None) -> SsbState:
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return SsbState(
+        nco_phase=torch.zeros((), dtype=torch.uint32, device=dev),
+        # order 5, the reference's bandpass default
+        bp_z=ops.sos_init(iir_ops.n_sections("band", 5), device=dev),
+        agc=ops.agc_init(device=dev),
+        notch_z=_notch_states(len(cfg.notch_frequencies), dev),
+        rs_tail=ops.resample_stream_init(cfg.sample_rate, cfg.audio_rate, device=dev),
+    )
+
+
+def ssb_demod(iq: torch.Tensor, state: SsbState, cfg: SsbConfig):
+    """SSB product detection: the fixed BFO shift (exact host tuning
+    word), the real part, then the band-pass and AGC at audio rate."""
+    check_supported(cfg)
+    ar = cfg.audio_rate
+    shift = cfg.bfo_offset_hz if cfg.mode.lower() == "usb" else -cfg.bfo_offset_hz
+    shifted, nco_phase = ops.freq_shift(iq, float(shift), cfg.sample_rate, state.nco_phase)
+    audio = ops.ssb_product(shifted)
+    audio, rs_tail = ops.resample_poly_stream(audio, cfg.sample_rate, ar, state.rs_tail)
+    bp_z = state.bp_z
+    if cfg.enable_bandpass:
+        audio, bp_z = iir_ops.bandpass(audio, ar, cfg.bandpass_low, cfg.bandpass_high, bp_z,
+                                       order=5)
+    audio, notch_z = _apply_notches(audio, ar, cfg.notch_frequencies, state.notch_z)
+    agc = state.agc
+    if cfg.enable_agc:
+        audio, agc = ops.apply_agc(audio, ar, agc, target_db=cfg.agc_target_db)
+    else:
+        audio = ops.soft_clip(audio)
+    return audio, SsbState(nco_phase, bp_z, agc, notch_z, rs_tail)
+
+
+# --- SAM (synchronous AM) ------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SamConfig:
+    sample_rate: int
+    audio_rate: int = 48_000
+    sideband: str = "dsb"  # "dsb" | "usb" | "lsb"
+    pll_bandwidth_hz: float = 50.0
+    pll_damping: float = 0.707
+    enable_agc: bool = True
+    agc_target_db: float = -20.0
+    enable_highpass: bool = True
+    highpass_hz: float = 100.0
+    enable_lowpass: bool = True
+    lowpass_hz: float = 5_000.0
+    enable_noise_blanker: bool = False
+    noise_blanker_threshold_db: float = 10.0
+    notch_frequencies: tuple = ()
+
+
+class SamState(NamedTuple):
+    pll: pll_ops.PllState
+    hp_z: torch.Tensor
+    lp_z: torch.Tensor
+    agc: ops.AgcState
+    notch_z: tuple
+    rs_tail: torch.Tensor
+
+
+def sam_init(cfg: SamConfig, device: DeviceLike = None) -> SamState:
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return SamState(
+        pll=pll_ops.pll_init(device=dev),
+        hp_z=ops.sos_init(iir_ops.n_sections("high", 5), device=dev),
+        lp_z=ops.sos_init(iir_ops.n_sections("low", 5), device=dev),
+        agc=ops.agc_init(device=dev),
+        notch_z=_notch_states(len(cfg.notch_frequencies), dev),
+        rs_tail=ops.resample_stream_init(cfg.sample_rate, cfg.audio_rate, device=dev),
+    )
+
+
+def sam_demod(iq: torch.Tensor, state: SamState, cfg: SamConfig):
+    """Synchronous AM with PLL carrier recovery.  The recovered carrier
+    offset in Hz is ``state.pll.freq * sample_rate / (2 pi)``."""
+    check_supported(cfg)
+    coherent, pll_state = pll_ops.carrier_recovery_pll(
+        iq, cfg.sample_rate, state.pll, cfg.pll_bandwidth_hz, cfg.pll_damping
+    )
+    sb = cfg.sideband.lower()
+    if sb == "usb":
+        audio = coherent.real + coherent.imag
+    elif sb == "lsb":
+        audio = coherent.real - coherent.imag
+    else:
+        audio = coherent.real
+    audio = audio.to(torch.float32)
+    audio, rs_tail = ops.resample_poly_stream(audio, cfg.sample_rate, cfg.audio_rate,
+                                              state.rs_tail)
+    audio, hp_z, lp_z, agc, notch_z = _voice_post(
+        audio, state.hp_z, state.lp_z, state.agc, state.notch_z, cfg)
+    return audio, SamState(pll_state, hp_z, lp_z, agc, notch_z, rs_tail)

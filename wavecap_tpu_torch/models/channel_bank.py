@@ -1,20 +1,24 @@
 """Channel bank: one wideband stream -> many demodulated audio channels.
 
 Counterpart of ``wavecap_tpu/models/channel_bank.py``.  The channelizer
-produces every channel at once, and the NBFM demod runs over a static
+produces every channel at once, and one demod mode runs over a static
 number of slots; where the reference ``vmap``s a per-slot function, the
 port writes the slot axis out.  Per-slot routing (channel index, fine
 offset, active mask, squelch) is data, so retuning changes no shape.
 
-Two kernels carry the bank on the card, each with its plain version here:
+Two kernels carry the bank's own work on the card, each with its plain
+version here:
 
 * K3 ``slot_frontend``: gather of the slot's channel row, the exact
-  uint32 NCO shift, RSSI and the FM discriminator;
-* K4 ``voice_fir``: the 127-tap voice-band FIR with its overlap-save
-  carry, RMS normalization, soft clip, squelch and the active mask.
+  uint32 NCO shift and RSSI, then for NBFM the FM discriminator; for the
+  other modes it writes the shifted rows, which the mode's demod takes
+  (through the registry) on the whole ``(capacity, S)`` batch;
+* K4 ``voice_fir``: NBFM's 127-tap voice-band FIR (``filter_impl="fir"``)
+  with its overlap-save carry, RMS normalization, soft clip, squelch and
+  the active mask.
 
-This slice ports the NBFM bank with the voice-band FIR
-(``filter_impl="fir"``) at an audio rate equal to the channel rate.
+Every other bank ends with the reference's squelch and active-mask
+epilogue in torch.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from .. import ops
 from ..kernels import launch
 from ..ops.channelizer import ChannelizerConfig, channelize, channelizer_init
 from ..utils.torchenv import DeviceLike, resolve_device
-from .analog import NbfmConfig, check_supported, voice_band_taps
+from .analog import NbfmConfig, check_supported, nbfm_audio, voice_band_taps
 from .registry import get_demod
 
 _CLIP_GAIN = float(np.float32(1.0 / np.tanh(1.5)) * np.float32(0.95))  # soft_clip's
@@ -61,15 +65,18 @@ class ChannelAssignment(NamedTuple):
     squelch_db: torch.Tensor  # (capacity,) f32 dBFS threshold (-1e9 = open)
 
 
-def _check_bank(cfg: ChannelBankConfig) -> NbfmConfig:
+def _check_bank(cfg: ChannelBankConfig):
     get_demod(cfg.mode)  # raises for the reference's modes not ported yet
-    if cfg.mode.lower() != "nbfm" or not isinstance(cfg.demod_cfg, NbfmConfig):
-        raise NotImplementedError(f"bank mode {cfg.mode!r} is not ported yet")
+    check_supported(cfg.demod_cfg)
+    return cfg.demod_cfg
+
+
+def _voice_fir_path(cfg: ChannelBankConfig) -> bool:
+    """NBFM whose audio chain is the voice-band FIR alone: kernel K4."""
     dc = cfg.demod_cfg
-    check_supported(dc)
-    if not (dc.enable_highpass or dc.enable_lowpass):
-        raise NotImplementedError("the NBFM bank runs with its voice-band FIR on (kernel K4)")
-    return dc
+    return (cfg.mode.lower() == "nbfm" and dc.filter_impl == "fir"
+            and (dc.enable_highpass or dc.enable_lowpass)
+            and not dc.enable_deemphasis and not dc.notch_frequencies)
 
 
 def assignment_init(capacity: int, device: DeviceLike = None) -> ChannelAssignment:
@@ -111,18 +118,30 @@ def _on(t: torch.Tensor, device: torch.device, dtype: torch.dtype, shape: tuple,
 # --- K3: gather + NCO + RSSI + discriminator ---------------------------------
 
 
+def _k3_mode(cfg: ChannelBankConfig) -> int:
+    """K3's output: 0 exact discriminator, 1 fast, 2 the shifted rows."""
+    if cfg.mode.lower() != "nbfm":
+        return 2
+    return 1 if cfg.demod_cfg.fast_discriminator else 0
+
+
 def slot_frontend_plain(chans, assign: ChannelAssignment, nco_phase, disc_prev,
                         cfg: ChannelBankConfig):
-    """Plain version of K3: ``(fm, rssi, nco_phase, disc_prev)`` per slot."""
-    dc = cfg.demod_cfg
+    """Plain version of K3: ``(out, rssi, nco_phase, disc_prev)`` per slot,
+    where ``out`` is the NBFM discriminator or, for the other modes, the
+    shifted complex rows (``disc_prev`` then passes through)."""
     idx = assign.channel_index.clamp(0, chans.shape[0] - 1).long()  # the reference clamps
     shifted, phase1 = ops.freq_shift(
         chans[idx], -assign.fine_offset_hz, cfg.channelizer.channel_rate, nco_phase
     )
     rssi = ops.rssi_dbfs(shifted)
+    mode = _k3_mode(cfg)
+    if mode == 2:
+        return shifted, rssi, phase1, disc_prev
+    dc = cfg.demod_cfg
     fm, last = ops.quadrature_demod(
         shifted, dc.sample_rate, disc_prev, max_deviation_hz=dc.max_deviation_hz,
-        atan_impl="fast" if dc.fast_discriminator else "exact",
+        atan_impl="fast" if mode == 1 else "exact",
     )
     return fm, rssi, phase1, last
 
@@ -137,23 +156,29 @@ def slot_frontend(chans, assign: ChannelAssignment, nco_phase, disc_prev,
     if chans.dim() != 2 or chans.dtype != torch.complex64 or not chans.is_contiguous():
         raise ValueError("K3 takes contiguous complex64 channels of shape (M, S)")
     m, s = chans.shape
-    if not 0 < s <= _MAX_ROW:
+    mode = _k3_mode(cfg)
+    if s == 0 or (mode != 2 and s > _MAX_ROW):  # the discriminator stages its row
         raise NotImplementedError(f"K3 stages rows of 1..{_MAX_ROW} samples, not {s}")
     c = cfg.capacity
     _on(assign.channel_index, dev, torch.int32, (c,), "channel_index")
     _on(assign.fine_offset_hz, dev, torch.float32, (c,), "fine_offset_hz")
     _on(nco_phase, dev, torch.uint32, (c,), "nco_phase")
-    _on(disc_prev, dev, torch.complex64, (c,), "disc_prev")
-    dc = cfg.demod_cfg
     dphi = ops.tuning_word(-assign.fine_offset_hz, cfg.channelizer.channel_rate).contiguous()
-    fm = torch.empty((c, s), dtype=torch.float32, device=dev)
     rssi = torch.empty(c, dtype=torch.float32, device=dev)
     phase1 = torch.empty(c, dtype=torch.uint32, device=dev)
+    if mode == 2:
+        rows = torch.empty((c, s), dtype=torch.complex64, device=dev)
+        launch("K3_slot_frontend", dev, chans, assign.channel_index, dphi, nco_phase, None,
+               rows, rssi, phase1, None, c, m, s, 0.0, mode)
+        return rows, rssi, phase1, disc_prev
+    _on(disc_prev, dev, torch.complex64, (c,), "disc_prev")
+    dc = cfg.demod_cfg
+    fm = torch.empty((c, s), dtype=torch.float32, device=dev)
     last = torch.empty(c, dtype=torch.complex64, device=dev)
     scale = float(np.float32(dc.sample_rate / (2.0 * np.pi * dc.max_deviation_hz)))
     launch(
         "K3_slot_frontend", dev, chans, assign.channel_index, dphi, nco_phase, disc_prev,
-        fm, rssi, phase1, last, c, m, s, scale, int(bool(dc.fast_discriminator)),
+        fm, rssi, phase1, last, c, m, s, scale, mode,
     )
     return fm, rssi, phase1, last
 
@@ -223,14 +248,26 @@ def bank_demod_step(
     """
     dc = _check_bank(cfg)
     ds = state.demod_states
-    fm, rssi, nco_phase, disc_prev = slot_frontend(
-        chans, assign, state.nco_phase, ds.disc_prev, cfg
-    )
-    fm, rs_tail = ops.resample_poly_stream(fm, dc.sample_rate, dc.audio_rate, ds.rs_tail)
-    audio, rssi, hp_z = voice_fir(fm, ds.hp_z, rssi, assign, cfg)
-    demod_states = ds._replace(disc_prev=disc_prev, hp_z=hp_z, rs_tail=rs_tail)
+    if cfg.mode.lower() == "nbfm":
+        fm, rssi, nco_phase, disc_prev = slot_frontend(
+            chans, assign, state.nco_phase, ds.disc_prev, cfg
+        )
+        ds = ds._replace(disc_prev=disc_prev)
+        if _voice_fir_path(cfg):
+            fm, rs_tail = ops.resample_poly_stream(fm, dc.sample_rate, dc.audio_rate, ds.rs_tail)
+            audio, rssi, hp_z = voice_fir(fm, ds.hp_z, rssi, assign, cfg)
+            out = {"audio": audio, "rssi": rssi}
+            return out, ChannelBankState(state.chan_state, ds._replace(hp_z=hp_z, rs_tail=rs_tail),
+                                         nco_phase)
+        audio, ds = nbfm_audio(fm, ds, dc)
+    else:
+        shifted, rssi, nco_phase, _ = slot_frontend(chans, assign, state.nco_phase, None, cfg)
+        audio, ds = get_demod(cfg.mode).demod(shifted, ds, dc)
+    audio = ops.squelch_gate(audio, rssi, assign.squelch_db)
+    audio = torch.where(assign.active[:, None], audio, torch.zeros_like(audio))
+    rssi = torch.where(assign.active, rssi, torch.full_like(rssi, -200.0))
     out = {"audio": audio, "rssi": rssi}
-    return out, ChannelBankState(state.chan_state, demod_states, nco_phase)
+    return out, ChannelBankState(state.chan_state, ds, nco_phase)
 
 
 def bank_step(

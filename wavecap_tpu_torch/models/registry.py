@@ -1,8 +1,8 @@
 """Demodulator registry: mode name -> (config class, init, demod fn).
 
-Counterpart of ``wavecap_tpu/models/registry.py``; this slice ports
-``nbfm``.  The reference's other modes raise ``NotImplementedError``
-naming the ROADMAP work that brings them.
+Counterpart of ``wavecap_tpu/models/registry.py``: the six analog modes.
+The reference's P25 soft-symbol modes raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -19,16 +19,16 @@ class DemodSpec(NamedTuple):
 
 
 REGISTRY: dict[str, DemodSpec] = {
+    "wbfm": DemodSpec(analog.WbfmConfig, analog.wbfm_init, analog.wbfm_demod),
     "nbfm": DemodSpec(analog.NbfmConfig, analog.nbfm_init, analog.nbfm_demod),
+    "am": DemodSpec(analog.AmConfig, analog.am_init, analog.am_demod),
+    "sam": DemodSpec(analog.SamConfig, analog.sam_init, analog.sam_demod),
+    "usb": DemodSpec(analog.SsbConfig, analog.ssb_init, analog.ssb_demod),
+    "lsb": DemodSpec(analog.SsbConfig, analog.ssb_init, analog.ssb_demod),
 }
 
-# the reference's modes that later slices bring (ROADMAP Queue 1)
+# the reference's modes that a later slice brings (ROADMAP Queue 1)
 _NOT_PORTED = {
-    "wbfm": "Queue 1 item 7 (K9 IIR filters)",
-    "am": "Queue 1 item 7 (K9 IIR filters, AGC)",
-    "sam": "Queue 1 item 7 (K9, K10 PLL)",
-    "usb": "Queue 1 item 7 (K9 IIR filters)",
-    "lsb": "Queue 1 item 7 (K9 IIR filters)",
     "p25-soft": "Queue 1 item 8 (K12 C4FM timing)",
     "p25-cqpsk-soft": "Queue 1 item 8 (K13 CQPSK)",
 }
@@ -44,4 +44,7 @@ def get_demod(mode: str) -> DemodSpec:
 
 
 def make_config(mode: str, sample_rate: int, **kwargs) -> Any:
-    return get_demod(mode).config_cls(sample_rate=sample_rate, **kwargs)
+    spec = get_demod(mode)
+    if mode.lower() in ("usb", "lsb"):
+        kwargs.setdefault("mode", mode.lower())
+    return spec.config_cls(sample_rate=sample_rate, **kwargs)

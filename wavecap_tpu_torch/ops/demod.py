@@ -1,4 +1,5 @@
-"""FM discriminator primitives (counterpart of ``wavecap_tpu/ops/demod.py``).
+"""Demodulation primitives: the FM discriminator, the AM envelope and the
+SSB product detector (counterpart of ``wavecap_tpu/ops/demod.py``).
 
 The discriminator carries the previous block's last sample so that
 ``angle(x[n]·conj(x[n-1]))`` is exact across block edges.
@@ -50,6 +51,16 @@ def quadrature_demod(
     atan = fast_atan2 if atan_impl == "fast" else torch.atan2
     audio = atan(prod.imag, prod.real) * scale
     return audio.to(torch.float32), x[..., -1]
+
+
+def am_envelope(iq: torch.Tensor) -> torch.Tensor:
+    """AM envelope detection (magnitude)."""
+    return iq.abs().to(torch.float32)
+
+
+def ssb_product(iq_shifted: torch.Tensor) -> torch.Tensor:
+    """SSB product detection: the real part after the BFO shift."""
+    return iq_shifted.real.to(torch.float32)
 
 
 def fm_discriminator_init(dtype=torch.complex64, device: DeviceLike = None) -> torch.Tensor:

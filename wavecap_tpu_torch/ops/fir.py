@@ -1,45 +1,188 @@
-"""Streaming FIR filtering and the resampler's identity case.
+"""Streaming FIR filtering, decimation and polyphase resampling.
 
 Counterpart of ``wavecap_tpu/ops/fir.py``.  Streaming state is an
 overlap-save carry: the last ``taps-1`` input samples of the previous
 block; prepending it and running a valid convolution continues
 ``lfilter(b, 1, .)`` exactly.
 
-The valid convolution is the reference's direct form (the path it takes
-off the TPU), here ``torch.nn.functional.conv1d`` in full f32 (TF32 is
-off, see ``torchenv``).  It is the plain version of the FIR inside
-kernel K4 (``models/channel_bank.py``).  FFT convolution (taps > 128),
-complex taps and the rational resampler are ROADMAP kernels K7 and K5.
+Two kernels carry the rate changes on the card, each with its plain
+version here:
+
+* K7 ``strided_fir``: the valid convolution with real taps and an output
+  stride, over real or complex rows, optionally behind a carried head
+  (the overlap-save tail) and an exact uint32 NCO mix of the input.  It
+  is the direct convolution of ``conv_valid``, ``fir_decimate``, the
+  wide slots' shift-and-decimate, and ``resample_poly_stream``'s
+  ``up == 1`` branch.  Its plain version is ``conv1d`` in full f32 (TF32
+  is off, see ``torchenv``), the reference's direct path off the TPU.
+* K5 ``polyphase_resample``: the rational resampler
+  ``y[m] = sum_k h[p_m + k up] v[q_m - k]``, causal with a tail carry or
+  centered one-shot, of ``resample_poly_stream`` and ``resample_poly``.
+
+FFT convolution (``_conv_valid_fft``, taps > 128) runs on ``torch.fft``
+(cuFFT on the card), as the reference runs XLA's FFT.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+from math import gcd
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy import signal as _sps
 
+from ..kernels import launch
 from ..utils.torchenv import DeviceLike, resolve_device
+from .nco import _next_phase, nco_phases
+
+_K7_TILE = 128  # outputs per K7 block (kernels/csrc/strided_fir.cu)
+_K5_TILE = 256  # outputs per K5 block (kernels/csrc/resample_poly.cu)
+_SMEM_LIMIT = 200 * 1024  # bytes of shared memory a kernel asks for, at most
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def _conv_valid_fft(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Valid-mode convolution via one big FFT (long-filter path)."""
+    n = x.shape[-1]
+    t = taps.shape[-1]
+    nfft = _next_pow2(n)
+    xf = torch.fft.fft(x.to(torch.complex64), nfft)
+    hf = torch.fft.fft(taps.to(torch.complex64), nfft)
+    y = torch.fft.ifft(xf * hf)[..., t - 1 : n]
+    if not x.is_complex() and not taps.is_complex():
+        return y.real.to(torch.float32)
+    return y
+
+
+# --- K7: strided valid FIR, optional head and NCO ------------------------------
+
+
+def _conv1d_rows(xr: torch.Tensor, taps: torch.Tensor, stride: int) -> torch.Tensor:
+    kern = taps.flip(-1).to(torch.float32).reshape(1, 1, -1)
+    lead = xr.shape[:-1]
+    y = F.conv1d(xr.reshape(-1, 1, xr.shape[-1]).to(torch.float32), kern, stride=stride)
+    return y.reshape(lead + (y.shape[-1],))
+
+
+def _k7_rows(x, head, nco) -> tuple:
+    """The batch shape of K7's output: the head's, the NCO's or the input's."""
+    if head is not None:
+        return tuple(head.shape[:-1])
+    if nco is not None:
+        return tuple(nco[0].shape)
+    return tuple(x.shape[:-1])
+
+
+def strided_fir_plain(x: torch.Tensor, taps: torch.Tensor, stride: int,
+                      head: torch.Tensor | None = None, nco: tuple | None = None):
+    """Plain version of K7.
+
+    ``v = head ++ mix(x)`` along the last axis, where ``mix`` multiplies by
+    the exact NCO ``exp(i 2 pi acc[n] / 2**32)``, ``acc[n] = phase0 +
+    n dphi`` (``nco = (dphi, phase0)``, uint32 per row), and ``x`` may be
+    one row shared by all.  Returns ``(y, tail, phase1)``:
+    ``y[..., m] = sum_k taps[k] v[..., m*stride + T-1-k]`` over the valid
+    range, the last ``T-1`` samples of ``v``, and the next NCO phase
+    (``None`` without an NCO).
+    """
+    lead = _k7_rows(x, head, nco)
+    n = x.shape[-1]
+    phase1 = None
+    if nco is not None:
+        dphi, phase0 = nco
+        ph = nco_phases(n, dphi, phase0)
+        x = x * torch.complex(torch.cos(ph), torch.sin(ph))
+        phase1 = _next_phase(phase0, n, dphi)
+    x = x.expand(lead + (n,))
+    v = torch.cat([head.to(x.dtype), x], dim=-1) if head is not None else x
+    if v.is_complex():
+        y = torch.complex(_conv1d_rows(v.real, taps, stride), _conv1d_rows(v.imag, taps, stride))
+    else:
+        y = _conv1d_rows(v, taps, stride)
+    t = taps.shape[-1]
+    tail = v[..., v.shape[-1] - (t - 1):] if t > 1 else v[..., :0]
+    return y, tail, phase1
+
+
+def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
+                head: torch.Tensor | None = None, nco: tuple | None = None):
+    """K7: see :func:`strided_fir_plain`.  Only a CPU tensor takes the
+    plain version."""
+    if x.device.type == "cpu":
+        return strided_fir_plain(x, taps, stride, head, nco)
+    dev = x.device
+    if x.dtype not in (torch.float32, torch.complex64):
+        raise ValueError(f"K7 filters float32 or complex64 rows, not {x.dtype}")
+    if taps.dim() != 1 or taps.dtype != torch.float32 or taps.device != dev:
+        raise ValueError("K7 takes real float32 taps on the input's device")
+    cplx = x.is_complex()
+    if nco is not None and not cplx:
+        raise ValueError("K7 mixes an NCO into complex input only")
+    lead = _k7_rows(x, head, nco)
+    rows = int(np.prod(lead)) if lead else 1
+    n = x.shape[-1]
+    x2 = x.reshape(-1, n).contiguous()
+    if x2.shape[0] not in (1, rows):
+        raise ValueError(f"K7 input has {x2.shape[0]} rows for {rows} output rows")
+    t = taps.shape[0]
+    h_len = 0
+    head2 = None
+    if head is not None:
+        h_len = head.shape[-1]
+        head2 = head.to(x.dtype).reshape(rows, h_len).contiguous()
+    n_out = (h_len + n - t) // stride + 1
+    if n_out <= 0:
+        raise ValueError(f"K7 needs at least {t} samples of head and input, not {h_len + n}")
+    item = 8 if cplx else 4
+    span = (_K7_TILE - 1) * stride + t
+    if span * item + t * 4 > _SMEM_LIMIT:
+        raise NotImplementedError(f"K7 stages {span} samples and {t} taps per block: too many")
+    dphi = phase0 = phase1 = None
+    if nco is not None:
+        dphi = nco[0].to(dev).reshape(rows).contiguous()
+        phase0 = nco[1].to(dev).reshape(rows).contiguous()
+        if dphi.dtype != torch.uint32 or phase0.dtype != torch.uint32:
+            raise ValueError("K7's NCO words and phases are uint32")
+        phase1 = torch.empty(rows, dtype=torch.uint32, device=dev)
+    y = torch.empty((rows, n_out), dtype=x.dtype, device=dev)
+    tail = torch.empty((rows, t - 1), dtype=x.dtype, device=dev)
+    launch(
+        "K7_strided_fir", dev, x2, x2.shape[0], head2, h_len, taps.contiguous(), t, stride,
+        dphi, phase0, y, tail if t > 1 else None, phase1, rows, n, n_out, int(cplx),
+    )
+    phase1 = None if phase1 is None else phase1.reshape(lead)
+    return y.reshape(lead + (n_out,)), tail.reshape(lead + (t - 1,)), phase1
 
 
 def _conv_valid_direct(x: torch.Tensor, taps: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """``y[m] = sum_k taps[k] * x[m*stride + (T-1-k)]`` over the last axis."""
+    """``y[m] = sum_k taps[k] * x[m*stride + (T-1-k)]`` over the last axis.
+
+    Real taps take K7 (plain ``conv1d`` on the CPU); complex taps take
+    four real convolutions, as the reference does."""
     if taps.is_complex():
-        raise NotImplementedError("complex taps are ROADMAP kernel K7 (wide path, equalizer)")
-    kern = taps.flip(-1).to(torch.float32).reshape(1, 1, -1)
+        kr = taps.real.to(torch.float32).contiguous()
+        ki = taps.imag.to(torch.float32).contiguous()
+        xr = (x.real if x.is_complex() else x).to(torch.float32)
+        xi = x.imag.to(torch.float32) if x.is_complex() else torch.zeros_like(xr)
 
-    def conv1d(xr: torch.Tensor) -> torch.Tensor:
-        lead = xr.shape[:-1]
-        y = F.conv1d(xr.reshape(-1, 1, xr.shape[-1]).to(torch.float32), kern, stride=stride)
-        return y.reshape(lead + (y.shape[-1],))
+        def conv(a, k):
+            return strided_fir(a, k, stride)[0]
 
-    if x.is_complex():
-        return torch.complex(conv1d(x.real), conv1d(x.imag))
-    return conv1d(x)
+        return torch.complex(conv(xr, kr) - conv(xi, ki), conv(xr, ki) + conv(xi, kr))
+    xx = x if x.is_complex() else x.to(torch.float32)
+    return strided_fir(xx, taps.to(torch.float32), stride)[0]
 
 
 def conv_valid(x: torch.Tensor, taps: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Valid convolution with real taps (the reference's direct path)."""
+    """Valid convolution: FFT for long filters, else the direct path (the
+    reference's choice off the TPU)."""
     if stride == 1 and int(taps.shape[-1]) > 128:
-        raise NotImplementedError("FFT convolution for taps > 128 is ROADMAP kernel K7")
+        return _conv_valid_fft(x, taps)
     return _conv_valid_direct(x, taps, stride)
 
 
@@ -62,20 +205,181 @@ def fir_filter(x: torch.Tensor, taps: torch.Tensor, tail: torch.Tensor):
     return y, new_tail
 
 
+def fir_decimate(x: torch.Tensor, taps: torch.Tensor, decim: int, tail: torch.Tensor):
+    """Streaming decimating FIR: ``lfilter(b, 1, stream)[::decim]`` when
+    block lengths are multiples of ``decim``.  Returns ``(y, new_tail)``."""
+    if x.shape[-1] == 0:
+        return x[..., :0], tail
+    y, new_tail, _ = strided_fir(x, taps, decim, head=tail)
+    return y, new_tail
+
+
+# --- filter design (host side, cached) --------------------------------------------
+
+
+@lru_cache(maxsize=128)
+def design_lowpass_fir(num_taps: int, cutoff_norm: float, beta: float = 8.0) -> np.ndarray:
+    """Kaiser-windowed lowpass prototype (cutoff normalized to Nyquist)."""
+    return _sps.firwin(num_taps, cutoff_norm, window=("kaiser", beta)).astype(np.float32)
+
+
+@lru_cache(maxsize=128)
+def design_decimation_fir(decim: int, sample_rate: float, beta: float = 7.857) -> np.ndarray:
+    """Anti-alias FIR for ``decim``:1, ~80 dB stopband (Kaiser)."""
+    nyq_out = sample_rate / decim / 2.0
+    cutoff = 0.8 * nyq_out
+    width = 0.4 * nyq_out
+    numtaps, _ = _sps.kaiserord(80.0, width / (sample_rate / 2.0))
+    numtaps = int(numtaps) | 1  # odd length, linear phase
+    return _sps.firwin(numtaps, cutoff, window=("kaiser", beta), fs=sample_rate).astype(np.float32)
+
+
+@lru_cache(maxsize=128)
+def design_resample_poly_filter(up: int, down: int) -> np.ndarray:
+    """The FIR of ``scipy.signal.resample_poly`` (kaiser 5.0, 10 taps/phase)."""
+    max_rate = max(up, down)
+    f_c = 1.0 / max_rate
+    half_len = 10 * max_rate
+    h = _sps.firwin(2 * half_len + 1, f_c, window=("kaiser", 5.0))
+    return (h * up).astype(np.float64).astype(np.float32)
+
+
+def _resample_plan(in_rate: int, out_rate: int):
+    g = gcd(int(in_rate), int(out_rate))
+    up, down = int(out_rate) // g, int(in_rate) // g
+    return up, down, design_resample_poly_filter(up, down)
+
+
+@lru_cache(maxsize=32)
+def _resample_taps(up: int, down: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(design_resample_poly_filter(up, down)).to(device)
+
+
+@lru_cache(maxsize=32)
+def _phase_table(up: int, down: int, device: torch.device) -> torch.Tensor:
+    """``phases[p, k] = h[p + k up]`` (zero past the end), ``(up, ph_len)``
+    f32 on ``device``."""
+    taps = design_resample_poly_filter(up, down)
+    t = len(taps)
+    ph_len = -(-t // up)
+    padded = np.zeros(up * ph_len, np.float32)
+    padded[:t] = taps
+    return torch.from_numpy(padded.reshape(ph_len, up).T.copy()).to(device)
+
+
+@lru_cache(maxsize=32)
+def _resample_gather(up: int, down: int, off: int, n_out: int, device: torch.device):
+    """The plain version's per-output windows and coefficients:
+    ``(idx, coeffs)``, both ``(n_out, ph_len)``, for ``p_m = (off + m
+    down) mod up`` and ``q_m = (off + m down) div up + L``."""
+    phases = _phase_table(up, down, device)
+    ph_len = phases.shape[1]
+    a = off + np.arange(n_out, dtype=np.int64) * down
+    p_idx = a % up
+    q_idx = a // up + (ph_len - 1)
+    idx = q_idx[:, None] - np.arange(ph_len)[None, :]
+    p_t = torch.from_numpy(p_idx).to(device)
+    return torch.from_numpy(idx).to(device), phases[p_t].contiguous()
+
+
+# --- K5: polyphase rational resample -----------------------------------------------
+
+
+def polyphase_resample_plain(x: torch.Tensor, up: int, down: int, off: int,
+                             head: torch.Tensor | None, n_out: int) -> torch.Tensor:
+    """Plain version of K5 over real rows ``x`` (``B + (n,)``):
+    ``y[m] = sum_k h[p_m + k up] v[q_m - k]`` with ``v = head ++ x ++ 0``
+    (a zero head of ``L = ph_len - 1`` samples when ``head`` is None),
+    ``p_m = (off + m down) mod up``, ``q_m = (off + m down) div up + L``."""
+    idx, coeffs = _resample_gather(up, down, int(off), int(n_out), x.device)
+    ph_len = coeffs.shape[1]
+    lead = x.shape[:-1]
+    if head is None:
+        head = torch.zeros(lead + (ph_len - 1,), dtype=x.dtype, device=x.device)
+    pad_r = torch.zeros(lead + (ph_len + down // up + 2,), dtype=x.dtype, device=x.device)
+    v = torch.cat([head.to(x.dtype).expand(lead + (ph_len - 1,)), x, pad_r], dim=-1)
+    return (v[..., idx] * coeffs).sum(dim=-1)
+
+
+def polyphase_resample(x: torch.Tensor, up: int, down: int, off: int,
+                       head: torch.Tensor | None, n_out: int) -> torch.Tensor:
+    """K5: see :func:`polyphase_resample_plain`.  Only a CPU tensor takes
+    the plain version."""
+    if x.device.type == "cpu":
+        return polyphase_resample_plain(x, up, down, off, head, n_out)
+    dev = x.device
+    if x.dtype != torch.float32:
+        raise ValueError(f"K5 resamples float32 rows, not {x.dtype}")
+    phases = _phase_table(up, down, dev)
+    ph_len = phases.shape[1]
+    lead = x.shape[:-1]
+    n = x.shape[-1]
+    x2 = x.reshape(-1, n).contiguous()
+    rows = x2.shape[0]
+    head2 = None
+    if head is not None:
+        head2 = head.to(torch.float32).expand(lead + (ph_len - 1,)).reshape(rows, ph_len - 1)
+        head2 = head2.contiguous()
+    span = ((_K5_TILE - 1) * down) // up + ph_len + 2
+    if span * 4 > _SMEM_LIMIT:
+        raise NotImplementedError(f"K5 stages {span} input samples per block: too many")
+    y = torch.empty((rows, n_out), dtype=torch.float32, device=dev)
+    if rows and n_out:
+        launch("K5_resample_poly", dev, x2, head2, phases, y, rows, n, ph_len - 1, up, down,
+               ph_len, int(off), n_out)
+    return y.reshape(lead + (n_out,))
+
+
 def resample_stream_init(in_rate: int, out_rate: int, dtype=torch.float32,
                          device: DeviceLike = None) -> torch.Tensor:
-    """Carry state of ``resample_poly_stream`` (empty for equal rates)."""
-    if int(in_rate) != int(out_rate):
-        raise NotImplementedError(
-            "rational resampling is ROADMAP kernel K5 (48 kHz audio, the next slice)"
-        )
-    return torch.zeros((0,), dtype=dtype, device=resolve_device(device))
+    """Carry state (input tail) for :func:`resample_poly_stream`."""
+    dev = resolve_device(device)
+    if int(in_rate) == int(out_rate):
+        return torch.zeros((0,), dtype=dtype, device=dev)
+    up, down, taps_np = _resample_plan(in_rate, out_rate)
+    if up == 1:
+        return torch.zeros((len(taps_np) - 1,), dtype=dtype, device=dev)
+    ph_len = -(-len(taps_np) // up)
+    return torch.zeros((ph_len - 1,), dtype=dtype, device=dev)
 
 
 def resample_poly_stream(x: torch.Tensor, in_rate: int, out_rate: int, tail: torch.Tensor):
-    """Streaming polyphase resample; only the identity (equal rates) here."""
-    if int(in_rate) != int(out_rate):
-        raise NotImplementedError(
-            "rational resampling is ROADMAP kernel K5 (48 kHz audio, the next slice)"
-        )
-    return x, tail
+    """Streaming polyphase resample, segmentation-invariant: the causal
+    form of :func:`resample_poly`.  A block whose length ``down`` does not
+    divide takes the centered one-shot resample and keeps the old tail,
+    as the reference does.  Returns ``(y, new_tail)``."""
+    if int(in_rate) == int(out_rate):
+        return x, tail
+    up, down, taps_np = _resample_plan(in_rate, out_rate)
+    n = x.shape[-1]
+    if n % down != 0:
+        return resample_poly(x, in_rate, out_rate), tail
+    if up == 1:
+        taps = _resample_taps(up, down, x.device)
+        y, new_tail, _ = strided_fir(x, taps, down, head=tail.expand(x.shape[:-1] + tail.shape[-1:]))
+        return y[..., : n // down], new_tail
+    ell = -(-len(taps_np) // up) - 1
+    y = polyphase_resample(x, up, down, 0, tail, n * up // down)
+    xin = torch.cat([tail.to(x.dtype).expand(x.shape[:-1] + (ell,)), x], dim=-1)
+    return y, xin[..., xin.shape[-1] - ell:]
+
+
+def resample_poly(x: torch.Tensor, in_rate: int, out_rate: int) -> torch.Tensor:
+    """One-shot polyphase resample of a whole block, matching
+    ``scipy.signal.resample_poly(x, up, down)``: centered, with
+    ``ceil(n up / down)`` outputs."""
+    if int(in_rate) == int(out_rate):
+        return x
+    up, down, taps_np = _resample_plan(in_rate, out_rate)
+    n = x.shape[-1]
+    n_out = -(-n * up // down)
+    half = (len(taps_np) - 1) // 2
+    if up == 1:
+        lead = x.shape[:-1]
+        xin = torch.cat([torch.zeros(lead + (half,), dtype=x.dtype, device=x.device), x,
+                         torch.zeros(lead + (half + down,), dtype=x.dtype, device=x.device)], -1)
+        return _conv_valid_direct(xin, _resample_taps(up, down, x.device), down)[..., :n_out]
+    if x.is_complex():
+        return torch.complex(polyphase_resample(x.real.contiguous(), up, down, half, None, n_out),
+                             polyphase_resample(x.imag.contiguous(), up, down, half, None, n_out))
+    return polyphase_resample(x.to(torch.float32), up, down, half, None, n_out)
