@@ -5,18 +5,26 @@ Run from the repository root on a machine with one NVIDIA card::
 
     python3 chip_smoke.py
 
-It drives the port's two paths at full width (10 Msps, 12.5 kHz
-channels: M = 800, 1,968,000-sample blocks):
+It drives the port's paths at full width:
 
-* the 800-channel NBFM capture of the first slice (i16 words -> K1 unpack
-  + polyphase arms -> K2 cross-arm DFT -> K3 slot front end -> K4 voice
-  FIR -> wire buffer), audio at the 25 kHz channel rate;
+* the 800-channel NBFM capture of the first slice (10 Msps, 12.5 kHz
+  channels: M = 800, 1,968,000-sample blocks; i16 words -> K1 unpack +
+  polyphase arms -> K2 cross-arm DFT -> K3 slot front end -> K4 voice FIR
+  -> wire buffer), audio at the 25 kHz channel rate;
 * the mixed-analog capture at the server's default channel settings:
   five banks of 160 slots (``am``, ``lsb``, ``nbfm``, ``sam``, ``usb``, one
   slot per channelizer bin) with 48 kHz audio, K3 -> the mode's detector
   (K10 for SAM) -> K5 resampler -> K9 IIR filters and AGC, plus one group
   of 2 WBFM wide slots (K7 shift and decimate -> discriminator -> K5 -> K9
-  deemphasis and MPX low-pass).
+  deemphasis and MPX low-pass);
+* the three P25 programs (25 kHz bins, 50 kHz channels): A, C4FM at the
+  BASELINE point (10 Msps, M = 400, 0.25 s blocks, 50 C4FM + 50 NBFM
+  slots: K3 -> K7 low-pass -> discriminator -> K7 RRC -> K12 block
+  timing); B, LSM trunking at 2.4 Msps (M = 96, 0.15 s blocks, 21 CQPSK
+  slots with the 41-tap simulcast equalizer: K3 -> carrier NCO -> K7 RRC
+  -> cuFFT + K13 line search -> K14 alias scores and echo fit -> K7
+  per-slot complex FIR -> K13 timing and differential detection); C,
+  Phase 2 dual rate (2 CQPSK + 20 slots at 6000 baud, alpha 1).
 
 Phases:
 
@@ -38,7 +46,16 @@ Phases:
    squelch of empty slots, the launch count of each kernel that the
    configuration implies, the first two blocks against the plain path on
    the card, the wire within 1 LSB; warm ms per block;
-5. a JSON line of the kernels and the final ``{"ok": true, ...}`` line.
+5. program A: six looped C4FM stations (one 2 kHz off its bin centre) and
+   three NBFM stations, 8 blocks: every station's hard decisions against
+   its transmitted dibits from block 3 on (>= 99.5 %), the NBFM tones,
+   empty slots at the noise floor, exact launch counts, the first two
+   blocks against the plain path, the wire soft within half an i8 LSB;
+   warm ms per block and a traced profile;
+6. programs B and C the same way: LSM stations (one at +600 Hz CFO, one
+   behind a 70 us echo that the equalizer must take, clean ones that keep
+   identity taps) and Phase 2's control channel and 6000-baud stations;
+7. a JSON line of the kernels and the final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
@@ -144,24 +161,35 @@ def time_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel: str = "", reps: int = 20, warm: int = 3) -> float:
+def device_ms(fn, kernel="", reps: int = 20, warm: int = 3) -> float:
     """Warm mean time on the card of one call: the kernels and copies it
-    ran (only those whose name holds ``kernel``, when given), as CUPTI
-    traced them through torch.profiler, without the host's gaps."""
+    ran, as CUPTI traced them through torch.profiler, without the host's
+    gaps.  With ``kernel`` (a name, or several) only the kernels whose name
+    holds it, each launched once a call, timed as the mean of the launches
+    CUPTI kept: after profiles of many thousand launches in one process it
+    keeps only some (seen on the H100: 0-12 of 20), which a sum over the
+    calls would read as a faster kernel.  If it keeps none in three
+    profiles, the wall time between CUDA events (an upper bound) stands in."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    for _ in range(3):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return float(us) / reps / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if not kernel:
+            return float(sum(e.self_device_time_total for e in on_card)) / reps / 1e3
+        kept = [e for e in on_card if e.count and any(k in e.key for k in names)]
+        if kept:
+            return float(sum(e.self_device_time_total / e.count for e in kept)) / 1e3
+    return time_ms(fn, reps)
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -182,6 +210,7 @@ def plain_kernels():
     """Every kernel wrapper swapped for its plain version (the reference
     path on the card)."""
     from wavecap_tpu_torch.models import channel_bank as cb
+    from wavecap_tpu_torch.models.p25 import c4fm, cqpsk, equalizer as eqz
     from wavecap_tpu_torch.ops import agc, channelizer as chz, fir, iir, pll
 
     with contextlib.ExitStack() as stack:
@@ -192,6 +221,10 @@ def plain_kernels():
             (fir, "strided_fir", fir.strided_fir_plain),
             (iir, "sos_filter", iir.sos_filter_plain), (iir, "onepole_filter", iir.onepole_filter_plain),
             (agc, "envelope", agc.envelope_plain), (pll, "_loop", pll._loop_plain),
+            (c4fm, "c4fm_timing", c4fm.c4fm_timing_plain),
+            (cqpsk, "cqpsk_timing", cqpsk.cqpsk_timing_plain),
+            (cqpsk, "cfo_lines", cqpsk.cfo_lines_plain),
+            (eqz, "echo_fit", eqz.echo_fit_plain), (eqz, "echo_score", eqz.echo_score_plain),
         ):
             stack.enter_context(mock.patch.object(module, name, plain))
         yield
@@ -801,7 +834,8 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
                chain_ms=chain_ms(n_audio * n_sec, FMA_CYCLES, clock_hz),
                ms=timer(lambda: iir.sos_filter(x, sos, z0), "iir_cascade_kernel"),
                wrapper_ms=wall_timer(lambda: iir.sos_filter(x, sos, z0)),
-               plain_ms=timer(lambda: iir.sos_filter_plain(x, sos, z0)),
+               # one call: the plain scan launches thousands of kernels
+               plain_ms=timer(lambda: iir.sos_filter_plain(x, sos, z0), reps=1, warm=1),
                library_note="no torch op runs an IIR recurrence")
     b0, a = iir.deemphasis_coeffs(ar)
     y0 = dev(np.array([0.1, -0.2], np.float32))
@@ -949,7 +983,7 @@ def run_mixed(cfg, device, sync=None) -> dict:
     sync()
     first_s = time.perf_counter() - t0
     counts = launch_counts()
-    expected = {name: N_BLOCKS * MIXED_LAUNCHES[name] for name in counts}
+    expected = {name: N_BLOCKS * MIXED_LAUNCHES.get(name, 0) for name in counts}
     check(counts == expected, f"mixed launch counts {counts} != {expected}")
     meta = {k: v for k, v in outs.items() if k != "_packed"}
     wire = unpack_wire(meta, packed)
@@ -1063,6 +1097,618 @@ def profile_blocks(one_pass, blocks: int, sync) -> dict:
     )
 
 
+# --- the P25 programs: kernel checks (phase 2) and runs (phases 5 and 6) ---------------
+
+P25_LOOP_SYMBOLS = 2_400  # 0.5 s at 4800 baud; a multiple of 3, as 48 kHz -> 10 Msps is 625/3
+P25_AMPLITUDE = 0.05
+P25_FIRST = 2  # decisions are counted from block 3 on (timing, CFO and equalizer acquired)
+P25_SQUELCH_DB = -45.0
+# program A (10 Msps, M = 400): C4FM stations (p25 slot, fine offset Hz), NBFM stations (nbfm slot)
+A_C4FM_STATIONS = ((0, 0.0), (9, 0.0), (17, 2000.0), (26, 0.0), (33, -700.0), (49, 300.0))
+A_NBFM_STATIONS = (3, 21, 40)
+# program B (2.4 Msps, M = 96): LSM stations (p25 slot, fine offset Hz, carrier offset Hz, echo)
+B_STATIONS = ((0, 0.0, 0.0, False), (3, 0.0, 0.0, False), (7, 0.0, 600.0, False),
+              (12, 0.0, 0.0, True), (16, -1500.0, 0.0, False), (20, 800.0, 0.0, False))
+ECHO = (168, 0.8, 2.98)  # 70 us at 2.4 Msps, amplitude, phase (tests/test_p25_roundtrip.py:396-399)
+# program C: the CQPSK control channel on p25 slot 0 (slot 1 the probe, empty);
+# 6000-baud stations (p25p2 slot, fine offset Hz)
+C_P2_STATIONS = ((0, 0.0), (5, 1000.0), (11, 0.0), (19, -600.0))
+# kernel launches per block of each program
+A_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 2, "K5_resample_poly": 1,
+              "K7_strided_fir": 2, "K9_iir_cascade": 2, "K12_c4fm_timing": 1}
+B_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 1, "K7_strided_fir": 3,
+              "K13_cfo_lines": 1, "K13_cqpsk_timing": 1, "K14_echo_fit": 2}
+C_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 2, "K7_strided_fir": 2,
+              "K13_cfo_lines": 2, "K13_cqpsk_timing": 2}
+# a serial pass of K12/K13: ~40 SM cycles per element a thread walks, ~300 per block reduction
+PASS_CYCLES, REDUCE_CYCLES = 40, 300
+K14_KERNELS = ("acf_kernel", "residual_kernel", "epilogue_kernel")
+
+
+def p25_configs() -> dict:
+    """Programs A, B and C at full width."""
+    from wavecap_tpu_torch.capture.pipeline import CapturePipelineConfig
+
+    common = dict(channel_bandwidth=25_000.0, fft_size=2048, spectrum_frames=2, audio_rate=48_000,
+                  wide_capacity=0)
+    return {
+        "A": CapturePipelineConfig(sample_rate=10_000_000, block_size=2_500_000, narrow_modes=("nbfm",),
+                                   narrow_capacity=50, p25_capacity=50, p25_modulation="c4fm",
+                                   p25_equalizer_taps=0, **common),
+        "B": CapturePipelineConfig(sample_rate=2_400_000, block_size=360_000, narrow_modes=(),
+                                   p25_capacity=21, p25_modulation="cqpsk", p25_equalizer_taps=41,
+                                   **common),
+        "C": CapturePipelineConfig(sample_rate=2_400_000, block_size=360_000, narrow_modes=(),
+                                   p25_capacity=2, p25_modulation="cqpsk", p25_equalizer_taps=0,
+                                   p25p2_capacity=20, **common),
+    }
+
+
+def p25_bins(m: int, count: int, step: int) -> list:
+    """``count`` channelizer bins ``step`` apart, clear of DC and the band edge."""
+    bins = [k for k in range(2, m - 1, step) if abs(k - m // 2) > 2]
+    check(len(bins) >= count, f"{count} slots do not fit in {m} bins")
+    return bins[:count]
+
+
+def closed_dibits(rng, n: int) -> np.ndarray:
+    """Random dibits whose pi/4 phase steps sum to a multiple of 2 pi, so a
+    cyclic CQPSK loop of them needs no pad symbols."""
+    from wavecap_tpu_torch.models.p25.c4fm import DIBIT_SYMBOLS
+
+    check(n % 2 == 0, "an odd number of pi/4-odd steps cannot close")
+    d = rng.integers(0, 4, n).astype(np.uint8)
+    while int(np.sum(DIBIT_SYMBOLS[d].astype(np.int64))) % 8:
+        d[int(np.flatnonzero(d == 0)[0])] = 1  # a +1 step becomes +3: the sum moves by 2
+    return d
+
+
+def p25_loop(rng, kind: str, out_rate: int, symbol_rate: float = 4800.0, alpha: float = 0.2):
+    """``(dibits, iq)``: a seamless loop of P25 modulation at ``out_rate``,
+    synthesised at 48 kHz and brought up with circular FFT resampling."""
+    from scipy import signal as sps
+
+    from wavecap_tpu_torch.models.p25.c4fm import modulate_c4fm_cyclic
+    from wavecap_tpu_torch.models.p25.cqpsk import modulate_cqpsk_cyclic
+
+    if kind == "c4fm":
+        d = rng.integers(0, 4, P25_LOOP_SYMBOLS).astype(np.uint8)
+        x = modulate_c4fm_cyclic(d, 48_000.0)
+    else:
+        d = closed_dibits(rng, int(round(P25_LOOP_SYMBOLS * symbol_rate / 4800.0)))
+        x = modulate_cqpsk_cyclic(d, 48_000.0, symbol_rate, alpha)
+    n_out = len(x) * out_rate // 48_000
+    check(n_out * 48_000 == len(x) * out_rate, "the loop does not resample to a whole length")
+    return d, sps.resample(x, n_out).astype(np.complex64)
+
+
+def agreement(soft: np.ndarray, dibits: np.ndarray) -> float:
+    """Share of one block's hard decisions equal to the loop's dibits at the
+    best cyclic alignment (cross-correlation of the soft symbols with the
+    loop's symbol values)."""
+    import torch
+
+    from wavecap_tpu_torch.models.p25.c4fm import DIBIT_SYMBOLS, soft_to_dibits
+
+    sym = DIBIT_SYMBOLS[dibits].astype(np.float64)
+    p, n = len(sym), len(soft)
+    check(n <= p, "a block holds more symbols than the loop")
+    s = np.zeros(p)
+    s[:n] = soft
+    lag = int(np.argmax(np.fft.ifft(np.conj(np.fft.fft(s)) * np.fft.fft(sym)).real))
+    hard = soft_to_dibits(torch.from_numpy(np.asarray(soft, np.float32))).numpy()
+    return float(np.mean(hard == dibits[(lag + np.arange(n)) % p]))
+
+
+def om_lock(u: np.ndarray, sps_: float) -> float:
+    """The O&M lock measure of one row of |x|^2 (float64 numpy)."""
+    n = len(u)
+    w = np.exp(-2j * np.pi * np.arange(n) / sps_)
+    return float(np.abs(np.sum(u * w)) / max(np.sum(np.abs(u)), 1e-9))
+
+
+def c4fm_rows(rng, rows: int, length: int, fs: float) -> np.ndarray:
+    """RRC-filtered discriminator rows of C4FM at ``fs``, each with its own
+    clock offset (up to +-300 ppm) and start phase; the last row dead air
+    (filtered noise whose O&M line sits below half the lock threshold)."""
+    from scipy import signal as sps
+
+    from wavecap_tpu_torch.models.p25.c4fm import DEVIATION_HZ, design_rrc, modulate_c4fm
+
+    rrc = design_rrc(float(fs))
+    out = np.empty((rows, length), np.float32)
+    for r in range(rows - 1):
+        n48 = int((length + 600) * 48_000 / fs)
+        x = modulate_c4fm(rng.integers(0, 4, n48 // 10 + 1).astype(np.uint8), 48_000.0)
+        y = sps.resample(x, int(round(len(x) * fs / 48_000 * (1 + rng.uniform(-3e-4, 3e-4)))))
+        disc = np.angle(y[1:] * np.conj(y[:-1])) * fs / (2 * np.pi * DEVIATION_HZ / 3.0)
+        f = np.convolve(disc, rrc, mode="valid")
+        start = 200 + int(rng.integers(0, 11))
+        out[r] = f[start:start + length]
+    out[-1] = dead_air(rng, length, rrc, fs / 4800.0, 0.005, real=True)
+    return out
+
+
+def cqpsk_rows(rng, rows: int, length: int, fs: float, symbol_rate: float, alpha: float,
+               cfo=None) -> np.ndarray:
+    """RRC-matched, power-normalised CQPSK rows (clock offsets up to
+    +-300 ppm, random start phase and carrier phase; ``cfo`` Hz per row
+    when given); the last row dead air unless ``cfo`` is given."""
+    from scipy import signal as sps
+
+    from wavecap_tpu_torch.models.p25.cqpsk import design_rrc_cqpsk, modulate_cqpsk
+
+    rrc = design_rrc_cqpsk(float(fs), symbol_rate, alpha)
+    out = np.empty((rows, length), np.complex64)
+    n_sig = rows if cfo is not None else rows - 1
+    for r in range(n_sig):
+        n48 = int((length + 600) * 48_000 / fs)
+        x = modulate_cqpsk(rng.integers(0, 4, int(n48 * symbol_rate / 48_000) + 1).astype(np.uint8),
+                           48_000.0, symbol_rate, alpha)
+        y = sps.resample(x, int(round(len(x) * fs / 48_000 * (1 + rng.uniform(-3e-4, 3e-4)))))
+        y = y * np.exp(1j * rng.uniform(-np.pi, np.pi))
+        if cfo is not None:
+            y = y * np.exp(2j * np.pi * cfo[r] * np.arange(len(y)) / fs)
+        f = np.convolve(y, rrc, mode="valid")
+        start = 200 + int(rng.integers(0, 11))
+        f = f[start:start + length]
+        out[r] = f / np.sqrt(np.mean(np.abs(f) ** 2))
+    if cfo is None:
+        out[-1] = dead_air(rng, length, rrc, fs / symbol_rate, 0.002, real=False)
+    return out
+
+
+def dead_air(rng, length: int, rrc: np.ndarray, sps_: float, lock: float, real: bool) -> np.ndarray:
+    """Filtered noise whose O&M lock is below half the threshold: the
+    frozen-timing branch, clear of the gate."""
+    for _ in range(400):
+        n = rng.standard_normal(length + len(rrc))
+        if not real:
+            n = n + 1j * rng.standard_normal(length + len(rrc))
+        f = np.convolve(n, rrc, mode="valid")[:length]
+        u = (f - f.mean()) ** 2 if real else np.abs(f) ** 2
+        if om_lock(u, sps_) < 0.5 * lock:
+            return f / np.sqrt(np.mean(np.abs(f) ** 2))
+    check(False, "no dead-air row below the lock threshold")
+
+
+def timing_state(rng, rows: int, sps_: float, cqpsk: bool) -> np.ndarray:
+    """Carried timing scalars (6, rows): a start position inside one symbol,
+    a first block (freq 0 / gain 0) on a third of the rows, a tracked clock
+    elsewhere."""
+    st = np.zeros((6, rows), np.float32)
+    st[0] = 64.0 + rng.uniform(0.0, sps_, rows)
+    first = rng.random(rows) < 0.33
+    st[1] = np.where(first, 0.0 if cqpsk else 10.0, sps_ * (1 + rng.uniform(-2e-4, 2e-4, rows)))
+    st[2] = np.where(first, 0.0, rng.uniform(-1e-3, 1e-3, rows))
+    if cqpsk:
+        st[3] = rng.uniform(-0.02, 0.02, rows)  # bias
+        prev = np.exp(1j * rng.uniform(-np.pi, np.pi, rows))
+        st[4], st[5] = prev.real, prev.imag
+    else:
+        st[3] = np.where(first, 0.0, rng.uniform(0.6, 1.2, rows))  # gain
+        st[4] = rng.uniform(-0.05, 0.05, rows)  # dc
+    return st
+
+
+def p25_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_hz=None):
+    """K12, K13 (timing, line search), K14 and K7's per-row complex taps
+    against their plain versions at the P25 programs' shapes.  Returns
+    ``(lines, cases)`` as :func:`mixed_kernel_checks`."""
+    import torch
+    import torch.nn.functional as F
+
+    from wavecap_tpu_torch.capture.pipeline import p25_cfg_for, p25p2_cfg_for
+    from wavecap_tpu_torch.models.p25 import c4fm, cqpsk
+    from wavecap_tpu_torch.models.p25 import equalizer as eqz
+    from wavecap_tpu_torch.models.p25.c4fm import timing_consts
+    from wavecap_tpu_torch.ops import fir
+
+    clock_hz = clock_hz or sm_clock_hz()
+    rng = np.random.default_rng(SEED + 3)
+    lines, cases = {}, []
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def record(name, case, source, replaces, lib, **k):
+        k.update(name=name, case=case, route="cuda", source=source, replaces=replaces, library_ms=lib)
+        cases.append(k)
+        lines.setdefault(name, k)
+
+    def chain(n: int, n_sym: int, threads: int = 512) -> float:
+        passes = 2 * -(-n // threads) + 4 * -(-n_sym // threads)
+        return (passes * PASS_CYCLES + 10 * REDUCE_CYCLES) / clock_hz * 1e3
+
+    def timing_case(name, kfn, pfn, buf, st, n_sym, cfg, case, source, replaces, dtype_bytes):
+        s_k, d_k, o_k = (host(v) for v in kfn(buf, st, n_sym, cfg))
+        s_p, d_p, o_p = (host(v) for v in pfn(buf, st, n_sym, cfg))
+        rows, length = buf.shape
+        check(np.array_equal(d_k, d_p), f"{name} ({case}): dibits differ from the plain version")
+        err = snr_db(s_p, s_k)
+        check(err >= 60.0, f"{name} ({case}): soft SNR {err:.1f} dB < 60")
+        d_state = float(np.max(np.abs(o_k - o_p)))
+        check(d_state <= 1e-3, f"{name} ({case}): carried state differs by {d_state:.3g}")
+        n = length - 64
+        # the dead-air row (the last) froze its timing: no phase step
+        c = timing_consts(cfg.sps, cfg.max_clock_ppm, 0.0)
+        st_np = host(st)
+        pos = (np.float32(st_np[0, -1]) + np.float32(n_sym) * np.float32(o_p[1, -1])) - np.float32(n)
+        pos = pos + np.float32(c.sps) if pos < 4.0 else pos
+        pos = pos - np.float32(c.sps) if pos > c.recenter_hi else pos
+        check(abs(float(pos) - float(o_k[0, -1])) <= 1e-3, f"{name} ({case}): the dead-air row moved its timing")
+        # bytes: the rows, the soft and dibits, the state; operations: the O&M pass
+        # (~13 per sample), three Gardner evaluations and the gather (~100 per symbol)
+        b, f = bound(rows * (length * dtype_bytes + n_sym * 5 + 48), rows * (13.0 * n + 100.0 * n_sym))
+        record(name, case, source, replaces, None, max_abs_err=max_abs(s_p, s_k), soft_snr_db=err,
+               state_max_abs=d_state, bound_ms=b, bound_by=f, chain_ms=chain(n, n_sym),
+               ms=timer(lambda: kfn(buf, st, n_sym, cfg), "timing_kernel"),
+               wrapper_ms=wall_timer(lambda: kfn(buf, st, n_sym, cfg)),
+               plain_ms=timer(lambda: pfn(buf, st, n_sym, cfg)),
+               library_note="no single PyTorch call computes the block timing")
+
+    # K12 at program A's p25 bank: 50 rows of 64 + 12,500, 1,200 symbols
+    ca = p25_cfg_for(cfgs["A"])
+    n_a = 2 * cfgs["A"].block_size // cfgs["A"].channelizer().channel_count
+    n_sym = c4fm.n_symbols_per_block(ca, n_a)
+    buf = dev(c4fm_rows(rng, cfgs["A"].p25_capacity, 64 + n_a, ca.sample_rate))
+    st = dev(timing_state(rng, cfgs["A"].p25_capacity, ca.sps, cqpsk=False))
+    timing_case("K12_c4fm_timing", c4fm.c4fm_timing, c4fm.c4fm_timing_plain, buf, st, n_sym, ca,
+                f"program A: ({buf.shape[0]}, {buf.shape[1]}) f32 -> {n_sym} symbols",
+                "wavecap_tpu_torch/kernels/csrc/p25_timing.cu",
+                "wavecap_tpu/models/p25/c4fm.py:340 _demod_block_timing", 4)
+
+    # K13 timing at program B's bank (4800 baud, alpha 0.2) and C's Phase 2 bank
+    k13_src = "wavecap_tpu_torch/kernels/csrc/p25_timing.cu"
+    k13_rep = "wavecap_tpu/models/p25/cqpsk.py:247 cqpsk_demodulate (block branch :375-469)"
+    n_b = 2 * cfgs["B"].block_size // cfgs["B"].channelizer().channel_count
+    for cfg_q, rows, case in ((p25_cfg_for(cfgs["B"]), cfgs["B"].p25_capacity, "program B, 4800 baud"),
+                              (p25p2_cfg_for(cfgs["C"]), cfgs["C"].p25p2_capacity, "program C, 6000 baud")):
+        n_sym = cqpsk.n_symbols_per_block(cfg_q, n_b)
+        buf = dev(cqpsk_rows(rng, rows, 64 + n_b, cfg_q.sample_rate, cfg_q.symbol_rate, cfg_q.rrc_alpha))
+        st = dev(timing_state(rng, rows, cfg_q.sps, cqpsk=True))
+        timing_case("K13_cqpsk_timing", cqpsk.cqpsk_timing, cqpsk.cqpsk_timing_plain, buf, st, n_sym,
+                    cfg_q, f"{case}: ({rows}, {64 + n_b}) c64 -> {n_sym} symbols", k13_src, k13_rep, 8)
+
+    # K13's line search on |FFT(x^4)| of rows at -600, 0 and +600 Hz
+    cfg_b = p25_cfg_for(cfgs["B"])
+    rows_b = cfgs["B"].p25_capacity
+    cfo = np.tile([-600.0, 0.0, 600.0], rows_b)[:rows_b]
+    filt = dev(cqpsk_rows(rng, rows_b, n_b, cfg_b.sample_rate, 4800.0, 0.2, cfo=cfo))
+    size, k4, off, step = cqpsk._cfo_search(cfg_b, n_b)
+    p4 = filt * filt
+    p4 = p4 * p4
+    spec = torch.abs(torch.fft.fft(p4, n=size, dim=-1))
+    r_k, j_k = (host(v) for v in cqpsk.cfo_lines(spec, k4, off, step))
+    r_p, j_p = (host(v) for v in cqpsk.cfo_lines_plain(spec, k4, off, step))
+    check(np.array_equal(j_k, j_p) and np.array_equal(r_k, r_p), "K13 line search differs from the plain version")
+    err_hz = float(np.max(np.abs(r_k - cfo)))
+    check(err_hz <= 2 * cfg_b.sample_rate / size / 4.0, f"K13 line search misses the CFO by {err_hz:.1f} Hz")
+    b, f = bound(rows_b * size * 4 + rows_b * 8, rows_b * (size + 2.0 * (2 * k4 + 1)))
+    record("K13_cfo_lines", f"program B: ({rows_b}, {size}) |X|, {2 * k4 + 1} candidates, CFO -600/0/+600 Hz",
+           "wavecap_tpu_torch/kernels/csrc/cfo_lines.cu",
+           "wavecap_tpu/models/p25/cqpsk.py:170 _estimate_cfo_residual (line search :187-201)", None,
+           max_abs_err=0.0, cfo_max_abs_err_hz=err_hz,
+           ms=timer(lambda: cqpsk.cfo_lines(spec, k4, off, step), "cfo_lines_kernel"),
+           wrapper_ms=wall_timer(lambda: cqpsk.cfo_lines(spec, k4, off, step)),
+           plain_ms=timer(lambda: cqpsk.cfo_lines_plain(spec, k4, off, step)),
+           bound_ms=b, bound_by=f, library_note="no single PyTorch call computes the line-pair search")
+
+    # K14 at program B's bank: echo rows (delay 4 samples, a 0.8, theta 2.98) and clean rows
+    grid = cqpsk._cfg_grid(cfg_b, device)
+    clean = cqpsk_rows(rng, rows_b, n_b, cfg_b.sample_rate, 4800.0, 0.2, cfo=np.zeros(rows_b))
+    echo_rows = np.arange(rows_b) % 2 == 0
+    x_np = clean.copy()
+    x_np[echo_rows] += (0.8 * np.exp(2.98j)) * np.roll(clean[echo_rows], 4, axis=-1)
+    x = dev(x_np)
+    acc0 = eqz.echo_fit_plain(x, torch.zeros((rows_b, grid.n_tau + 1), dtype=torch.complex64, device=device),
+                              torch.ones(rows_b, dtype=torch.bool, device=device), grid, 41, 0.01, 0.35,
+                              0.6, 0.5)[1]
+    acc = torch.where(dev(rng.random(rows_b) < 0.5)[:, None], acc0, torch.zeros_like(acc0))
+    enable = dev(np.arange(rows_b) != 5)
+
+    def fit():
+        return eqz.echo_fit(x, acc, enable, grid, 41, 0.01, 0.35, 0.6, 0.5)
+
+    def fit_plain():
+        return eqz.echo_fit_plain(x, acc, enable, grid, 41, 0.01, 0.35, 0.6, 0.5)
+
+    t_k, a_k, s_k, j_k = (host(v) for v in fit())
+    t_p, a_p, s_p, j_p = (host(v) for v in fit_plain())
+    check(np.array_equal(j_k[host(enable)], j_p[host(enable)]), "K14 candidate index differs")
+    check(np.array_equal(s_k, s_p), "K14 significance differs")
+    n_echo_sig, n_clean_sig = int(s_k[echo_rows].sum()), int(s_k[~echo_rows].sum())
+    check(n_echo_sig > 0 and n_clean_sig < int((~echo_rows).sum()),
+          f"K14's check needs a significant echo row and a clean row that is not "
+          f"({n_echo_sig} echo, {n_clean_sig} clean rows significant)")
+    err_t, err_a = rel_l2(t_p, t_k), rel_l2(a_p, a_k)
+    check(err_t <= 1e-5 and err_a <= 1e-6, f"K14 taps rel L2 {err_t:.3g} (<= 1e-5), acf {err_a:.3g} (<= 1e-6)")
+    n_c, lags = grid.preds.shape
+    fit_bytes = rows_b * n_b * 8 + n_c * lags * 8 + n_c * 12 + rows_b * (2 * lags * 8 + 41 * 8 + 5)
+    fit_ops = rows_b * (lags * n_b * 8.0 + n_c * lags * 7.0 + 41 * 512 * 8.0)
+    b, f = bound(fit_bytes, fit_ops)
+    acf_r = torch.view_as_real(torch.from_numpy(a_p).to(device)).reshape(rows_b, -1)
+    preds_r = torch.view_as_real(grid.preds).reshape(n_c, -1)
+    record("K14_echo_fit", f"program B fit: ({rows_b}, {n_b}) c64 x {n_c} candidates, 41 taps",
+           "wavecap_tpu_torch/kernels/csrc/echo_fit.cu",
+           "wavecap_tpu/models/p25/equalizer.py:165 fit_and_invert (+ :109 block_acf, :119 resolve_cfo_alias)",
+           # yardstick: the residual grid as torch.cdist over (re, im) views, then argmin (two calls)
+           timer(lambda: torch.cdist(acf_r, preds_r).argmin(-1)),
+           max_abs_err=max_abs(t_p, t_k), taps_rel_l2=err_t, acf_rel_l2=err_a,
+           echo_rows_significant=n_echo_sig, clean_rows_significant=n_clean_sig, bound_ms=b, bound_by=f,
+           ms=timer(fit, K14_KERNELS), wrapper_ms=wall_timer(fit), plain_ms=timer(fit_plain))
+    x3 = torch.cat([x, x * dev(np.exp(2j * np.pi * 1200.0 * np.arange(n_b) / cfg_b.sample_rate)
+                               .astype(np.complex64)), torch.flip(x, [0])])
+    sc_k, sc_p = host(eqz.echo_score(x3, grid)), host(eqz.echo_score_plain(x3, grid))
+    err = rel_l2(sc_p, sc_k)
+    check(err <= 1e-5, f"K14 score mode rel L2 {err:.3g} > 1e-5")
+    b, f = bound(3 * rows_b * n_b * 8 + n_c * lags * 8 + 3 * rows_b * 4,
+                 3 * rows_b * (lags * n_b * 8.0 + n_c * lags * 7.0))
+    cases.append(dict(name="K14_echo_fit", case=f"alias score: ({3 * rows_b}, {n_b}) c64", rel_l2=err,
+                      bound_ms=b, bound_by=f, ms=timer(lambda: eqz.echo_score(x3, grid), K14_KERNELS),
+                      wrapper_ms=wall_timer(lambda: eqz.echo_score(x3, grid)),
+                      plain_ms=timer(lambda: eqz.echo_score_plain(x3, grid)), library_ms=None))
+
+    # K7: the equaliser's per-row complex taps in one launch, against conv1d in full f32
+    taps = dev((rng.standard_normal((rows_b, 41)) + 1j * rng.standard_normal((rows_b, 41))).astype(np.complex64) * 0.2)
+    xin = torch.cat([dev((rng.standard_normal((rows_b, 40)) + 1j * rng.standard_normal((rows_b, 40)))
+                         .astype(np.complex64)), x], -1)
+    y_k = host(fir.strided_fir(xin, taps, 1)[0])
+    y_p = host(fir.strided_fir_plain(xin, taps, 1)[0])
+    err = rel_l2(y_p, y_k)
+    check(err <= 1e-6, f"K7 per-row complex taps rel L2 {err:.3g} > 1e-6")
+    kern = taps.flip(-1).unsqueeze(1)
+    b, f = bound(rows_b * (n_b + 40) * 8 + rows_b * 41 * 8 + rows_b * n_b * 8, rows_b * n_b * 41 * 8.0)
+    cases.append(dict(name="K7_strided_fir", case=f"equaliser: per-row 41 complex taps, ({rows_b}, {n_b + 40}) c64",
+                      rel_l2=err, max_abs_err=max_abs(y_p, y_k), bound_ms=b, bound_by=f,
+                      ms=timer(lambda: fir.strided_fir(xin, taps, 1), "strided_fir_kernel"),
+                      wrapper_ms=wall_timer(lambda: fir.strided_fir(xin, taps, 1)),
+                      plain_ms=timer(lambda: fir.strided_fir_plain(xin, taps, 1)),
+                      # yardstick: one complex grouped conv1d
+                      library_ms=timer(lambda: F.conv1d(xin.unsqueeze(0), kern, groups=rows_b))))
+    names = ("K12_c4fm_timing", "K13_cqpsk_timing", "K13_cfo_lines", "K14_echo_fit")
+    return [lines[k] for k in names], cases
+
+
+def p25_scene(cfg, stations):
+    """A fake receiver at the capture rate: ``stations`` is a list of
+    ``FakeStation`` keyword dicts."""
+    from wavecap_tpu_torch.devices import DeviceConfig, FakeDriver, FakeStation
+
+    device = FakeDriver(1, [FakeStation(**s) for s in stations]).open("fake0")
+    device.configure(DeviceConfig(sample_rate=cfg.sample_rate))
+    return device.start_stream()
+
+
+def run_capture(cfg, device, words_np, ctl, expected: dict, sync):
+    """The blocks through upload -> ``capture_multi`` -> ``unpack_wire`` with
+    the launch count of each kernel checked; returns the words on the card,
+    the outputs, the last state, the wire, the counts and the first-run
+    seconds."""
+    import torch
+
+    from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init, unpack_wire
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    n = len(words_np)
+    state0 = pipeline_init(cfg, device=device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    words = torch.from_numpy(words_np).to(device)
+    outs, state = capture_multi(words, state0, ctl, cfg)
+    packed = host(outs["_packed"])
+    sync()
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {name: n * expected.get(name, 0) for name in counts}
+    check(counts == want, f"launch counts {counts} != {want}")
+    meta = {k: v for k, v in outs.items() if k != "_packed"}
+    return words, outs, state, unpack_wire(meta, packed), counts, first_s
+
+
+def soft_wire_error(outs, wire, bank: str) -> float:
+    """The unpacked wire's soft symbols against the card's, clipped to the
+    i8 range: within half an LSB (1/32)."""
+    dev_soft = np.clip(host(outs[bank]["soft"]), -127 / 16.0, 127 / 16.0)
+    err = float(np.max(np.abs(wire[bank]["soft"] - dev_soft)))
+    check(err <= 1.0 / 32 + 1e-6, f"{bank} wire soft off by {err:.3g} > 1/32")
+    return err
+
+
+def first_blocks_vs_plain(words, cfg, ctl, outs, device, soft_slots: dict, audio_slots=()) -> dict:
+    """The first two blocks through the plain path on the card: soft symbols
+    of the station slots and the NBFM stations' audio >= 50 dB."""
+    from wavecap_tpu_torch.capture.pipeline import pipeline_init
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    st = pipeline_init(cfg, device=device)
+    worst_soft, worst_audio = float("inf"), float("inf")
+    for blk in range(2):
+        out_p, st = plain_capture_step(words[blk], st, ctl, cfg)
+        for bank, slots in soft_slots.items():
+            s_p, s_k = host(out_p[bank]["soft"]), host(outs[bank]["soft"][blk])
+            for i in slots:
+                worst_soft = min(worst_soft, snr_db(s_p[i], s_k[i]))
+        for i in audio_slots:
+            worst_audio = min(worst_audio, snr_db(host(out_p["banks"]["nbfm"]["audio"])[i],
+                                                  host(outs["banks"]["nbfm"]["audio"][blk])[i]))
+    launched = {k: v for k, v in launch_counts().items() if v}
+    check(not launched, f"the plain path launched kernels: {launched}")
+    check(worst_soft >= 50.0, f"first blocks' soft SNR {worst_soft:.1f} dB < 50 against the plain path")
+    check(worst_audio >= 50.0, f"first blocks' audio SNR {worst_audio:.1f} dB < 50 against the plain path")
+    return dict(first_blocks_soft_snr_db=worst_soft,
+                first_blocks_audio_snr_db=worst_audio if audio_slots else None)
+
+
+def warm_ms(cfg, device, words, ctl, sync) -> tuple:
+    from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init
+
+    def one_pass():
+        o, _ = capture_multi(words, pipeline_init(cfg, device=device), ctl, cfg)
+        host(o["_packed"])
+
+    one_pass()
+    sync()
+    t0 = time.perf_counter()
+    one_pass()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / len(words), one_pass
+
+
+def run_program_a(cfg, device, sync=None) -> dict:
+    """Program A: C4FM at the BASELINE point (50 p25 + 50 nbfm slots)."""
+    import torch
+
+    from wavecap_tpu_torch.capture.engine import pack_i16_words
+    from wavecap_tpu_torch.capture.pipeline import control_init
+
+    sync = sync or torch.cuda.synchronize
+    rng = np.random.default_rng(SEED + 4)
+    ch = cfg.channelizer()
+    m = ch.channel_count
+    p, c = cfg.p25_capacity, cfg.narrow_capacity
+    bins = p25_bins(m, p + c, 3)
+    p25_bins_, nbfm_bins = bins[:p], bins[p:]
+    loops, stations, fine = {}, [], np.zeros(p, np.float32)
+    for slot, f in A_C4FM_STATIONS:
+        d, iq = p25_loop(rng, "c4fm", cfg.sample_rate)
+        loops[slot] = d
+        fine[slot] = f
+        stations.append(dict(offset_hz=ch.channel_offset_hz(p25_bins_[slot]) + f, kind="iq_loop",
+                             iq_loop=iq, amplitude=P25_AMPLITUDE))
+    for slot in A_NBFM_STATIONS:
+        stations.append(dict(offset_hz=ch.channel_offset_hz(nbfm_bins[slot]), kind="nbfm",
+                             tone_hz=1000.0, deviation_hz=4000.0, amplitude=P25_AMPLITUDE))
+    stream = p25_scene(cfg, stations)
+    words_np = pack_i16_words([stream.read(cfg.block_size)[0] for _ in range(N_BLOCKS)])
+    ctl = control_init(cfg, device=device)
+    ctl = ctl._replace(
+        banks={"nbfm": ctl.banks["nbfm"]._replace(
+            channel_index=torch.tensor(nbfm_bins, dtype=torch.int32, device=device),
+            active=torch.ones(c, dtype=torch.bool, device=device),
+            squelch_db=torch.full((c,), P25_SQUELCH_DB, dtype=torch.float32, device=device))},
+        p25=ctl.p25._replace(channel_index=torch.tensor(p25_bins_, dtype=torch.int32, device=device),
+                             fine_offset_hz=torch.from_numpy(fine).to(device),
+                             active=torch.ones(p, dtype=torch.bool, device=device)))
+    words, outs, _, wire, counts, first_s = run_capture(cfg, device, words_np, ctl, A_LAUNCHES, sync)
+
+    soft = host(outs["p25"]["soft"])
+    check(np.isfinite(soft).all() and np.isfinite(wire["spectrum"]).all(), "non-finite output")
+    n_sym = soft.shape[-1]
+    check(n_sym == round(2 * cfg.block_size / m / (ch.channel_rate / 4800.0)), "soft symbols per block")
+    agree = {slot: min(agreement(soft[k, slot], d) for k in range(P25_FIRST, N_BLOCKS))
+             for slot, d in loops.items()}
+    for slot, a in agree.items():
+        check(a >= 0.995, f"C4FM station on p25 slot {slot}: {a:.4f} of decisions right < 0.995")
+    rssi = wire["p25"]["rssi"]
+    empty = [i for i in range(p) if i not in loops]
+    station_rssi = float(rssi[:, list(loops)].min())
+    check(float(rssi[:, empty].max()) < station_rssi - 30.0, "an empty p25 slot is not at the noise floor")
+    audio = wire["banks"]["nbfm"]["audio"]
+    margins = {s: tone_margin_db(audio[P25_FIRST:, s].ravel(), cfg.audio_rate) for s in A_NBFM_STATIONS}
+    for s, v in margins.items():
+        check(v >= 20.0, f"NBFM station on slot {s}: 1 kHz line only {v:.1f} dB up")
+    empty_nbfm = [i for i in range(c) if i not in A_NBFM_STATIONS]
+    check(not audio[:, empty_nbfm].any(), "an empty nbfm slot's squelch opened")
+    wire_err = soft_wire_error(outs, wire, "p25")
+    plain = first_blocks_vs_plain(words, cfg, ctl, outs, device, {"p25": list(loops)}, A_NBFM_STATIONS)
+    ms_block, one_pass = warm_ms(cfg, device, words, ctl, sync)
+    return dict(phase="program A", blocks=N_BLOCKS, block_size=cfg.block_size, channels=m,
+                p25_slots=p, nbfm_slots=c, symbols_per_block=n_sym, launches=counts,
+                first_run_s=first_s, warm_ms_per_block=ms_block, msps=cfg.block_size / ms_block / 1e3,
+                profile=profile_blocks(one_pass, N_BLOCKS, sync),
+                decisions_right={str(k): v for k, v in agree.items()},
+                station_rssi_min_dbfs=station_rssi, empty_p25_rssi_max_dbfs=float(rssi[:, empty].max()),
+                nbfm_tone_margin_db={str(k): v for k, v in margins.items()},
+                wire_soft_max_abs=wire_err, **plain)
+
+
+def run_program_bc(cfg, device, name: str, sync=None) -> dict:
+    """Program B (LSM with the simulcast equalizer) or C (Phase 2 dual rate)."""
+    import torch
+
+    from wavecap_tpu_torch.capture.engine import pack_i16_words
+    from wavecap_tpu_torch.capture.pipeline import control_init, p25_cfg_for
+
+    sync = sync or torch.cuda.synchronize
+    rng = np.random.default_rng(SEED + (5 if name == "B" else 6))
+    ch = cfg.channelizer()
+    m = ch.channel_count
+    p, p2 = cfg.p25_capacity, cfg.p25p2_capacity
+    bins = p25_bins(m, p + p2, 4)
+    banks = {"p25": (bins[:p], np.zeros(p, np.float32), {}), "p25p2": (bins[p:], np.zeros(p2, np.float32), {})}
+    stations, echo_slot = [], None
+    table = ([("p25", s, f, cfo, e, 4800.0, 0.2) for s, f, cfo, e in B_STATIONS] if name == "B" else
+             [("p25", 0, 0.0, 0.0, False, 4800.0, 0.2)]
+             + [("p25p2", s, f, 0.0, False, 6000.0, 1.0) for s, f in C_P2_STATIONS])
+    for bank, slot, f, cfo, echo, rs, alpha in table:
+        if slot >= len(banks[bank][0]):
+            continue
+        d, iq = p25_loop(rng, "cqpsk", cfg.sample_rate, rs, alpha)
+        if echo:
+            delay, a, theta = ECHO
+            iq = (iq + a * np.exp(1j * theta) * np.roll(iq, delay)).astype(np.complex64)
+            echo_slot = slot
+        banks[bank][1][slot] = f
+        banks[bank][2][slot] = d
+        stations.append(dict(offset_hz=ch.channel_offset_hz(banks[bank][0][slot]) + f + cfo,
+                             kind="iq_loop", iq_loop=iq, amplitude=P25_AMPLITUDE))
+    stream = p25_scene(cfg, stations)
+    words_np = pack_i16_words([stream.read(cfg.block_size)[0] for _ in range(N_BLOCKS)])
+    ctl = control_init(cfg, device=device)
+    for bank, (bb, fine, _) in banks.items():
+        if getattr(ctl, bank) is None:
+            continue
+        ctl = ctl._replace(**{bank: getattr(ctl, bank)._replace(
+            channel_index=torch.tensor(bb, dtype=torch.int32, device=device),
+            fine_offset_hz=torch.from_numpy(fine).to(device),
+            active=torch.ones(len(bb), dtype=torch.bool, device=device))})
+    launches = B_LAUNCHES if name == "B" else C_LAUNCHES
+    words, outs, state, wire, counts, first_s = run_capture(cfg, device, words_np, ctl, launches, sync)
+
+    res = dict(phase=f"program {name}", blocks=N_BLOCKS, block_size=cfg.block_size, channels=m,
+               p25_slots=p, p25p2_slots=p2, launches=counts, first_run_s=first_s)
+    soft_slots = {}
+    for bank, (_, _, loops) in banks.items():
+        if not loops:
+            continue
+        soft = host(outs[bank]["soft"])
+        check(np.isfinite(soft).all(), f"{bank} soft not finite")
+        agree = {}
+        for slot, d in loops.items():
+            agree[slot] = min(agreement(soft[k, slot], d) for k in range(P25_FIRST, N_BLOCKS))
+            floor = 0.95 if slot == echo_slot and bank == "p25" else 0.99
+            check(agree[slot] >= floor, f"{bank} station on slot {slot}: {agree[slot]:.4f} of decisions right < {floor}")
+        rssi = wire[bank]["rssi"]
+        empty = [i for i in range(soft.shape[1]) if i not in loops]
+        if empty:
+            check(float(rssi[:, empty].max()) < float(rssi[:, list(loops)].min()) - 30.0,
+                  f"an empty {bank} slot is not at the noise floor")
+        res[f"{bank}_decisions_right"] = {str(k): v for k, v in agree.items()}
+        res[f"{bank}_symbols_per_block"] = soft.shape[-1]
+        res[f"{bank}_wire_soft_max_abs"] = soft_wire_error(outs, wire, bank)
+        soft_slots[bank] = list(loops)
+    if name == "B":
+        # the equaliser: engaged on the echo station, identity taps on the clean ones
+        hits, taps = host(state.p25.c4fm.eq_hits), host(state.p25.c4fm.eq_taps)
+        ident = np.zeros(taps.shape[1], np.complex64)
+        ident[taps.shape[1] // 2] = 1.0
+        clean = [s for s in banks["p25"][2] if s != echo_slot]
+        engage = p25_cfg_for(cfg).eq_engage_blocks
+        check([s for s in banks["p25"][2] if hits[s] >= engage] == [echo_slot],
+              f"K14 engaged on stations {[s for s in banks['p25'][2] if hits[s] >= engage]}, "
+              f"not on the echo station {echo_slot} alone")
+        check(not np.allclose(taps[echo_slot], ident), "the echo station holds identity taps")
+        check(all(np.array_equal(taps[s], ident) for s in clean), "a clean station's taps are not identity")
+        res.update(echo_slot=echo_slot, echo_eq_hits=int(hits[echo_slot]),
+                   engaged_slots=[int(i) for i in np.flatnonzero(hits >= engage)])
+    res.update(first_blocks_vs_plain(words, cfg, ctl, outs, device, soft_slots))
+    ms_block, one_pass = warm_ms(cfg, device, words, ctl, sync)
+    res.update(warm_ms_per_block=ms_block, msps=cfg.block_size / ms_block / 1e3)
+    return res
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -1101,10 +1747,17 @@ def main() -> int:
 
     cfg = slice_config()
     mixed = mixed_config()
+    p25 = p25_configs()
     try:
         kernels = kernel_checks(cfg, device)
         for k in kernels:
             log(dict(phase="kernel", **k))
+        # the P25 kernels before the mixed checks' plain scans, whose many
+        # thousand launches make CUPTI drop later ones (see device_ms)
+        p25_lines, cases = p25_kernel_checks(p25, device)
+        for k in cases:
+            log(dict(phase="kernel-case", **k))
+        kernels += p25_lines
         mixed_lines, cases = mixed_kernel_checks(mixed, device)
         for k in cases:
             log(dict(phase="kernel-case", **k))
@@ -1115,15 +1768,24 @@ def main() -> int:
         log(sl)
         mx = run_mixed(mixed, device)
         log(mx)
+        pa = run_program_a(p25["A"], device)
+        log(pa)
+        pb = run_program_bc(p25["B"], device, "B")
+        log(pb)
+        pc = run_program_bc(p25["C"], device, "C")
+        log(pc)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # each kernel's launches on its own path: K4 on the first slice's, K12
+    # on program A's, K13 and K14 on program B's, the others on the mixed
+    # capture's
+    path = {"K4_voice_fir": sl, "K12_c4fm_timing": pa, "K13_cqpsk_timing": pb,
+            "K13_cfo_lines": pb, "K14_echo_fit": pb}
     for k in kernels:
-        # each kernel's launches on its path: K4 on the first slice's, the
-        # others on the mixed capture's
-        k["launches"] = (sl if k["name"] == "K4_voice_fir" else mx)["launches"][k["name"]]
+        k["launches"] = path.get(k["name"], mx)["launches"][k["name"]]
         if k["launches"] == 0:
             print(f"chip_smoke: FAILED: {k['name']} was not launched on its path", file=sys.stderr)
             return 1

@@ -164,13 +164,12 @@ def test_unported_nbfm_options_raise(override, kernel):
 
 
 def test_unported_modes_raise():
-    """The six analog modes are ported; the P25 soft-symbol modes raise
-    naming their ROADMAP item."""
+    """Every mode of the reference's registry is ported (the six analog
+    modes and the two P25 soft-symbol modes); a mode neither knows raises."""
+    from wavecap_tpu.models.registry import REGISTRY as JAX_REGISTRY
     from wavecap_tpu_torch.models.registry import REGISTRY, get_demod
 
-    assert set(REGISTRY) == {"wbfm", "nbfm", "am", "sam", "usb", "lsb"}
-    for mode in ("p25-soft", "p25-cqpsk-soft"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_demod(mode)
+    assert set(REGISTRY) == set(JAX_REGISTRY) == {"wbfm", "nbfm", "am", "sam", "usb", "lsb",
+                                                  "p25-soft", "p25-cqpsk-soft"}
     with pytest.raises(ValueError):
         get_demod("nonsense")

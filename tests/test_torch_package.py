@@ -68,6 +68,9 @@ def test_kernel_wrappers_have_no_fallback():
         "ops/iir.py": {"onepole_filter", "sos_filter", "_k9"},
         "ops/agc.py": {"envelope"},
         "ops/pll.py": {"_loop"},
+        "models/p25/c4fm.py": {"c4fm_timing", "launch_timing"},
+        "models/p25/cqpsk.py": {"cqpsk_timing", "cfo_lines"},
+        "models/p25/equalizer.py": {"echo_fit", "echo_score", "_k14"},
         "kernels/build.py": {"launch"},
     }
     for rel, names in wrappers.items():
@@ -141,7 +144,8 @@ def test_launch_counts_start_at_zero_and_reset():
     build.reset_launch_counts()
     counts = build.launch_counts()
     assert set(counts) == {"K1_unpack_arms", "K2_arm_dft", "K3_slot_frontend", "K4_voice_fir",
-                           "K5_resample_poly", "K7_strided_fir", "K9_iir_cascade", "K10_pll"}
+                           "K5_resample_poly", "K7_strided_fir", "K9_iir_cascade", "K10_pll",
+                           "K12_c4fm_timing", "K13_cqpsk_timing", "K13_cfo_lines", "K14_echo_fit"}
     assert not any(counts.values())
 
 
@@ -168,9 +172,9 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path, where):
 
 
 def test_registry_gives_the_six_analog_modes():
-    """Every analog mode builds its state and demodulates a block; the
-    noise options (K11) and the P25 modes raise naming their ROADMAP
-    item."""
+    """Every analog mode builds its state and demodulates a block, and so
+    do the two P25 soft-symbol modes; the noise options (K11) raise naming
+    their ROADMAP item."""
     from wavecap_tpu_torch.models import registry
 
     for mode in ("wbfm", "nbfm", "am", "sam", "usb", "lsb"):
@@ -185,5 +189,33 @@ def test_registry_gives_the_six_analog_modes():
                 with pytest.raises(NotImplementedError, match="K11"):
                     spec.init(registry.make_config(mode, 25_000, **{opt: True}), device="cpu")
     for mode in ("p25-soft", "p25-cqpsk-soft"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            registry.get_demod(mode)
+        spec = registry.get_demod(mode)
+        cfg = registry.make_config(mode, 48_000)
+        soft, state = spec.demod(torch.ones(4800, dtype=torch.complex64), spec.init(cfg, device="cpu"), cfg)
+        assert soft.shape == (480,) and torch.isfinite(soft).all() and state.pos.shape == ()
+
+
+def test_p25_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from wavecap_tpu_torch.capture import pipeline
+    from wavecap_tpu_torch.models.p25 import c4fm, cqpsk
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = pipeline.CapturePipelineConfig(
+        sample_rate=1_200_000, block_size=120_000, channel_bandwidth=25_000.0, p25_capacity=2,
+        p25_modulation="cqpsk", p25p2_capacity=2,
+    )
+    calls = [
+        lambda **kw: pipeline.pipeline_init(cfg, **kw),
+        lambda **kw: pipeline.control_init(cfg, **kw),
+        lambda **kw: pipeline.p25_init(cfg, **kw),
+        lambda **kw: pipeline.p25p2_init(cfg, **kw),
+        lambda **kw: c4fm.c4fm_init(c4fm.C4fmConfig(), **kw),
+        lambda **kw: cqpsk.cqpsk_init(cqpsk.CqpskConfig(), **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        call(device="cpu")
+    state = pipeline.pipeline_init(cfg, device="cpu")
+    assert state.chan_state is not None  # the P25 banks alone still channelize
+    assert state.p25.c4fm.cfo_phase.dtype == torch.uint32

@@ -11,12 +11,16 @@ handed from the JAX package to the port mid-flight through
   their config defaults), one WBFM group of 2 wide slots with the wide
   baseband exported, 48 kHz audio.  Blocks of 20,000 samples stream every
   resampler; blocks of 20,240 send both the narrow (48/25) and the wide
-  (24/125) resampler to the reference's one-shot fallback.
+  (24/125) resampler to the reference's one-shot fallback;
+* the three P25 programs at small width (1.2 Msps, 25 kHz bins): C4FM
+  beside an NBFM bank, LSM with the simulcast equalizer, and Phase 2's
+  dual-rate capture (see the P25 section below).
 """
 
 import numpy as np
 import pytest
 import torch
+from scipy import signal as sps
 
 import jax
 import jax.numpy as jnp
@@ -170,8 +174,6 @@ def test_audio_fetch_slots_raises():
 @pytest.mark.parametrize("override,item", [
     # the wide slots run; a group with the noise blanker (K11) does not yet
     (dict(wide_capacity=2, wide_groups=((("enable_noise_blanker", True),),)), "item 7"),
-    (dict(p25_capacity=2), "item 8"),
-    (dict(p25p2_capacity=2), "item 8"),
 ])
 def test_unported_banks_raise(override, item):
     cfg = tpipe.CapturePipelineConfig(**{**CFG_KW, **override})
@@ -325,3 +327,224 @@ def test_mixed_mid_stream_handover_through_convert(mixed_run):
     np.testing.assert_array_equal(tstate.wide[()].nco_phase.numpy(), jstate2.wide[()].nco_phase)
     to, _ = tpipe.capture_step(torch.from_numpy(words[2]), tstate, tctl, tcfg)
     assert_mixed_match(jouts[2], to)
+
+
+# --- the P25 banks ---------------------------------------------------------------
+#
+# 1.2 Msps / 25 kHz bins (M = 48, 50 kHz channels), 0.1 s blocks (5,000
+# channel samples: 480 symbols at 4800 baud, 600 at 6000; 5,000 mod 25 = 0,
+# so the NBFM bank's 50 -> 48 kHz resampler streams), i16 words, 3 blocks.
+# The three programs of the slice at small width:
+#   * C4FM beside an NBFM bank (the BASELINE capture's mix),
+#   * LSM (CQPSK) with the 41-tap simulcast equalizer,
+#   * Phase 2 dual rate: a CQPSK control-channel bank and a 6000-baud bank.
+
+P25_FS = 1_200_000
+P25_BLOCK = 120_000
+# program -> (overrides, stations); a station is (bank, slot, bin, fine Hz,
+# carrier offset Hz, kind, 70 us echo); empty slots sit on empty bins
+P25_PROGRAMS = {
+    "c4fm-nbfm": (
+        dict(narrow_modes=("nbfm",), narrow_capacity=3, p25_capacity=3, p25_modulation="c4fm"),
+        [("p25", 0, 5, 0.0, 0.0, "c4fm", False), ("p25", 1, 38, 1500.0, 0.0, "c4fm", False)],
+    ),
+    "lsm-equalizer": (
+        dict(p25_capacity=3, p25_modulation="cqpsk", p25_equalizer_taps=41),
+        [("p25", 0, 5, 0.0, 0.0, "lsm", True), ("p25", 1, 38, 0.0, 600.0, "lsm", False)],
+    ),
+    "dual-rate": (
+        dict(p25_capacity=2, p25_modulation="cqpsk", p25p2_capacity=3),
+        [("p25", 0, 5, 0.0, 0.0, "lsm", False), ("p25p2", 0, 12, 0.0, 0.0, "phase2", False),
+         ("p25p2", 1, 38, -800.0, 0.0, "phase2", False)],
+    ),
+}
+P25_BINS = {"p25": [5, 38, 14], "p25p2": [12, 38, 22]}
+NBFM_P25 = (20, 30, 20)  # the NBFM bank's bins: a station, an empty bin, the station squelch-open
+
+
+def p25_kw(name: str) -> dict:
+    over, _ = P25_PROGRAMS[name]
+    return dict(sample_rate=P25_FS, block_size=P25_BLOCK, channel_bandwidth=25_000.0,
+                fft_size=2048, spectrum_frames=2, **over)
+
+
+def p25_blocks(name: str, n_blocks: int):
+    from wavecap_tpu.models.p25 import c4fm as jc
+    from wavecap_tpu.models.p25 import cqpsk as jq
+
+    rng = np.random.default_rng(7)
+    n48 = n_blocks * P25_BLOCK // 25
+    stations = []
+    for bank, slot, b, fine, carrier, kind, echo in P25_PROGRAMS[name][1]:
+        if kind == "c4fm":
+            x = jc.modulate_c4fm(rng.integers(0, 4, n48 // 10 + 1).astype(np.uint8), 48_000.0)
+        else:
+            rs, alpha = (4800.0, 0.2) if kind == "lsm" else (6000.0, 1.0)
+            x = jq.modulate_cqpsk(rng.integers(0, 4, int(n48 * rs / 48_000) + 1).astype(np.uint8),
+                                  48_000.0, rs, alpha)
+        x = sps.resample_poly(x[:n48], 25, 1)
+        if echo:
+            k = int(round(70e-6 * P25_FS))
+            x = x + 0.8 * np.exp(2.98j) * np.concatenate([np.zeros(k), x[:-k]])
+        stations.append(FakeStation(offset_hz=b * P25_FS / 48 + fine + carrier, kind="iq_loop",
+                                    iq_loop=x.astype(np.complex64), amplitude=0.1))
+    if "narrow_modes" in P25_PROGRAMS[name][0]:
+        stations.append(FakeStation(offset_hz=NBFM_P25[0] * P25_FS / 48, kind="nbfm", tone_hz=1000.0,
+                                    deviation_hz=4000.0, amplitude=0.1))
+    dev = FakeDriver(1, stations).open("fake0")
+    dev.configure(DeviceConfig(sample_rate=P25_FS))
+    stream = dev.start_stream()
+    return [stream.read(P25_BLOCK)[0] for _ in range(n_blocks)]
+
+
+def p25_controls(name: str, jcfg, tcfg):
+    jctl = jpipe.control_init(jcfg)
+    fine = {bank: np.zeros(3, np.float32) for bank in P25_BINS}
+    for bank, slot, _, f, _, _, _ in P25_PROGRAMS[name][1]:
+        fine[bank][slot] = f
+    repl = {}
+    for bank in ("p25", "p25p2"):
+        a = getattr(jctl, bank)
+        if a is None:
+            continue
+        n = a.channel_index.shape[0]
+        repl[bank] = a._replace(channel_index=jnp.asarray(P25_BINS[bank][:n], jnp.int32),
+                                fine_offset_hz=jnp.asarray(fine[bank][:n]),
+                                active=jnp.asarray([True] * (n - 1) + [False]))
+    if jcfg.narrow_modes:
+        repl["banks"] = {"nbfm": jctl.banks["nbfm"]._replace(
+            channel_index=jnp.asarray(NBFM_P25, jnp.int32), active=jnp.asarray([True] * 3),
+            squelch_db=jnp.asarray([-45.0, -45.0, -1e9], jnp.float32))}
+    jctl = jctl._replace(**repl)
+    return jctl, convert.capture_control_from_numpy(tcfg, jax.device_get(jctl), device="cpu")
+
+
+def soft_dibits(soft: np.ndarray) -> np.ndarray:
+    outer = np.abs(soft) >= 2.0
+    return np.where(soft >= 0, np.where(outer, 1, 0), np.where(outer, 3, 2))
+
+
+def assert_p25_match(jo, to):
+    """One block: per P25 bank, dibits equal and soft >= 50 dB on every
+    slot, rssi |dB| <= 1e-3; the NBFM bank's audio >= 50 dB; spectrum
+    |dB| <= 0.05 within 60 dB of the peak; the port's unpacked wire soft
+    within half an i8 LSB (1/32) of its own output, and within one LSB
+    (1/16) of the reference's unpacked wire."""
+    banks = [b for b in ("p25", "p25p2") if b in jo]
+    assert banks and set(banks) == {b for b in ("p25", "p25p2") if b in to}
+    for bank in banks:
+        js, ts = np.asarray(jo[bank]["soft"]), to[bank]["soft"].numpy()
+        assert js.shape == ts.shape
+        np.testing.assert_array_equal(soft_dibits(ts), soft_dibits(js), err_msg=bank)
+        for i in range(js.shape[0]):
+            assert snr_db(js[i], ts[i]) >= 50.0, (bank, i)
+        np.testing.assert_allclose(to[bank]["rssi"].numpy(), np.asarray(jo[bank]["rssi"]), rtol=0, atol=1e-3)
+    if jo["banks"]:
+        ja, ta = np.asarray(jo["banks"]["nbfm"]["audio"]), to["banks"]["nbfm"]["audio"].numpy()
+        for i in range(3):
+            if np.abs(ja[i]).max() > 0:
+                assert snr_db(ja[i], ta[i]) >= 50.0, i
+            else:
+                assert not ta[i].any(), i
+    js, ts = np.asarray(jo["spectrum"]), to["spectrum"].numpy()
+    assert float(np.max(np.abs(ts - js)[js >= js.max() - 60.0])) <= 0.05
+    jmeta = jax.tree.map(lambda v: np.asarray(v)[None], {k: v for k, v in jo.items() if k != "_packed"})
+    tmeta = {k: v for k, v in to.items() if k != "_packed"}
+    tmeta = tpipe._rebuild(tmeta, iter(v[None] for _, v in tpipe._leaves(tmeta)))
+    jp, tp = np.asarray(jo["_packed"]), to["_packed"].numpy()
+    assert jp.shape == tp.shape
+    jw, tw = jpipe.unpack_wire(jmeta, jp[None]), tpipe.unpack_wire(tmeta, tp[None])
+    for bank in banks:
+        own = np.clip(to[bank]["soft"].numpy(), -127 / 16, 127 / 16)
+        assert tw[bank]["soft"].dtype == np.float32
+        assert float(np.max(np.abs(tw[bank]["soft"][0] - own))) <= 1 / 32 + 1e-6
+        assert float(np.max(np.abs(tw[bank]["soft"] - jw[bank]["soft"]))) <= 1 / 16 + 1e-6
+
+
+def assert_phases_close(got, ref):
+    """uint32 NCO phases after 3 blocks: the port's tuning words equal the
+    reference's eager ones; jitted, XLA divides an offset by the constant
+    rate through its reciprocal, which moves some words by one ulp of
+    ``offset / fs`` (<= 8 counts at 50 kHz), so the phases may differ by up
+    to 16 counts a sample."""
+    d = (np.asarray(got, np.int64) - np.asarray(ref, np.int64)) % 2**32
+    d = np.where(d >= 2**31, d - 2**32, d)
+    assert np.abs(d).max() <= 16 * 3 * 2 * P25_BLOCK // 48, d
+
+
+@pytest.fixture(scope="module", params=list(P25_PROGRAMS))
+def p25_run(request):
+    """The JAX package's capture of one P25 program, block by block (its
+    jitted ``capture_step``), and its state after block 2."""
+    name = request.param
+    jcfg = jpipe.CapturePipelineConfig(**p25_kw(name))
+    tcfg = tpipe.CapturePipelineConfig(**p25_kw(name))
+    words = pack_i16_words(p25_blocks(name, 3))
+    jctl, tctl = p25_controls(name, jcfg, tcfg)
+    step = jpipe.jit_capture_step(jcfg)
+    jstate = jpipe.pipeline_init(jcfg)
+    jouts, jstate2 = [], None
+    for k in range(3):
+        jo, jstate = step(jnp.asarray(words[k]), jstate, jctl)
+        jouts.append(jax.device_get(jo))
+        if k == 1:
+            jstate2 = jax.device_get(jstate)
+    return name, tcfg, words, tctl, jouts, jstate2, jax.device_get(jstate)
+
+
+def test_p25_capture_multi_matches(p25_run):
+    """Each program over 3 blocks of i16 words against the reference, and
+    the carried P25 state after them."""
+    name, tcfg, words, tctl, jouts, _, jstate3 = p25_run
+    touts, tstate = tpipe.capture_multi(
+        torch.from_numpy(words), tpipe.pipeline_init(tcfg, device="cpu"), tctl, tcfg
+    )
+    for k in range(3):
+        assert_p25_match(jouts[k], tpipe._rebuild(touts, iter(v[k] for _, v in tpipe._leaves(touts))))
+    for bank in ("p25", "p25p2"):
+        jb, tb = getattr(jstate3, bank), getattr(tstate, bank)
+        if jb is None:
+            assert tb is None
+            continue
+        assert_phases_close(tb.nco_phase.numpy(), jb.nco_phase)
+        # relative 1e-4: the timing's Newton steps carry the channelizer's f32 differences
+        for f in ("pos", "freq", "integrator"):
+            np.testing.assert_allclose(getattr(tb.c4fm, f).numpy(), np.asarray(getattr(jb.c4fm, f)),
+                                       rtol=1e-4, atol=1e-4)
+        if name != "c4fm-nbfm":
+            assert_phases_close(tb.c4fm.cfo_phase.numpy(), jb.c4fm.cfo_phase)
+            np.testing.assert_array_equal(tb.c4fm.eq_hits.numpy(), np.asarray(jb.c4fm.eq_hits))
+    if name == "lsm-equalizer":
+        assert int(tstate.p25.c4fm.eq_hits[0]) >= 2  # the equalizer engaged on the echo
+
+
+def test_p25_mid_stream_handover_through_convert(p25_run):
+    """The JAX package runs blocks 1-2; its P25 bank state (timing,
+    carrier NCO, equalizer) moves to the port, which runs block 3 and
+    matches the reference's block 3."""
+    name, tcfg, words, tctl, jouts, jstate2, _ = p25_run
+    tstate = convert.capture_state_from_numpy(tcfg, jstate2, device="cpu")
+    assert tstate.p25.nco_phase.dtype == torch.uint32
+    if name != "c4fm-nbfm":
+        assert tstate.p25.c4fm.cfo_phase.dtype == torch.uint32
+        assert tstate.p25.c4fm.eq_hits.dtype == torch.int32
+    to, _ = tpipe.capture_step(torch.from_numpy(words[2]), tstate, tctl, tcfg)
+    assert_p25_match(jouts[2], to)
+
+
+def test_p25_soft_wire_round_trip():
+    """The soft leaf rides the wire as i8 at 1/16: rounding half to even,
+    clipped to +-127/16, and unpacked back to f32."""
+    soft = torch.tensor([[0.0, 1.03, -2.97, 3.0, 8.5, -9.0, 0.03125, -0.09375]])
+    out = {"p25": {"soft": soft, "rssi": torch.tensor([-20.0])}}
+    assert tpipe.wire_spec("soft") == (torch.int8, 16.0)
+    packed = tpipe.pack_wire(out)
+    assert packed.dtype == torch.uint8 and packed.numel() == 8 + 4
+    meta = {"p25": {"soft": soft[None], "rssi": torch.tensor([[-20.0]])}}
+    back = tpipe.unpack_wire(meta, packed.numpy()[None])["p25"]["soft"][0]
+    want = np.clip(np.round(soft.numpy() * 16), -127, 127) / 16
+    np.testing.assert_array_equal(back, want.astype(np.float32))
+    jback = jpipe.unpack_wire({"p25": {"soft": np.zeros((1, 1, 8), np.float32), "rssi": np.zeros((1, 1))}},
+                              np.asarray(jpipe.pack_wire({"p25": {"soft": jnp.asarray(soft.numpy()),
+                                                                  "rssi": jnp.asarray([-20.0])}}))[None])
+    np.testing.assert_array_equal(back, jback["p25"]["soft"][0])

@@ -1,15 +1,17 @@
-"""Per-capture block step: spectrum, channel banks and wide (WBFM) slots.
+"""Per-capture block step: spectrum, channel banks, wide (WBFM) slots and
+the P25 banks.
 
 Counterpart of ``wavecap_tpu/capture/pipeline.py``.  One block becomes,
 in one step on the card: the sampled spectrum, the whole-block RSSI,
 every narrowband channel through one channelizer pass and one demod bank
 per bank key (any analog mode), the wide slots (an NCO shift and a
-decimating FIR of the whole block, then WBFM), and one packed uint8 wire
-buffer that the host fetches.
+decimating FIR of the whole block, then WBFM), the P25 symbol banks (the
+4800-baud C4FM or CQPSK bank and the 6000-baud Phase 2 bank, soft
+symbols), and one packed uint8 wire buffer that the host fetches.
 
-The P25 banks and the engine's listener-selected audio fetch
-(``audio_fetch_slots``) raise ``NotImplementedError`` naming their
-ROADMAP item, as do the i8 and i4 transports.
+The engine's listener-selected audio fetch (``audio_fetch_slots``)
+raises ``NotImplementedError`` naming its ROADMAP item, as do the i8 and
+i4 transports.
 
 With i16-pair words as input, kernel K1 unpacks the words while it
 builds the channelizer's arms, and also writes the complex block for the
@@ -19,6 +21,7 @@ shifts and decimates the block for each wide slot group in one launch.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Any, NamedTuple
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..models import channel_bank
 from ..models.channel_bank import (
     ChannelAssignment,
     ChannelBankConfig,
@@ -36,6 +40,8 @@ from ..models.channel_bank import (
     bank_init,
 )
 from ..models.analog import WbfmConfig, wbfm_demod_baseband, wbfm_init
+from ..models.p25.c4fm import C4fmConfig, c4fm_demodulate, c4fm_init
+from ..models.p25.cqpsk import CqpskConfig, cqpsk_demodulate, cqpsk_init
 from ..models.registry import get_demod
 from ..ops.channelizer import ChannelizerConfig, _channelize, _unpack_i16_words, channelizer_init
 from ..ops import fir as fir_ops
@@ -45,16 +51,18 @@ WIDE_RATE = 240_000  # WBFM intermediate rate
 
 # --- device->host wire formats ----------------------------------------------
 # Each output leaf rides its natural wire width instead of f32: audio as
-# i16, the wide slots' pre-MPX baseband as i16 at +-8; the rest
-# (spectrum dB, rssi) as f32.  The P25 soft symbols (i8) join with their
-# bank.  ``pack_wire`` builds the one fetched uint8 buffer on the device;
+# i16, the P25 soft symbols as i8 at 1/16 resolution, the wide slots'
+# pre-MPX baseband as i16 at +-8; the rest (spectrum dB, rssi) as f32.
+# ``pack_wire`` builds the one fetched uint8 buffer on the device;
 # ``unpack_wire`` reverses it on the host from the shapes of the
 # unfetched leaves.
 _WIRE_SPECS: dict[str, tuple] = {
     "audio": (torch.int16, 32767.0),
+    "soft": (torch.int8, 16.0),
     "baseband": (torch.int16, 4095.0),
 }
 _NP_DTYPES = {
+    torch.int8: np.dtype(np.int8),
     torch.int16: np.dtype(np.int16),
     torch.float32: np.dtype(np.float32),
 }
@@ -205,8 +213,6 @@ class CapturePipelineConfig:
 
 
 def _check_supported(cfg: CapturePipelineConfig) -> None:
-    if cfg.p25_capacity > 0 or cfg.p25p2_capacity > 0:
-        raise NotImplementedError("P25 banks are ROADMAP Queue 1 item 8 (K12-K14)")
     if cfg.audio_fetch_slots > 0:
         raise NotImplementedError(
             "the listener-selected audio fetch comes with the engine, ROADMAP Queue 1 item 9"
@@ -225,12 +231,17 @@ class WideAssignment(NamedTuple):
     squelch_db: torch.Tensor  # (W,) f32
 
 
+class P25BankState(NamedTuple):
+    nco_phase: torch.Tensor  # (P,) uint32
+    c4fm: Any  # stacked C4fmState or CqpskState
+
+
 class CaptureState(NamedTuple):
     chan_state: torch.Tensor | None  # shared channelizer history
     banks: dict  # bank key -> ChannelBankState
     wide: dict | None = None  # dsp key -> WideState (one group per DSP set)
-    p25: Any = None
-    p25p2: Any = None
+    p25: P25BankState | None = None
+    p25p2: P25BankState | None = None  # Phase 2 6000-baud H-DQPSK bank
 
 
 class CaptureControl(NamedTuple):
@@ -269,14 +280,54 @@ def wide_init(cfg: WideSlotConfig, device: DeviceLike = None) -> WideState:
     )
 
 
+def p25_cfg_for(cfg: CapturePipelineConfig):
+    """The 4800-baud bank's demod config (``WAVECAP_P25_TIMING`` picks the
+    timing, as in the reference; only "block" is ported)."""
+    rate = int(cfg.channelizer().channel_rate)
+    timing = os.environ.get("WAVECAP_P25_TIMING", "block")
+    cls = CqpskConfig if cfg.p25_modulation == "cqpsk" else C4fmConfig
+    return cls(sample_rate=rate, timing_impl=timing, equalizer_taps=cfg.p25_equalizer_taps)
+
+
+def _p25_fns(cfg: CapturePipelineConfig):
+    if cfg.p25_modulation == "cqpsk":
+        return cqpsk_init, cqpsk_demodulate
+    return c4fm_init, c4fm_demodulate
+
+
+def p25p2_cfg_for(cfg: CapturePipelineConfig) -> CqpskConfig:
+    """Phase 2 TDMA voice: 6000-baud H-DQPSK, full-excess-bandwidth RRC."""
+    rate = int(cfg.channelizer().channel_rate)
+    timing = os.environ.get("WAVECAP_P25_TIMING", "block")
+    return CqpskConfig(sample_rate=rate, symbol_rate=6000.0, rrc_alpha=1.0, timing_impl=timing)
+
+
+def p25_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> P25BankState:
+    init_fn, _ = _p25_fns(cfg)
+    dev = resolve_device(device)
+    p = cfg.p25_capacity
+    return P25BankState(nco_phase=torch.zeros(p, dtype=torch.uint32, device=dev),
+                        c4fm=_stack_states(init_fn(p25_cfg_for(cfg), device=dev), p))
+
+
+def p25p2_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> P25BankState:
+    dev = resolve_device(device)
+    p = cfg.p25p2_capacity
+    return P25BankState(nco_phase=torch.zeros(p, dtype=torch.uint32, device=dev),
+                        c4fm=_stack_states(cqpsk_init(p25p2_cfg_for(cfg), device=dev), p))
+
+
 def pipeline_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> CaptureState:
     _check_supported(cfg)
     dev = resolve_device(device)
     banks = {m: bank_init(cfg.bank_cfg(m), device=dev) for m in cfg.narrow_modes}
     wide = ({g: wide_init(cfg.wide_cfg(g), device=dev) for g in cfg.wide_groups}
             if cfg.wide_capacity > 0 else None)
-    chan = channelizer_init(cfg.channelizer(), device=dev) if cfg.narrow_modes else None
-    return CaptureState(chan_state=chan, banks=banks, wide=wide)
+    p25 = p25_init(cfg, device=dev) if cfg.p25_capacity > 0 else None
+    p25p2 = p25p2_init(cfg, device=dev) if cfg.p25p2_capacity > 0 else None
+    needs_chan = bool(cfg.narrow_modes) or cfg.p25_capacity > 0 or cfg.p25p2_capacity > 0
+    chan = channelizer_init(cfg.channelizer(), device=dev) if needs_chan else None
+    return CaptureState(chan_state=chan, banks=banks, wide=wide, p25=p25, p25p2=p25p2)
 
 
 def control_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> CaptureControl:
@@ -285,7 +336,9 @@ def control_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> Captu
     banks = {m: assignment_init(cfg.narrow_capacity, device=dev) for m in cfg.narrow_modes}
     wide = ({g: wide_assignment_init(cfg.wide_capacity, device=dev) for g in cfg.wide_groups}
             if cfg.wide_capacity > 0 else None)
-    return CaptureControl(banks=banks, wide=wide)
+    p25 = assignment_init(cfg.p25_capacity, device=dev) if cfg.p25_capacity > 0 else None
+    p25p2 = assignment_init(cfg.p25p2_capacity, device=dev) if cfg.p25p2_capacity > 0 else None
+    return CaptureControl(banks=banks, wide=wide, p25=p25, p25p2=p25p2)
 
 
 def _wide_step(
@@ -311,6 +364,26 @@ def _wide_step(
     if export_baseband:
         out["baseband"] = fm
     return out, WideState(phases, tails, dstates)
+
+
+def _p25_step(chans, state: P25BankState, assign: ChannelAssignment,
+              cfg: CapturePipelineConfig, c4, demod_fn):
+    """4FSK/DQPSK symbol bank over the shared channelizer output; ``c4``
+    and ``demod_fn`` select the variant (4800-baud C4FM/CQPSK bank or the
+    Phase 2 6000-baud H-DQPSK bank).  K3's shifted-row mode gathers each
+    slot's channel, shifts it by its fine offset and takes its RSSI."""
+    front = ChannelBankConfig(channelizer=cfg.channelizer(), mode="p25-soft", demod_cfg=c4,
+                              capacity=assign.channel_index.shape[0])
+    shifted, rssi, phases, _ = channel_bank.slot_frontend(chans, assign, state.nco_phase, None, front)
+    eq_ok = None
+    if getattr(c4, "equalizer_taps", 0) > 0:
+        # the echo-fit template assumes a near-bin-centred channel: gate
+        # the fit on each slot's fine offset
+        eq_ok = assign.fine_offset_hz.abs() <= float(np.float32(c4.eq_max_fine_offset_hz))
+    soft, _dibits, c4states = demod_fn(shifted, state.c4fm, c4, eq_ok)
+    rssi = torch.where(assign.active, rssi, torch.full_like(rssi, -200.0))
+    # hard decisions are not exported: host consumers re-derive them from soft
+    return {"soft": soft, "rssi": rssi}, P25BankState(phases, c4states)
 
 
 def _to_complex(x_in: torch.Tensor) -> torch.Tensor:
@@ -364,8 +437,18 @@ def capture_step(
                 x, state.wide[g], ctl.wide[g], cfg.wide_cfg(g), cfg.export_wide_baseband
             )
         out["wide"] = wide_out
+
+    new_p25 = state.p25
+    if cfg.p25_capacity > 0 and state.p25 is not None and ctl.p25 is not None:
+        _, demod_fn = _p25_fns(cfg)
+        out["p25"], new_p25 = _p25_step(chans, state.p25, ctl.p25, cfg, p25_cfg_for(cfg), demod_fn)
+    new_p25p2 = state.p25p2
+    if cfg.p25p2_capacity > 0 and state.p25p2 is not None and ctl.p25p2 is not None:
+        out["p25p2"], new_p25p2 = _p25_step(chans, state.p25p2, ctl.p25p2, cfg,
+                                            p25p2_cfg_for(cfg), cqpsk_demodulate)
     out["_packed"] = pack_wire(out)
-    return out, CaptureState(chan_state=new_chan_state, banks=new_banks, wide=new_wide)
+    return out, CaptureState(chan_state=new_chan_state, banks=new_banks, wide=new_wide,
+                             p25=new_p25, p25p2=new_p25p2)
 
 
 def _stack(trees: list):

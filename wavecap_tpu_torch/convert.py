@@ -2,7 +2,8 @@
 
 The system has no weights: its parameters are the carried stream state
 (channelizer history, per-slot NCO phases, discriminator samples, FIR
-tails, IIR sections, AGC envelopes, PLL phases, resampler tails) plus
+tails, IIR sections, AGC envelopes, PLL phases, resampler tails, the P25
+banks' timing, carrier and equalizer state) plus
 filter taps, which both packages design with scipy.  These functions
 take the reference's ``CaptureState`` / ``CaptureControl`` as NamedTuples
 or nested dicts of numpy arrays (for example after ``jax.device_get``)
@@ -49,26 +50,21 @@ def _fill(template, src, where: str):
     raise TypeError(f"{where}: unexpected {type(template)}")
 
 
-def _refuse_p25(tree) -> None:
-    if any(_field(tree, k) is not None for k in ("p25", "p25p2")):
-        raise NotImplementedError("P25 bank state is ROADMAP Queue 1 item 8")
-
-
 def capture_state_from_numpy(
     cfg: CapturePipelineConfig, tree, device: DeviceLike = None
 ) -> CaptureState:
-    """The reference's capture state (narrow banks, wide groups) as the port's."""
+    """The reference's capture state (narrow banks, wide groups, P25 banks)
+    as the port's."""
     dev = resolve_device(device)
-    _refuse_p25(tree)
     return _fill(pipeline_init(cfg, device=dev), tree, "state")
 
 
 def capture_control_from_numpy(
     cfg: CapturePipelineConfig, tree, device: DeviceLike = None
 ) -> CaptureControl:
-    """The reference's capture control (narrow and wide assignments) as the port's."""
+    """The reference's capture control (narrow, wide and P25 assignments)
+    as the port's."""
     dev = resolve_device(device)
-    _refuse_p25(tree)
     if _field(tree, "audio_sel") is not None:
         raise NotImplementedError(
             "the listener-selected audio fetch comes with the engine, ROADMAP Queue 1 item 9"

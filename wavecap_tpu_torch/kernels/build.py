@@ -52,12 +52,19 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     ),
     "K7_strided_fir": (
         "strided_fir", "k7_strided_fir",
-        (_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ),
     "K9_iir_cascade": (
         "iir_cascade", "k9_iir_cascade", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ),
     "K10_pll": ("pll", "k10_pll", (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P)),
+    "K12_c4fm_timing": ("p25_timing", "k12_c4fm_timing", (_P,) * 5 + (_I,) * 3 + (_F,) * 8 + (_P,)),
+    "K13_cqpsk_timing": ("p25_timing", "k13_cqpsk_timing", (_P,) * 5 + (_I,) * 3 + (_F,) * 8 + (_P,)),
+    "K13_cfo_lines": ("cfo_lines", "k13_cfo_lines", (_P, _I, _I, _I, _I, _F, _P, _P, _P)),
+    "K14_echo_fit": (
+        "echo_fit", "k14_echo_fit",
+        (_P, _I, _I, _I, _P, _P, _I) + (_P,) * 8 + (_I, _F, _F, _F, _F, _I, _P),
+    ),
 }
 
 _LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}

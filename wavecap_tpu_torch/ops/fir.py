@@ -8,13 +8,16 @@ block; prepending it and running a valid convolution continues
 Two kernels carry the rate changes on the card, each with its plain
 version here:
 
-* K7 ``strided_fir``: the valid convolution with real taps and an output
-  stride, over real or complex rows, optionally behind a carried head
-  (the overlap-save tail) and an exact uint32 NCO mix of the input.  It
-  is the direct convolution of ``conv_valid``, ``fir_decimate``, the
-  wide slots' shift-and-decimate, and ``resample_poly_stream``'s
-  ``up == 1`` branch.  Its plain version is ``conv1d`` in full f32 (TF32
-  is off, see ``torchenv``), the reference's direct path off the TPU.
+* K7 ``strided_fir``: the valid convolution with an output stride, over
+  real or complex rows, with real or complex taps shared by every row or
+  one set per row, optionally behind a carried head (the overlap-save
+  tail) and an exact uint32 NCO mix of the input.  It is the direct
+  convolution of ``conv_valid``, ``fir_decimate``, the wide slots'
+  shift-and-decimate, ``resample_poly_stream``'s ``up == 1`` branch and
+  the P25 filters and simulcast equaliser.  Its plain version is
+  ``conv1d`` in full f32 (TF32 is off, see ``torchenv``; grouped for
+  per-row taps, four real convolutions for complex taps), the
+  reference's direct path off the TPU.
 * K5 ``polyphase_resample``: the rational resampler
   ``y[m] = sum_k h[p_m + k up] v[q_m - k]``, causal with a tail carry or
   centered one-shot, of ``resample_poly_stream`` and ``resample_poly``.
@@ -63,10 +66,32 @@ def _conv_valid_fft(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 
 
 def _conv1d_rows(xr: torch.Tensor, taps: torch.Tensor, stride: int) -> torch.Tensor:
-    kern = taps.flip(-1).to(torch.float32).reshape(1, 1, -1)
+    """Real rows ``B + (n,)`` against one real kernel ``(T,)`` or one per
+    row, ``B + (T,)`` (a grouped convolution)."""
     lead = xr.shape[:-1]
-    y = F.conv1d(xr.reshape(-1, 1, xr.shape[-1]).to(torch.float32), kern, stride=stride)
+    n = xr.shape[-1]
+    if taps.dim() == 1:
+        kern = taps.flip(-1).to(torch.float32).reshape(1, 1, -1)
+        y = F.conv1d(xr.reshape(-1, 1, n).to(torch.float32), kern, stride=stride)
+    else:
+        rows = int(np.prod(lead))
+        kern = taps.flip(-1).to(torch.float32).reshape(rows, 1, -1)
+        y = F.conv1d(xr.reshape(1, rows, n).to(torch.float32), kern, stride=stride, groups=rows)
     return y.reshape(lead + (y.shape[-1],))
+
+
+def _conv_rows(v: torch.Tensor, taps: torch.Tensor, stride: int) -> torch.Tensor:
+    """K7's convolution on the plain path: complex taps as the reference's
+    four real convolutions, complex rows as two."""
+    if taps.is_complex():
+        kr, ki = taps.real, taps.imag
+        vr = v.real if v.is_complex() else v
+        vi = v.imag if v.is_complex() else torch.zeros_like(vr)
+        return torch.complex(_conv1d_rows(vr, kr, stride) - _conv1d_rows(vi, ki, stride),
+                             _conv1d_rows(vr, ki, stride) + _conv1d_rows(vi, kr, stride))
+    if v.is_complex():
+        return torch.complex(_conv1d_rows(v.real, taps, stride), _conv1d_rows(v.imag, taps, stride))
+    return _conv1d_rows(v, taps, stride)
 
 
 def _k7_rows(x, head, nco) -> tuple:
@@ -85,10 +110,11 @@ def strided_fir_plain(x: torch.Tensor, taps: torch.Tensor, stride: int,
     ``v = head ++ mix(x)`` along the last axis, where ``mix`` multiplies by
     the exact NCO ``exp(i 2 pi acc[n] / 2**32)``, ``acc[n] = phase0 +
     n dphi`` (``nco = (dphi, phase0)``, uint32 per row), and ``x`` may be
-    one row shared by all.  Returns ``(y, tail, phase1)``:
-    ``y[..., m] = sum_k taps[k] v[..., m*stride + T-1-k]`` over the valid
-    range, the last ``T-1`` samples of ``v``, and the next NCO phase
-    (``None`` without an NCO).
+    one row shared by all.  ``taps`` is ``(T,)``, shared, or one set per
+    output row, ``B + (T,)``; real or complex.  Returns ``(y, tail,
+    phase1)``: ``y[..., m] = sum_k taps[..., k] v[..., m*stride + T-1-k]``
+    over the valid range, the last ``T-1`` samples of ``v``, and the next
+    NCO phase (``None`` without an NCO).
     """
     lead = _k7_rows(x, head, nco)
     n = x.shape[-1]
@@ -100,10 +126,7 @@ def strided_fir_plain(x: torch.Tensor, taps: torch.Tensor, stride: int,
         phase1 = _next_phase(phase0, n, dphi)
     x = x.expand(lead + (n,))
     v = torch.cat([head.to(x.dtype), x], dim=-1) if head is not None else x
-    if v.is_complex():
-        y = torch.complex(_conv1d_rows(v.real, taps, stride), _conv1d_rows(v.imag, taps, stride))
-    else:
-        y = _conv1d_rows(v, taps, stride)
+    y = _conv_rows(v, taps, stride)
     t = taps.shape[-1]
     tail = v[..., v.shape[-1] - (t - 1):] if t > 1 else v[..., :0]
     return y, tail, phase1
@@ -118,18 +141,24 @@ def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
     dev = x.device
     if x.dtype not in (torch.float32, torch.complex64):
         raise ValueError(f"K7 filters float32 or complex64 rows, not {x.dtype}")
-    if taps.dim() != 1 or taps.dtype != torch.float32 or taps.device != dev:
-        raise ValueError("K7 takes real float32 taps on the input's device")
+    if taps.dtype not in (torch.float32, torch.complex64) or taps.device != dev:
+        raise ValueError("K7 takes float32 or complex64 taps on the input's device")
     cplx = x.is_complex()
-    if nco is not None and not cplx:
-        raise ValueError("K7 mixes an NCO into complex input only")
+    taps_cplx = taps.is_complex()
+    if (nco is not None or taps_cplx) and not cplx:
+        raise ValueError("K7 mixes an NCO into, and applies complex taps to, complex input only")
     lead = _k7_rows(x, head, nco)
     rows = int(np.prod(lead)) if lead else 1
+    taps_stride = 0
+    if taps.dim() != 1:
+        if tuple(taps.shape[:-1]) != lead:
+            raise ValueError(f"K7's per-row taps {tuple(taps.shape)} do not match rows {lead}")
+        taps_stride = taps.shape[-1]
     n = x.shape[-1]
     x2 = x.reshape(-1, n).contiguous()
     if x2.shape[0] not in (1, rows):
         raise ValueError(f"K7 input has {x2.shape[0]} rows for {rows} output rows")
-    t = taps.shape[0]
+    t = taps.shape[-1]
     h_len = 0
     head2 = None
     if head is not None:
@@ -140,7 +169,7 @@ def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
         raise ValueError(f"K7 needs at least {t} samples of head and input, not {h_len + n}")
     item = 8 if cplx else 4
     span = (_K7_TILE - 1) * stride + t
-    if span * item + t * 4 > _SMEM_LIMIT:
+    if span * item + t * taps.element_size() > _SMEM_LIMIT:
         raise NotImplementedError(f"K7 stages {span} samples and {t} taps per block: too many")
     dphi = phase0 = phase1 = None
     if nco is not None:
@@ -152,30 +181,37 @@ def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
     y = torch.empty((rows, n_out), dtype=x.dtype, device=dev)
     tail = torch.empty((rows, t - 1), dtype=x.dtype, device=dev)
     launch(
-        "K7_strided_fir", dev, x2, x2.shape[0], head2, h_len, taps.contiguous(), t, stride,
-        dphi, phase0, y, tail if t > 1 else None, phase1, rows, n, n_out, int(cplx),
+        "K7_strided_fir", dev, x2, x2.shape[0], head2, h_len, taps.contiguous(), t, taps_stride,
+        int(taps_cplx), stride, dphi, phase0, y, tail if t > 1 else None, phase1, rows, n, n_out,
+        int(cplx),
     )
     phase1 = None if phase1 is None else phase1.reshape(lead)
     return y.reshape(lead + (n_out,)), tail.reshape(lead + (t - 1,)), phase1
 
 
 def _conv_valid_direct(x: torch.Tensor, taps: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """``y[m] = sum_k taps[k] * x[m*stride + (T-1-k)]`` over the last axis.
-
-    Real taps take K7 (plain ``conv1d`` on the CPU); complex taps take
-    four real convolutions, as the reference does."""
+    """``y[m] = sum_k taps[k] * x[m*stride + (T-1-k)]`` over the last axis,
+    one K7 launch (plain ``conv1d`` on the CPU).  ``taps`` is shared
+    ``(T,)`` or per row ``B + (T,)``; complex taps filter complex rows
+    (real input is promoted), as the reference's four real convolutions."""
     if taps.is_complex():
-        kr = taps.real.to(torch.float32).contiguous()
-        ki = taps.imag.to(torch.float32).contiguous()
-        xr = (x.real if x.is_complex() else x).to(torch.float32)
-        xi = x.imag.to(torch.float32) if x.is_complex() else torch.zeros_like(xr)
-
-        def conv(a, k):
-            return strided_fir(a, k, stride)[0]
-
-        return torch.complex(conv(xr, kr) - conv(xi, ki), conv(xr, ki) + conv(xi, kr))
+        return strided_fir(x.to(torch.complex64), taps.to(torch.complex64), stride)[0]
     xx = x if x.is_complex() else x.to(torch.float32)
     return strided_fir(xx, taps.to(torch.float32), stride)[0]
+
+
+def conv_same(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """``numpy.convolve(x, taps, mode="same")`` along the last axis for
+    ``n >= len(taps)``: zero-pad so the valid convolution (K7) keeps the
+    centre ``n`` samples of the full one."""
+    t = taps.shape[-1]
+    if x.shape[-1] < t:
+        raise ValueError(f"conv_same needs at least {t} samples, not {x.shape[-1]}")
+    right = (t - 1) // 2
+    lead = x.shape[:-1]
+    xin = torch.cat([torch.zeros(lead + (t - 1 - right,), dtype=x.dtype, device=x.device), x,
+                     torch.zeros(lead + (right,), dtype=x.dtype, device=x.device)], -1)
+    return _conv_valid_direct(xin, taps)
 
 
 def conv_valid(x: torch.Tensor, taps: torch.Tensor, stride: int = 1) -> torch.Tensor:
