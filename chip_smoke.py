@@ -24,7 +24,12 @@ It drives the port's paths at full width:
   slots with the 41-tap simulcast equalizer: K3 -> carrier NCO -> K7 RRC
   -> cuFFT + K13 line search -> K14 alias scores and echo fit -> K7
   per-slot complex FIR -> K13 timing and differential detection); C,
-  Phase 2 dual rate (2 CQPSK + 20 slots at 6000 baud, alpha 1).
+  Phase 2 dual rate (2 CQPSK + 20 slots at 6000 baud, alpha 1);
+* the server's capture engine (program D): ``CaptureManager`` ->
+  ``Capture`` with pinned staging and fetch buffers, a copy stream and
+  event polling, the i16 / i8 / i4 transports (K1 unpacks all three), the
+  noise blanker (K11a) and spectral noise reduction (K11b) in the analog
+  banks and the wide slots, and the listener-gated audio fetch.
 
 Phases:
 
@@ -36,6 +41,8 @@ Phases:
    the card (CUPTI, through torch.profiler) beside the kernel's bound, and
    the wrapper's wall time between CUDA events; then K1 on complex input
    and K2 at M = 80 and M = 38 (unfactorable) against their plain versions;
+   K11a, K11b and K1 on the adaptive i8 and i4 words at program D's
+   shapes; K6 (the spectrum on cuFFT) and K8 (``pack_wire``) timed;
 3. the first slice: a fake 10 Msps receiver with NBFM stations on known
    bins, 8 consecutive blocks through ``pack_i16_words`` -> upload ->
    ``capture_multi`` (800 active slots) -> ``unpack_wire``: each station's
@@ -55,7 +62,19 @@ Phases:
 6. programs B and C the same way: LSM stations (one at +600 Hz CFO, one
    behind a 70 us echo that the equalizer must take, clean ones that keep
    identity taps) and Phase 2's control channel and 6000-baud stations;
-7. a JSON line of the kernels and the final ``{"ok": true, ...}`` line.
+   B on the adaptive i8 words;
+7. the engine (program D): ``CaptureManager`` over the fake driver at 10
+   Msps, ``create_channel`` for every slot of five banks of 160 (``nbfm``;
+   ``nbfm`` with the noise blanker and noise reduction; ``am``, ``usb``
+   and ``sam`` with the blanker) and two WBFM slots with both options,
+   ``warmup``, ``start``, 12 blocks (4 each at i16, i8, i4), 32 audio
+   fetch slots a bank: the capture running throughout, every kernel's
+   launches, station lines, squelch, the blanker against pulses and the
+   noise reduction on a weak voice-like station, the published audio
+   against the kernels' output (half an LSB) and the plain path (>= 50
+   dB) from the engine's own blocks, the gated rows, pinned buffers;
+   block latency, the engine's stage times, host syncs, peak memory;
+8. a JSON line of the kernels and the final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
@@ -477,13 +496,20 @@ def slice_control(cfg, device):
     return ctl._replace(banks={MODE: bank})
 
 
-def plain_capture_step(words, state, ctl, cfg):
+def plain_capture_step(words, state, ctl, cfg, scale=None):
     """The same capture step with every kernel swapped for its plain
     version (the reference for the first blocks)."""
     from wavecap_tpu_torch.capture.pipeline import capture_step
 
     with plain_kernels():
-        return capture_step(words, state, ctl, cfg)
+        return capture_step(words, state, ctl, cfg, scale)
+
+
+def block_of(words, k: int):
+    """Block ``k`` of a batch: ``(words, scale)`` (``scale`` None for i16)."""
+    if isinstance(words, tuple):
+        return words[0][k], words[1][k]
+    return words[k], None
 
 
 def tone_margin_db(audio: np.ndarray, rate: float, tone: float = 1000.0) -> float:
@@ -1490,11 +1516,14 @@ def run_capture(cfg, device, words_np, ctl, expected: dict, sync):
     from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init, unpack_wire
     from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    n = len(words_np)
+    n = len(words_np[0]) if isinstance(words_np, tuple) else len(words_np)
     state0 = pipeline_init(cfg, device=device)
     reset_launch_counts()
     t0 = time.perf_counter()
-    words = torch.from_numpy(words_np).to(device)
+    if isinstance(words_np, tuple):  # the adaptive i8 / i4 words and their scales
+        words = tuple(torch.from_numpy(a).to(device) for a in words_np)
+    else:
+        words = torch.from_numpy(words_np).to(device)
     outs, state = capture_multi(words, state0, ctl, cfg)
     packed = host(outs["_packed"])
     sync()
@@ -1525,7 +1554,8 @@ def first_blocks_vs_plain(words, cfg, ctl, outs, device, soft_slots: dict, audio
     st = pipeline_init(cfg, device=device)
     worst_soft, worst_audio = float("inf"), float("inf")
     for blk in range(2):
-        out_p, st = plain_capture_step(words[blk], st, ctl, cfg)
+        w, sc = block_of(words, blk)
+        out_p, st = plain_capture_step(w, st, ctl, cfg, sc)
         for bank, slots in soft_slots.items():
             s_p, s_k = host(out_p[bank]["soft"]), host(outs[bank]["soft"][blk])
             for i in slots:
@@ -1553,7 +1583,8 @@ def warm_ms(cfg, device, words, ctl, sync) -> tuple:
     t0 = time.perf_counter()
     one_pass()
     sync()
-    return (time.perf_counter() - t0) * 1e3 / len(words), one_pass
+    n = len(words[0]) if isinstance(words, tuple) else len(words)
+    return (time.perf_counter() - t0) * 1e3 / n, one_pass
 
 
 def run_program_a(cfg, device, sync=None) -> dict:
@@ -1628,7 +1659,7 @@ def run_program_bc(cfg, device, name: str, sync=None) -> dict:
     """Program B (LSM with the simulcast equalizer) or C (Phase 2 dual rate)."""
     import torch
 
-    from wavecap_tpu_torch.capture.engine import pack_i16_words
+    from wavecap_tpu_torch.capture.engine import pack_i8_words, pack_i16_words
     from wavecap_tpu_torch.capture.pipeline import control_init, p25_cfg_for
 
     sync = sync or torch.cuda.synchronize
@@ -1655,7 +1686,9 @@ def run_program_bc(cfg, device, name: str, sync=None) -> dict:
         stations.append(dict(offset_hz=ch.channel_offset_hz(banks[bank][0][slot]) + f + cfo,
                              kind="iq_loop", iq_loop=iq, amplitude=P25_AMPLITUDE))
     stream = p25_scene(cfg, stations)
-    words_np = pack_i16_words([stream.read(cfg.block_size)[0] for _ in range(N_BLOCKS)])
+    # B on the adaptive i8 words, as the reference's trunking captures upload
+    pack = pack_i8_words if name == "B" else pack_i16_words
+    words_np = pack([stream.read(cfg.block_size)[0] for _ in range(N_BLOCKS)])
     ctl = control_init(cfg, device=device)
     for bank, (bb, fine, _) in banks.items():
         if getattr(ctl, bank) is None:
@@ -1668,7 +1701,8 @@ def run_program_bc(cfg, device, name: str, sync=None) -> dict:
     words, outs, state, wire, counts, first_s = run_capture(cfg, device, words_np, ctl, launches, sync)
 
     res = dict(phase=f"program {name}", blocks=N_BLOCKS, block_size=cfg.block_size, channels=m,
-               p25_slots=p, p25p2_slots=p2, launches=counts, first_run_s=first_s)
+               p25_slots=p, p25p2_slots=p2, transport="i8" if name == "B" else "i16", launches=counts,
+               first_run_s=first_s)
     soft_slots = {}
     for bank, (_, _, loops) in banks.items():
         if not loops:
@@ -1707,6 +1741,528 @@ def run_program_bc(cfg, device, name: str, sync=None) -> dict:
     ms_block, one_pass = warm_ms(cfg, device, words, ctl, sync)
     res.update(warm_ms_per_block=ms_block, msps=cfg.block_size / ms_block / 1e3)
     return res
+
+
+# --- phase 7: the engine (program D) -----------------------------------------------
+
+D_CENTER = 160_000_000.0
+# the five narrow banks as (mode, dsp); bank k holds slot i on bin D_BASE[k] + i
+D_BANKS = (
+    ("nbfm", {}),
+    ("nbfm", {"enable_noise_blanker": True, "enable_noise_reduction": True}),
+    ("am", {"enable_noise_blanker": True}),
+    ("usb", {"enable_noise_blanker": True}),
+    ("sam", {"enable_noise_blanker": True}),
+)
+D_WIDE_DSP = {"enable_noise_blanker": True, "enable_noise_reduction": True}
+D_LADDER = ("i16", "i8", "i4")
+D_SEGMENT = 4  # blocks per transport: 12 in all
+D_AMPLITUDE = 0.05
+D_WEAK_SNR_DB = 10.0  # the weak station over the fake receiver's noise in a 25 kHz channel
+D_GATE = (0.16, 0.08)  # the voice-like stations' 1 kHz tone: gate period, on time (s)
+D_PULSE = (0.5, 100e-6, 0.12)  # Hann pulse amplitude, length, time in the gate period (s)
+D_FETCH_SLOTS = 32
+# the wide slots' squelch: their 244 kHz IF holds ~10x a narrow channel's
+# noise, and at i4 the quantization noise alone reaches -44 dBFS there
+D_WIDE_SQUELCH_DB = -35.0
+D_LINE_DB = (20.0, 20.0, 10.0)  # a station's 1 kHz line per transport segment
+# launches per block: K3 and K5 once per bank and K5 for the wide group; K7
+# the wide shift; K9 as the mixed capture (the second NBFM bank for lsb);
+# K10 the sam bank; K11a the four blanking banks and the wide group; K11b
+# the noise-reduction bank and the wide group
+D_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 5, "K5_resample_poly": 6,
+              "K7_strided_fir": 1, "K9_iir_cascade": 14, "K10_pll": 1, "K11a_noise_blanker": 5,
+              "K11b_nr_frames": 2, "K11b_nr_gain": 2, "K11b_nr_overlap_add": 2}
+
+
+def engine_layout(c: int) -> dict:
+    """Program D's bins for ``c`` slots a bank: the two NBFM banks share
+    bins [0, c), am [c, 2c), usb [3c, 4c), sam [4c, 5c); [2c, 3c) holds
+    the band edge (M/2) and the WBFM station.  Station slots within a bank:
+    steady 1 kHz tones, the voice-like station hit by pulses, the weak
+    voice-like station, and empty listened slots."""
+    return dict(base=(0, 0, c, 3 * c, 4 * c), tone=(c * 17 // 160, c * 101 // 160),
+                pulse=c * 40 // 160, weak=c * 60 // 160, empty=(c * 130 // 160, c * 150 // 160),
+                wide=(round(2.2 * c), round(2.75 * c)))
+
+
+def gated_fm_loop(fs: float, amplitude: float, pulses: bool) -> np.ndarray:
+    """Five gate periods of NBFM (4 kHz deviation) carrying a 1 kHz tone
+    gated on and off like speech: spectral noise reduction keeps it, where
+    a steady tone is what it takes out.  With ``pulses``, a Hann pulse
+    (~20 kHz wide) in the middle of every off gap: the impulse noise."""
+    period, on = D_GATE
+    n = int(round(fs * 5 * period))
+    t = np.arange(n) / fs
+    audio = ((t % period) < on) * np.sin(2 * np.pi * 1000.0 * t)
+    x = amplitude * np.exp(2j * np.pi * 4000.0 * np.cumsum(audio) / fs)
+    if pulses:
+        amp, length, at = D_PULSE
+        w = amp * np.hanning(int(round(length * fs)))
+        for k in range(5):
+            i0 = int(round((k * period + at) * fs))
+            x[i0:i0 + len(w)] += w * np.exp(1j * (1.0 + 2.1 * k))  # a phase jump: a click
+    return x.astype(np.complex64)
+
+
+def engine_scene(fs: int, m: int, lay: dict):
+    from wavecap_tpu_torch.devices import FakeDriver, FakeStation
+    from wavecap_tpu_torch.ops.channelizer import ChannelizerConfig
+
+    ch = ChannelizerConfig(sample_rate=float(fs), channel_bandwidth=12_500.0)
+    stations = []
+    for k, (mode, _) in enumerate(D_BANKS):
+        if k == 1:
+            continue  # the second NBFM bank tunes the first one's stations
+        kind, carrier = MIXED_KINDS[mode]
+        stations += [FakeStation(offset_hz=ch.channel_offset_hz(lay["base"][k] + s) + carrier, kind=kind,
+                                 tone_hz=1000.0, deviation_hz=4000.0, amplitude=D_AMPLITUDE)
+                     for s in lay["tone"]]
+    # the fake receiver's noise: 0.001 a component over fs, 2e-6 * 25e3 / fs in a channel
+    weak = float(np.sqrt(10.0 ** (D_WEAK_SNR_DB / 10.0) * 2e-6 * 25e3 / fs))
+    for slot, amp, pulses in ((lay["pulse"], D_AMPLITUDE, True), (lay["weak"], weak, False)):
+        stations.append(FakeStation(offset_hz=ch.channel_offset_hz(slot), kind="iq_loop",
+                                    iq_loop=gated_fm_loop(fs, amp, pulses), amplitude=1.0))
+    stations.append(FakeStation(offset_hz=ch.channel_offset_hz(lay["wide"][0]), kind="wbfm",
+                                tone_hz=1000.0, deviation_hz=75_000.0, amplitude=D_AMPLITUDE))
+    return FakeDriver(1, stations)
+
+
+def engine_channels(cap, lay: dict, c: int) -> dict:
+    """Every slot of every bank opened through ``create_channel``; returns
+    the listened channels' handles by (bank, slot) ("w" for wide)."""
+    from wavecap_tpu_torch.capture import ChannelSpec
+
+    ch = cap._channelizer
+    listened = set(lay["tone"]) | {lay["pulse"], lay["weak"], *lay["empty"]}
+    handles = {}
+    for k, (mode, dsp) in enumerate(D_BANKS):
+        for i in range(c):
+            # the weak NBFM station is below the squelch: its slots stay open
+            # (an open empty SAM slot would be its PLL tracking noise, a
+            # chaotic loop that no two summation orders follow alike)
+            sq = None if i == lay["weak"] and mode == "nbfm" else SQUELCH_DB
+            h = cap.create_channel(ChannelSpec(
+                id=f"b{k}s{i}", mode=mode, frequency_hz=D_CENTER + ch.channel_offset_hz(lay["base"][k] + i),
+                squelch_db=sq, dsp=dict(dsp)))
+            if i in listened:
+                handles[(k, i)] = h
+    for j, b in enumerate(lay["wide"]):
+        handles[("w", j)] = cap.create_channel(ChannelSpec(
+            id=f"w{j}", mode="wbfm", frequency_hz=D_CENTER + ch.channel_offset_hz(b),
+            squelch_db=D_WIDE_SQUELCH_DB, dsp=dict(D_WIDE_DSP)))
+    return handles
+
+
+def _words_for(transport: str, block: np.ndarray):
+    from wavecap_tpu_torch.capture.engine import pack_i4_words, pack_i8_words, pack_i16_words
+
+    if transport == "i16":
+        return pack_i16_words([block]), None
+    return (pack_i8_words if transport == "i8" else pack_i4_words)([block])
+
+
+def _batch_on(device, words, scales):
+    import torch
+
+    w = torch.from_numpy(words).to(device)
+    return w if scales is None else (w, torch.from_numpy(scales).to(device))
+
+
+def gated_power_db(blocks: list, t0s: list, where: str, span: tuple, rate: float = 48_000.0) -> float:
+    """dB of the audio's power in the tone's pauses over its power while the
+    tone is on (away from the edges and the pulses), over ``blocks`` of
+    audio whose first samples lie at ``t0s`` in the stream (s), within
+    ``span`` of each block: the noise reduction passes a block's last
+    ``n - out_len`` samples through unprocessed, and divides its first and
+    last half frame by a vanishing window power (the reference's
+    overlap-add), so those samples are left out.  ``where="pulse"`` takes
+    +-3 ms around each pulse, ``"pause"`` the rest of the pauses (the noise
+    floor)."""
+    period, on = D_GATE
+    at = D_PULSE[2] + D_PULSE[1] / 2 + 1e-3  # the pulse's centre, and ~1 ms through the filters
+    num = den = 0.0
+    for audio, t0 in zip(blocks, t0s):
+        a = audio[span[0]:span[1]]
+        phase = (t0 + (span[0] + np.arange(len(a))) / rate) % period
+        pulse = np.abs(phase - at) <= 3e-3
+        sel = pulse if where == "pulse" else (phase > on + 10e-3) & (phase < period - 10e-3) & ~(np.abs(phase - at) <= 8e-3)
+        tone = (phase > 5e-3) & (phase < on - 5e-3)
+        num += float(np.sum(a[sel] ** 2)) / max(int(sel.sum()), 1) * len(a)
+        den += float(np.sum(a[tone] ** 2)) / max(int(tone.sum()), 1) * len(a)
+    return float(10 * np.log10(num / den))
+
+
+def host_syncs(fn) -> tuple[int, list]:
+    """Host syncs of one call, as ``torch.cuda.set_sync_debug_mode`` warns
+    them: the count and the distinct messages."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # each sync warns "called a synchronizing CUDA operation"; enabling the
+    # mode also warns once that it is a prototype, which is no sync
+    msgs = [str(w.message) for w in seen if "called a synchronizing" in str(w.message)]
+    return len(msgs), sorted(set(m.splitlines()[0][:120] for m in msgs))
+
+
+def engine_kernel_checks(device, c: int = 160, n_block: int = 1_968_000, m: int = 800,
+                         timer=device_ms):
+    """K11a, K11b and K1's i8 and i4 words against their plain versions on
+    the card at program D's shapes.  Returns ``(lines, cases)``."""
+    import torch
+
+    from wavecap_tpu_torch.ops import channelizer as chz
+    from wavecap_tpu_torch.ops import noise
+
+    rng = np.random.default_rng(SEED + 7)
+    lines, cases = {}, []
+    s = 2 * n_block // m
+    n_audio = -(-s * 48 // 25)
+    n_wide = n_block // max(1, 10_000_000 // 240_000)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def record(name, case, source, replaces, **k):
+        k.update(name=name, case=case, route="cuda", source=source, replaces=replaces,
+                 library_ms=k.get("library_ms"))
+        cases.append(k)
+        lines.setdefault(name, k)
+
+    # K11a: complex rows (NBFM, the wide IF) and real rows (the AM envelope)
+    for case, rows, n, cplx in (("nbfm IQ rows", c, s, True), ("wide IF rows", 2, n_wide, True),
+                                ("am/ssb/sam detector rows", c, s, False)):
+        x = 0.05 * rng.standard_normal((rows, n)) + 0.2
+        if cplx:
+            x = x + 1j * 0.05 * rng.standard_normal((rows, n))
+        hits = rng.random((rows, n)) < 1.0 / 400
+        x = np.where(hits, x * 40.0, x).astype(np.complex64 if cplx else np.float32)
+        xd = dev(x)
+        y_k = host(noise.noise_blanker(xd))
+        y_p = host(noise.noise_blanker_plain(xd))
+        mag = noise._magnitude(xd)
+        srt = torch.sort(mag, dim=-1).values
+        thr = host((srt[:, (n - 1) // 2] + srt[:, n // 2]) * 0.5)[:, None] * np.float32(10.0 ** 0.5)
+        near = np.abs(host(mag) - thr) <= 2 * np.spacing(np.abs(thr))
+        wide = near.copy()
+        for d in range(1, 4):
+            wide[:, d:] |= near[:, :-d]
+            wide[:, :-d] |= near[:, d:]
+        differ = y_k != y_p
+        check(not (differ & ~wide).any(), f"K11a ({case}) differs from the plain version away from the threshold")
+        check(near.mean() <= 1e-3, f"K11a ({case}): {near.mean():.3g} of samples near the threshold")
+        itemsize = 8 if cplx else 4
+        b, f = bound(2 * rows * n * itemsize, 12.0 * rows * n)
+        record("K11a_noise_blanker", f"{case} ({rows}, {n})", "wavecap_tpu_torch/kernels/csrc/noise_blanker.cu",
+               "wavecap_tpu/ops/noise.py:17 noise_blanker", near_threshold=int(near.sum()),
+               differing=int(differ.sum()), blanked=int((y_k == 0).sum()), max_abs_err=float(np.max(np.abs(y_k - y_p))),
+               ms=timer(lambda: noise.noise_blanker(xd), "noise_blanker_kernel"),
+               plain_ms=timer(lambda: noise.noise_blanker_plain(xd)), bound_ms=b, bound_by=f,
+               library_note="no single PyTorch call blanks on a median threshold")
+
+    # K11b: (c, n_audio) NBFM audio and (2, n_audio) wide audio
+    src, rep = ("wavecap_tpu_torch/kernels/csrc/noise_reduction.cu",
+                "wavecap_tpu/ops/noise.py:44 spectral_noise_reduction")
+    for case, rows in (("nbfm audio", c), ("wide audio", 2)):
+        tt = np.arange(n_audio) / 48_000.0
+        x = (0.3 * np.sin(2 * np.pi * rng.uniform(300, 3000, (rows, 1)) * tt)
+             * ((tt % 0.08) < 0.05) + 0.05 * rng.standard_normal((rows, n_audio))).astype(np.float32)
+        xd = dev(x)
+        y_k = host(noise.spectral_noise_reduction(xd))
+        y_p = host(noise.spectral_noise_reduction_plain(xd))
+        err = min(snr_db(y_p[i], y_k[i]) for i in range(rows))
+        check(err >= 90.0, f"K11b ({case}) {err:.1f} dB < 90 against the plain version")
+        hop, frames, out_len = noise._nr_plan(n_audio, 1024, 0.5)
+        bins = 513
+        spec_b = rows * frames * bins * 8
+        frames_b = rows * frames * 1024 * 4
+        plain = timer(lambda: noise.spectral_noise_reduction_plain(xd))
+        framed = torch.empty((rows, frames, 1024), dtype=torch.float32, device=device)
+        cufft = timer(lambda: torch.fft.irfft(torch.fft.rfft(framed, dim=-1), 1024, dim=-1))
+        parts = (("K11b_nr_frames", "nr_frames_kernel", bound(rows * n_audio * 4 + frames_b, 1.0 * frames_b / 4)),
+                 ("K11b_nr_gain", "nr_gain_kernel",
+                  bound(2 * spec_b, rows * frames * bins * (10.0 + 4 * np.log2(max(frames, 2))))),
+                 ("K11b_nr_overlap_add", "nr_overlap_add_kernel",
+                  bound(frames_b + rows * n_audio * 8, 4.0 * rows * out_len)))
+        for name, kname, (b, f) in parts:
+            record(name, f"{case} ({rows}, {n_audio}): {frames} frames", src, rep, snr_vs_plain_db=err,
+                   max_abs_err=float(np.max(np.abs(y_k - y_p))),
+                   ms=timer(lambda: noise.spectral_noise_reduction(xd), kname), plain_ms=plain,
+                   plain_note="the whole plain function (framing, rFFT, sort, gain, irFFT, overlap-add)",
+                   cufft_ms=cufft, bound_ms=b, bound_by=f,
+                   library_note="no single PyTorch call does spectral subtraction; cufft_ms is the rFFT + irFFT between the launches")
+
+    # K1 on the adaptive words: the unpacked block bit-equal, the arms within 1e-6
+    ch = chz.ChannelizerConfig(sample_rate=float(m * 12_500), channel_bandwidth=12_500.0)
+    t = ch.taps_per_channel
+    hist = dev((rng.standard_normal(m * t) + 1j * rng.standard_normal(m * t)).astype(np.complex64) * 0.1)
+    for kind, dtype, hi in (("i8", np.int16, 2**15), ("i4", np.int8, 2**7)):
+        words = dev(rng.integers(-hi, hi, n_block).astype(dtype))
+        scale = dev(np.array([0.0123], np.float32))[0]
+        x_k, u_k = chz.unpack_arms(words, hist, ch, scale)
+        x_p, u_p = chz.unpack_arms_plain(words, hist, ch, scale)
+        check(torch.equal(x_k, x_p), f"K1 ({kind} words) unpacked block differs from the plain version")
+        err = rel_l2(host(u_p), host(u_k))
+        check(err <= 1e-6, f"K1 ({kind} words) arms rel L2 {err:.3g} > 1e-6")
+        r_steps = n_block // m
+        b, f = bound(n_block * np.dtype(dtype).itemsize + 4 + m * t * 12 + 2 * r_steps * m * 8 + n_block * 8,
+                     2 * r_steps * m * t * 4)
+        cases.append(dict(name="K1_unpack_arms", case=f"{kind} words + scale, N = {n_block}", rel_l2=err,
+                          max_abs_err=max_abs(host(u_p), host(u_k)),
+                          ms=timer(lambda: chz.unpack_arms(words, hist, ch, scale), "unpack_arms_kernel"),
+                          plain_ms=timer(lambda: chz.unpack_arms_plain(words, hist, ch, scale)),
+                          bound_ms=b, bound_by=f, library_ms=None))
+    # K6 (the sampled spectrum, cuFFT) and K8 (pack_wire, plain torch) at
+    # program D's shapes: library and plain code, timed for their share
+    from wavecap_tpu_torch import ops
+    from wavecap_tpu_torch.capture.pipeline import pack_wire
+
+    xb = dev((rng.standard_normal(n_block) + 1j * rng.standard_normal(n_block)).astype(np.complex64) * 0.1)
+    rows_d = {("bank", k): {"audio": dev(rng.uniform(-1, 1, (1, D_FETCH_SLOTS, n_audio)).astype(np.float32)),
+                            "rssi": dev(rng.uniform(-90, -20, (1, c)).astype(np.float32))}
+              for k in range(len(D_BANKS))}
+    out_d = {"banks": rows_d, "rssi": dev(np.zeros(1, np.float32)),
+             "spectrum": dev(np.zeros((1, 2, 2048), np.float32)),
+             "wide": {(): {"audio": dev(rng.uniform(-1, 1, (1, 2, n_audio)).astype(np.float32)),
+                           "rssi": dev(np.zeros((1, 2), np.float32))}}}
+    for name, fn, what in (
+        ("K6_spectrum", lambda: ops.spectrogram_sampled(xb, 2048, n_out=2), f"({n_block},) complex64, 2 frames"),
+        ("K8_pack_wire", lambda: pack_wire(out_d), f"{len(D_BANKS)} banks x {D_FETCH_SLOTS} gated rows + 2 wide"),
+    ):
+        cases.append(dict(name=name, case=what, route="torch", ms=timer(fn), launches_per_call=launches_per_call(fn),
+                          wall_ms=time_ms(fn)))
+    return [lines[k] for k in ("K11a_noise_blanker", "K11b_nr_frames", "K11b_nr_gain", "K11b_nr_overlap_add")], cases
+
+
+def launches_per_call(fn) -> int:
+    """Kernels the card ran for one call (CUPTI through torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and "memcpy" not in e.key.lower() and "memset" not in e.key.lower()))
+
+
+def run_engine(device, fs: int = 10_000_000, c: int = 160, n_blocks: int = 3 * D_SEGMENT,
+               sync=None) -> dict:
+    """Program D through the engine: ``CaptureManager`` -> ``create_capture``
+    -> ``create_channel`` for every slot -> ``warmup`` -> ``start``; the
+    transport steps i16 -> i8 -> i4 every ``D_SEGMENT`` blocks (set
+    between dispatches, as the controller does); then every check."""
+    import torch
+
+    from wavecap_tpu_torch.capture import CaptureConfig, CaptureManager
+    from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    sync = sync or torch.cuda.synchronize
+    lay = engine_layout(c)
+    m = int(fs / 12_500) - int(fs / 12_500) % 2
+    cfg = CaptureConfig(center_hz=D_CENTER, sample_rate=fs, channel_bandwidth=12_500.0, block_seconds=0.2,
+                        narrow_capacity=c, wide_capacity=2, p25_capacity=0, audio_rate=48_000,
+                        fft_size=2048, transport="i16", adaptive_transport=True,
+                        audio_fetch_slots=min(D_FETCH_SLOTS, c // 2), pipeline_depth=1,
+                        blocks_per_dispatch=1)
+    mgr = CaptureManager(engine_scene(fs, m, lay), device=device)
+    cap = mgr.create_capture(config=cfg)
+    handles = engine_channels(cap, lay, c)
+    subs = {key: h.audio.subscribe(maxsize=4 * n_blocks) for key, h in handles.items()}
+    iq_sub = cap.iq_subs.subscribe(maxsize=n_blocks + 4)
+    t0 = time.perf_counter()
+    w = cap.warmup()
+    w.join(timeout=900)
+    warm_s = time.perf_counter() - t0
+    check(not w.is_alive() and cap.warmup_error is None, f"warmup failed: {cap.warmup_error}")
+
+    real = cap._dispatch_blocks
+    sent = [0]
+
+    def dispatch(blocks):
+        if sent[0] >= n_blocks:
+            cap._stop.wait()  # exactly n_blocks: hold the reader until stop()
+            return
+        cap.transport_active = D_LADDER[sent[0] // D_SEGMENT]
+        sent[0] += 1
+        real(blocks)
+
+    cap._dispatch_blocks = dispatch
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    states = set()
+    t0 = time.perf_counter()
+    cap.start()
+    try:
+        while cap.blocks_processed < n_blocks and time.perf_counter() - t0 < 600:
+            if cap.state != "starting":
+                states.add(cap.state)
+            time.sleep(0.005)
+        run_s = time.perf_counter() - t0
+        states.add(cap.state)
+        counts = launch_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+    finally:
+        cap.stop()
+    check(states == {"running"}, f"capture states {states}: error {cap.error}")
+    check(cap.blocks_processed == n_blocks, f"{cap.blocks_processed} blocks processed, not {n_blocks}")
+    want = {k: n_blocks * D_LAUNCHES.get(k, 0) for k in counts}
+    check(counts == want, f"launch counts {counts} != {want}")
+    pinned = [t.is_pinned() for t in cap._seam.staging_buffers() + cap._seam.fetch_buffers()]
+    check(len(pinned) >= 3 and all(pinned), "a staging or fetch buffer is not pinned")
+
+    blocks = []
+    while (b := iq_sub.get_nowait()) is not None:
+        blocks.append(b)
+    check(len(blocks) == n_blocks, f"{len(blocks)} IQ blocks published, not {n_blocks}")
+    audio = {}
+    for key, sub in subs.items():
+        got = []
+        while (a := sub.get_nowait()) is not None:
+            got.append(a)
+        audio[key] = got
+    n_audio = -(-2 * cap.block_size // m * 48 // 25)
+    for key, got in audio.items():
+        check(len(got) == n_blocks and all(a.shape == (n_audio,) if key[0] != "w" else a.ndim == 1 for a in got),
+              f"channel {key}: {len(got)} audio blocks")
+        check(all(np.isfinite(a).all() for a in got), f"channel {key}: audio not finite")
+
+    # the kernel path and the plain path on the card, from the engine's own
+    # blocks, words and control: the wire against the kernels' output, and the
+    # kernels against the plain versions
+    pipe_cfg, ctl = cap._pipe_cfg, cap._ctl
+    sel = ctl.audio_sel
+    audio_pos = dict(cap._audio_pos)
+    listened = {(h.mode_group, h.slot) for key, h in handles.items() if key[0] != "w"}
+    check(set(audio_pos) == listened, "the gated rows are not exactly the listened channels")
+    for (group, slot), pos in audio_pos.items():
+        check(int(sel[group][pos]) == slot, f"gated row {pos} of {group} is not slot {slot}")
+    st_k = pipeline_init(pipe_cfg, device=device)
+    st_p = pipeline_init(pipe_cfg, device=device)
+    lsb, worst_plain, wire_words, low = 0.0, float("inf"), [], []
+    first = [seg * D_SEGMENT + j for seg in range(len(D_LADDER)) for j in (0, 1)]
+    for k, block in enumerate(blocks):
+        transport = D_LADDER[k // D_SEGMENT]
+        words, scales = _words_for(transport, block)
+        wire_words.append(words.nbytes + (0 if scales is None else scales.nbytes))
+        batch = _batch_on(device, words, scales)
+        o_k, st_k = capture_multi(batch, st_k, ctl, pipe_cfg)
+        if k in first:
+            with plain_kernels():
+                o_p, st_p = capture_multi(batch, st_p, ctl, pipe_cfg)
+        elif k < max(first):
+            with plain_kernels():
+                _, st_p = capture_multi(batch, st_p, ctl, pipe_cfg)
+        for key, h in handles.items():
+            if key[0] == "w":
+                row_k = o_k["wide"][h.mode_group[1]]["audio"][0, h.slot]
+                row_p = None if k not in first else o_p["wide"][h.mode_group[1]]["audio"][0, h.slot]
+            else:
+                pos = audio_pos[(h.mode_group, h.slot)]
+                row_k = o_k["banks"][h.mode_group]["audio"][0, pos]
+                row_p = None if k not in first else o_p["banks"][h.mode_group]["audio"][0, pos]
+            pub = audio[key][k]
+            lsb = max(lsb, float(np.max(np.abs(pub - np.clip(host(row_k), -1.0, 1.0)))))
+            if row_p is not None:
+                ref = np.clip(host(row_p), -1.0, 1.0)
+                if np.abs(ref).max() > 0:
+                    v = snr_db(ref, pub)
+                    worst_plain = min(worst_plain, v)
+                    if v < 60.0:
+                        low.append((v, str(key), k))
+                else:
+                    check(not pub.any(), f"channel {key} block {k}: audio where the plain path is silent")
+        if k == 0:
+            # the gated rows are their slots' rows of the ungated program
+            full, _ = capture_multi(batch, pipeline_init(pipe_cfg, device=device), ctl._replace(audio_sel=None),
+                                    pipe_cfg)
+            for (group, slot), pos in audio_pos.items():
+                check(torch.equal(full["banks"][group]["audio"][0, slot], o_k["banks"][group]["audio"][0, pos]),
+                      f"gated row {pos} of {group} differs from slot {slot}")
+    check(lsb <= 0.5 / 32767 + 1e-6, f"published audio off the kernels' output by {lsb:.3g} > half an LSB")
+    check(worst_plain >= 50.0, f"engine audio {worst_plain:.1f} dB < 50 against the plain path: "
+          f"(dB, channel, block) under 60: {sorted(low)[:24]}")
+
+    # the stations: 1 kHz lines per segment, empty slots squelched, the
+    # blanker and the noise reduction
+    margins, line_min = {}, [float("inf")] * len(D_LADDER)
+    for seg in range(len(D_LADDER)):
+        blk = range(max(1, seg * D_SEGMENT), (seg + 1) * D_SEGMENT)
+        for key in [(k, s) for k in range(len(D_BANKS)) for s in lay["tone"]] + [("w", 0)]:
+            v = tone_margin_db(np.concatenate([audio[key][b] for b in blk]), 48_000.0)
+            margins[f"{D_LADDER[seg]}:{key[0]}:{key[1]}"] = v
+            line_min[seg] = min(line_min[seg], v)
+            check(v >= D_LINE_DB[seg], f"{D_LADDER[seg]}: station {key} 1 kHz line {v:.1f} dB < {D_LINE_DB[seg]}")
+    empties = [(k, s) for k in range(len(D_BANKS)) for s in lay["empty"]] + [("w", 1)]
+    empties += [(k, lay["weak"]) for k, (mode, _) in enumerate(D_BANKS) if mode != "nbfm"]
+    for key in empties:
+        check(not any(a.any() for a in audio[key]), f"empty listened channel {key}: squelch opened")
+    from wavecap_tpu_torch.ops.noise import _nr_plan
+
+    block_s = cap.block_size / fs
+    seg16 = list(range(1, D_SEGMENT))
+    t0s = [b * block_s for b in seg16]
+    hop, _, out_len = _nr_plan(n_audio, 1024, 0.5)
+    span = (hop, out_len - hop)
+    pulses = {k: gated_power_db([audio[(k, lay["pulse"])][b] for b in seg16], t0s, "pulse", span)
+              for k in (0, 1)}
+    check(pulses[1] <= pulses[0] - 10.0,
+          f"blanker: pulse energy {pulses[1]:.1f} dB, not 10 dB below the default bank's {pulses[0]:.1f}")
+    # the weak station's noise floor (its pauses) under its 1 kHz tone
+    nr = {k: gated_power_db([audio[(k, lay["weak"])][b] for b in seg16], t0s, "pause", span) for k in (0, 1)}
+    check(nr[1] <= nr[0] - 3.0,
+          f"noise reduction: noise floor {nr[1]:.1f} dB under the tone, not 3 dB below the default bank's {nr[0]:.1f}")
+
+    # host syncs per block, block latency, the stages, the traced breakdown
+    syncs = {}
+    for transport in D_LADDER:
+        words, scales = _words_for(transport, blocks[0])
+        batch = _batch_on(device, words, scales)
+        syncs[transport] = host_syncs(lambda: capture_multi(batch, pipeline_init(pipe_cfg, device=device),
+                                                            ctl, pipe_cfg))
+    lat = np.asarray(list(cap.block_latency_ms)[1:])
+    perf = {k: v / cap.perf["dispatches"] for k, v in cap.perf.items() if k != "dispatches"}
+    words16 = torch.from_numpy(np.concatenate([_words_for("i16", b)[0] for b in blocks[:D_SEGMENT]])).to(device)
+
+    def one_pass():
+        o, _ = capture_multi(words16, pipeline_init(pipe_cfg, device=device), ctl, pipe_cfg)
+        host(o["_packed"])
+
+    one_pass()
+    sync()
+    t0 = time.perf_counter()
+    one_pass()
+    sync()
+    direct_ms = (time.perf_counter() - t0) * 1e3 / D_SEGMENT
+    return dict(phase="engine (program D)", blocks=n_blocks, block_size=cap.block_size, channels=m,
+                slots_per_bank=c, banks=[[mode, dsp] for mode, dsp in D_BANKS], wide_slots=2,
+                transports=[D_LADDER[k // D_SEGMENT] for k in range(n_blocks)], launches=counts,
+                warmup_s=warm_s, run_s=run_s, states=sorted(states),
+                warm_latency_ms_p50=float(np.percentile(lat, 50)), warm_latency_ms_p95=float(np.percentile(lat, 95)),
+                latency_ms=[float(v) for v in cap.block_latency_ms],
+                perf_ms_per_block=perf, host_syncs_per_block={k: v[0] for k, v in syncs.items()},
+                host_sync_sites=sorted({s for v in syncs.values() for s in v[1]}),
+                peak_device_memory_bytes=int(peak_mem), upload_bytes_per_block=wire_words,
+                direct_ms_per_block=direct_ms, profile=profile_blocks(one_pass, D_SEGMENT, sync),
+                tone_margin_db=margins, line_min_db=dict(zip(D_LADDER, line_min)),
+                pulse_energy_db={"default": pulses[0], "blanker": pulses[1]},
+                weak_floor_under_tone_db={"default": nr[0], "noise_reduction": nr[1]},
+                wire_audio_max_abs=lsb, first_blocks_vs_plain_db=worst_plain,
+                fetched_rows_per_bank=int(sel[next(iter(sel))].numel()),
+                pinned_buffers=len(pinned))
 
 
 def card_line() -> str:
@@ -1758,6 +2314,10 @@ def main() -> int:
         for k in cases:
             log(dict(phase="kernel-case", **k))
         kernels += p25_lines
+        d_lines, cases = engine_kernel_checks(device)
+        for k in cases:
+            log(dict(phase="kernel-case", **k))
+        kernels += d_lines
         mixed_lines, cases = mixed_kernel_checks(mixed, device)
         for k in cases:
             log(dict(phase="kernel-case", **k))
@@ -1774,16 +2334,20 @@ def main() -> int:
         log(pb)
         pc = run_program_bc(p25["C"], device, "C")
         log(pc)
+        pd = run_engine(device)
+        log({k: v for k, v in pd.items() if k != "latency_ms"})
+        log(dict(phase="engine latency", latency_ms=pd["latency_ms"]))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each kernel's launches on its own path: K4 on the first slice's, K12
-    # on program A's, K13 and K14 on program B's, the others on the mixed
-    # capture's
+    # on program A's, K13 and K14 on program B's, K11 on the engine's
+    # (program D), the others on the mixed capture's
     path = {"K4_voice_fir": sl, "K12_c4fm_timing": pa, "K13_cqpsk_timing": pb,
-            "K13_cfo_lines": pb, "K14_echo_fit": pb}
+            "K13_cfo_lines": pb, "K14_echo_fit": pb, "K11a_noise_blanker": pd,
+            "K11b_nr_frames": pd, "K11b_nr_gain": pd, "K11b_nr_overlap_add": pd}
     for k in kernels:
         k["launches"] = path.get(k["name"], mx)["launches"][k["name"]]
         if k["launches"] == 0:

@@ -144,14 +144,9 @@ def test_nbfm_demod_matches(rng):
 ])
 def test_unported_nbfm_options_raise(override, kernel):
     """The NBFM options the first slice refused: those of K9 (IIR filters,
-    deemphasis, notches) and K5 (48 kHz audio) now run and match the
-    reference (>= 50 dB, two f32 IIR scans); the noise blanker (K11)
-    still raises."""
+    deemphasis, notches), K5 (48 kHz audio) and K11 (the noise blanker)
+    now run and match the reference (>= 50 dB, two f32 IIR scans)."""
     cfg = tmodels.NbfmConfig(**{**DEMOD, **override})
-    if kernel == "K11":
-        with pytest.raises(NotImplementedError, match=kernel):
-            tmodels.nbfm_init(cfg, device="cpu")
-        return
     jcfg = jmodels.NbfmConfig(**{**DEMOD, **override})
     n, fs = 5000, 25_000
     tt = np.arange(n) / fs

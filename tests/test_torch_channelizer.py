@@ -92,18 +92,29 @@ def test_channelize_matches_over_blocks(rng, sample_rate, bw, dft_impl):
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
-def test_word_input_matches_complex_input(rng):
-    """K1's word path (unpack fused with the arms) equals unpacking first."""
+@pytest.mark.parametrize("kind", ["i16", "i8", "i4"])
+def test_word_input_matches_complex_input(rng, kind):
+    """K1's word path (unpack fused with the arms) equals unpacking first,
+    for i16 pairs and the adaptive i8 pairs and i4 nibbles with their
+    scale; the unpack is the reference's ``_to_complex``, bit for bit."""
+    from wavecap_tpu.capture import pipeline as jpipe
+
     cfg = tchz.ChannelizerConfig(sample_rate=1_000_000.0, channel_bandwidth=12_500.0)
     m = cfg.channel_count
-    iq = rng.integers(-20000, 20000, (m * 40, 2)).astype(np.int16)
-    words = t(iq.view(np.int32).ravel())
-    hist = tchz.channelizer_init(cfg, device="cpu")
-    x_w, u_w = tchz.unpack_arms(words, hist, cfg)
-    x_c = tchz._unpack_i16_words(words)
+    dtype, hi = {"i16": (np.int32, 2**31), "i8": (np.int16, 2**15), "i4": (np.int8, 2**7)}[kind]
+    words = t(rng.integers(-hi, hi, m * 40).astype(dtype))
+    scale = None if kind == "i16" else torch.tensor(np.float32(0.0123))
+    hist = t((rng.standard_normal(m * 9) + 1j * rng.standard_normal(m * 9)).astype(np.complex64))
+    x_w, u_w = tchz.unpack_arms(words, hist, cfg, scale)
+    x_c = tchz.unpack_words(words, scale)
     x_c2, u_c = tchz.unpack_arms(x_c, hist, cfg)
     assert torch.equal(x_w, x_c) and torch.equal(u_w, u_c) and x_c2 is x_c
     assert u_w.shape == (2, 40, m)
+    jscale = None if scale is None else jnp.asarray(scale.numpy())
+    np.testing.assert_array_equal(x_w.numpy(), np.asarray(jpipe._to_complex(jnp.asarray(words.numpy()), jscale)))
+    if scale is not None:
+        with pytest.raises(ValueError, match="scale"):
+            tchz.unpack_arms(words, hist, cfg)
 
 
 def test_short_block_history_and_bad_length():

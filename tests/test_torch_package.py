@@ -68,6 +68,7 @@ def test_kernel_wrappers_have_no_fallback():
         "ops/iir.py": {"onepole_filter", "sos_filter", "_k9"},
         "ops/agc.py": {"envelope"},
         "ops/pll.py": {"_loop"},
+        "ops/noise.py": {"noise_blanker", "spectral_noise_reduction"},
         "models/p25/c4fm.py": {"c4fm_timing", "launch_timing"},
         "models/p25/cqpsk.py": {"cqpsk_timing", "cfo_lines"},
         "models/p25/equalizer.py": {"echo_fit", "echo_score", "_k14"},
@@ -145,7 +146,9 @@ def test_launch_counts_start_at_zero_and_reset():
     counts = build.launch_counts()
     assert set(counts) == {"K1_unpack_arms", "K2_arm_dft", "K3_slot_frontend", "K4_voice_fir",
                            "K5_resample_poly", "K7_strided_fir", "K9_iir_cascade", "K10_pll",
-                           "K12_c4fm_timing", "K13_cqpsk_timing", "K13_cfo_lines", "K14_echo_fit"}
+                           "K11a_noise_blanker", "K11b_nr_frames", "K11b_nr_gain",
+                           "K11b_nr_overlap_add", "K12_c4fm_timing", "K13_cqpsk_timing",
+                           "K13_cfo_lines", "K14_echo_fit"}
     assert not any(counts.values())
 
 
@@ -173,8 +176,9 @@ def test_chip_smoke_fails_without_the_card_or_the_repo(tmp_path, where):
 
 def test_registry_gives_the_six_analog_modes():
     """Every analog mode builds its state and demodulates a block, and so
-    do the two P25 soft-symbol modes; the noise options (K11) raise naming
-    their ROADMAP item."""
+    do the two P25 soft-symbol modes; with its noise options (K11) on, a
+    mode demodulates the block too, and a constant carrier (nothing to
+    blank, no noise to reduce) comes out as without them."""
     from wavecap_tpu_torch.models import registry
 
     for mode in ("wbfm", "nbfm", "am", "sam", "usb", "lsb"):
@@ -186,8 +190,11 @@ def test_registry_gives_the_six_analog_modes():
         assert audio.shape == (960,) and torch.isfinite(audio).all()
         for opt in ("enable_noise_blanker", "enable_noise_reduction"):
             if opt in cfg.__dataclass_fields__:
-                with pytest.raises(NotImplementedError, match="K11"):
-                    spec.init(registry.make_config(mode, 25_000, **{opt: True}), device="cpu")
+                ncfg = registry.make_config(mode, 25_000, **{opt: True})
+                got, _ = spec.demod(torch.ones(500, dtype=torch.complex64), spec.init(ncfg, device="cpu"), ncfg)
+                assert got.shape == (960,) and torch.isfinite(got).all()
+                if opt == "enable_noise_blanker":
+                    torch.testing.assert_close(got, audio, rtol=0, atol=0)
     for mode in ("p25-soft", "p25-cqpsk-soft"):
         spec = registry.get_demod(mode)
         cfg = registry.make_config(mode, 48_000)

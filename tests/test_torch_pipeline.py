@@ -28,7 +28,7 @@ import jax.numpy as jnp
 from wavecap_tpu.capture import pipeline as jpipe
 from wavecap_tpu_torch import convert
 from wavecap_tpu_torch.capture import pipeline as tpipe
-from wavecap_tpu_torch.capture.engine import pack_i16_words
+from wavecap_tpu_torch.capture.engine import pack_i16_words, pack_i4_words, pack_i8_words
 from wavecap_tpu_torch.devices import DeviceConfig, FakeDriver, FakeStation
 from tests.conftest import snr_db
 
@@ -158,32 +158,113 @@ def test_mid_stream_handover_through_convert(reference_run):
 
 
 def test_audio_fetch_slots_raises():
-    """The listener-selected audio fetch is the engine's (ROADMAP item 9):
-    the port refuses the option and a reference control that carries it."""
-    kw = {**CFG_KW, "audio_fetch_slots": 3}
-    cfg = tpipe.CapturePipelineConfig(**kw)
+    """The listener-selected audio fetch (the engine's ``audio_fetch_slots``)
+    no longer raises: with 2 fetch slots of 8, the reference's control
+    (its ``audio_sel``) moves to the port through ``convert.py`` and the
+    gated audio rows, rssi and wire match the reference over 3 blocks."""
+    kw = {**CFG_KW, "audio_fetch_slots": 2}
+    jcfg, tcfg = jpipe.CapturePipelineConfig(**kw), tpipe.CapturePipelineConfig(**kw)
     for entry in (tpipe.pipeline_init, tpipe.control_init):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            entry(cfg, device="cpu")
-    jctl = jax.device_get(jpipe.control_init(jpipe.CapturePipelineConfig(**kw)))
-    assert jctl.audio_sel is not None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        convert.capture_control_from_numpy(tpipe.CapturePipelineConfig(**CFG_KW), jctl, device="cpu")
+        entry(tcfg, device="cpu")
+    assert tpipe.control_init(tcfg, device="cpu").audio_sel[MODE].dtype == torch.int32
+    jctl, _ = controls(jcfg, tcfg)
+    jctl = jctl._replace(audio_sel={MODE: jnp.asarray([1, 2], jnp.int32)})
+    tctl = convert.capture_control_from_numpy(tcfg, jax.device_get(jctl), device="cpu")
+    np.testing.assert_array_equal(tctl.audio_sel[MODE].numpy(), [1, 2])
+    words = pack_i16_words(blocks(3))
+    jo, _ = jpipe.jit_capture_multi(jcfg, 3)(jnp.asarray(words), jpipe.pipeline_init(jcfg), jctl)
+    to, _ = tpipe.capture_multi(torch.from_numpy(words), tpipe.pipeline_init(tcfg, device="cpu"), tctl, tcfg)
+    ja, ta = np.asarray(jo["banks"][MODE]["audio"]), to["banks"][MODE]["audio"].numpy()
+    assert ja.shape == ta.shape == (3, 2, 2 * BLOCK // 80)
+    for k in range(3):
+        for i in range(2):
+            assert snr_db(ja[k, i], ta[k, i]) >= 70.0, (k, i)
+    np.testing.assert_allclose(to["banks"][MODE]["rssi"].numpy(), np.asarray(jo["banks"][MODE]["rssi"]),
+                               rtol=0, atol=1e-3)
+    assert to["_packed"].shape == tuple(np.asarray(jo["_packed"]).shape)
+    # the gated rows are the selected slots' rows of the ungated program
+    full, _ = tpipe.capture_multi(torch.from_numpy(words), tpipe.pipeline_init(tcfg, device="cpu"),
+                                  tctl._replace(audio_sel=None), tcfg)
+    np.testing.assert_array_equal(ta, full["banks"][MODE]["audio"].numpy()[:, [1, 2]])
 
 
 @pytest.mark.parametrize("override,item", [
-    # the wide slots run; a group with the noise blanker (K11) does not yet
-    (dict(wide_capacity=2, wide_groups=((("enable_noise_blanker", True),),)), "item 7"),
+    # the wide slots run, and a group with the noise blanker and the noise
+    # reduction (K11) runs too
+    (dict(wide_capacity=2, wide_groups=((("enable_noise_blanker", True),
+                                         ("enable_noise_reduction", True)),)), "item 7"),
 ])
 def test_unported_banks_raise(override, item):
-    cfg = tpipe.CapturePipelineConfig(**{**CFG_KW, **override})
-    with pytest.raises(NotImplementedError, match=item):
-        tpipe.pipeline_init(cfg, device="cpu")
+    """No bank of the reference raises any more (this case was ``item``'s):
+    the wide group with both noise options matches the reference over 3
+    blocks (>= 50 dB, the IIR floor)."""
+    kw = {**CFG_KW, **override, "block_size": 20_000}
+    jcfg, tcfg = jpipe.CapturePipelineConfig(**kw), tpipe.CapturePipelineConfig(**kw)
+    g = tcfg.wide_groups[0]
+    jctl = jpipe.control_init(jcfg)
+    jctl = jctl._replace(wide={g: jctl.wide[g]._replace(
+        offset_hz=jnp.asarray(WIDE_OFFSETS, jnp.float32), active=jnp.asarray([True, True]))})
+    tctl = convert.capture_control_from_numpy(tcfg, jax.device_get(jctl), device="cpu")
+    words = pack_i16_words(mixed_blocks(20_000, 3))
+    jo, _ = jpipe.jit_capture_multi(jcfg, 3)(jnp.asarray(words), jpipe.pipeline_init(jcfg), jctl)
+    to, _ = tpipe.capture_multi(torch.from_numpy(words), tpipe.pipeline_init(tcfg, device="cpu"), tctl, tcfg)
+    ja, ta = np.asarray(jo["wide"][g]["audio"]), to["wide"][g]["audio"].numpy()
+    assert ja.shape == ta.shape
+    for k in range(3):
+        assert snr_db(ja[k, 0], ta[k, 0]) >= 50.0, k  # the WBFM station
+        assert snr_db(ja[k, 1], ta[k, 1]) >= 50.0, k  # noise, the squelch open
 
 
-def test_unported_transport_raises():
-    with pytest.raises(NotImplementedError, match="i16"):
-        tpipe._to_complex(torch.zeros(8, dtype=torch.int16))
+def _reference_words(transport: str, blocks_):
+    """The reference engine's host conversion of ``blocks_``: its batch,
+    caught at the step."""
+    from wavecap_tpu import capture as jcapture
+    from wavecap_tpu.devices import FakeDriver as JFakeDriver
+
+    cap = jcapture.Capture(JFakeDriver(1).open("fake0"), jcapture.CaptureConfig(
+        sample_rate=FS, channel_bandwidth=12_500.0, adaptive_transport=False,
+        narrow_capacity=1, wide_capacity=0))
+    cap.block_size = len(blocks_[0])
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def step(batch, state, ctl):
+        seen.append(jax.tree_util.tree_map(np.asarray, batch))
+        raise Stop
+
+    cap._jit_step, cap._pipe_cfg, cap._ctl = step, object(), object()
+    cap._ctl_dirty, cap.transport_active = False, transport
+    with pytest.raises(Stop):
+        cap._dispatch_blocks(list(blocks_))
+    return seen[0]
+
+
+@pytest.mark.parametrize("transport", ["i8", "i4"])
+def test_unported_transport_raises(transport):
+    """The adaptive i8 and i4 transports no longer raise: the port's host
+    conversion gives the reference engine's words and scales bit for bit,
+    and ``_to_complex`` unpacks them bit-equal to the reference's."""
+    bl = blocks(2)
+    jwords, jscales = _reference_words(transport, bl)
+    pack = pack_i8_words if transport == "i8" else pack_i4_words
+    words, scales = pack(bl)
+    assert words.dtype == (np.int16 if transport == "i8" else np.int8)
+    np.testing.assert_array_equal(words, jwords)
+    np.testing.assert_array_equal(scales, jscales)
+    for k in range(2):
+        ref = np.asarray(jax.jit(jpipe._to_complex)(jnp.asarray(words[k]), jnp.asarray(scales[k])))
+        got = tpipe._to_complex(torch.from_numpy(words[k]), torch.from_numpy(scales[k:k + 1])[0]).numpy()
+        np.testing.assert_array_equal(got, ref)
+    # every word value: the sign extension of both halves
+    every = np.arange(-2**15, 2**15, dtype=np.int16) if transport == "i8" else np.arange(-128, 128, dtype=np.int8)
+    s = np.float32(0.37)
+    ref = np.asarray(jax.jit(jpipe._to_complex)(jnp.asarray(every), jnp.asarray(s)))
+    got = tpipe._to_complex(torch.from_numpy(every), torch.tensor(s)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    with pytest.raises(ValueError, match="scale"):
+        tpipe._to_complex(torch.from_numpy(every))
 
 
 # --- the mixed-analog capture ---------------------------------------------------
@@ -314,6 +395,26 @@ def test_mixed_capture_multi_matches(mixed_run):
         tk = tpipe._rebuild(touts, iter(v[k] for _, v in tpipe._leaves(touts)))
         assert_mixed_match(jouts[k], tk)
     assert tstate.wide[()].fir_tail.shape == (2, len(tpipe._wide_taps(tcfg.wide_cfg())) - 1)
+
+
+@pytest.mark.parametrize("transport", ["i8", "i4"])
+def test_mixed_capture_multi_scaled_transports_match(transport):
+    """The mixed capture on the adaptive transports: ``(rows, scales)``
+    through the port's ``capture_multi`` against the reference's
+    ``jit_capture_multi``, 3 blocks, the mixed capture's floors."""
+    kw = mixed_kw(20_000)
+    jcfg, tcfg = jpipe.CapturePipelineConfig(**kw), tpipe.CapturePipelineConfig(**kw)
+    pack = pack_i8_words if transport == "i8" else pack_i4_words
+    words, scales = pack(mixed_blocks(20_000, 3))
+    jctl, tctl = mixed_controls(jcfg, tcfg)
+    jouts, _ = jpipe.jit_capture_multi(jcfg, 3)((jnp.asarray(words), jnp.asarray(scales)),
+                                                jpipe.pipeline_init(jcfg), jctl)
+    touts, _ = tpipe.capture_multi((torch.from_numpy(words), torch.from_numpy(scales)),
+                                   tpipe.pipeline_init(tcfg, device="cpu"), tctl, tcfg)
+    jouts = jax.device_get(jouts)
+    for k in range(3):
+        jk = jax.tree.map(lambda v: v[k], jouts)
+        assert_mixed_match(jk, tpipe._rebuild(touts, iter(v[k] for _, v in tpipe._leaves(touts))))
 
 
 def test_mixed_mid_stream_handover_through_convert(mixed_run):

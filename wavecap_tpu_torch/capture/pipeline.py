@@ -9,14 +9,16 @@ decimating FIR of the whole block, then WBFM), the P25 symbol banks (the
 4800-baud C4FM or CQPSK bank and the 6000-baud Phase 2 bank, soft
 symbols), and one packed uint8 wire buffer that the host fetches.
 
-The engine's listener-selected audio fetch (``audio_fetch_slots``)
-raises ``NotImplementedError`` naming its ROADMAP item, as do the i8 and
-i4 transports.
+With ``audio_fetch_slots`` set, only the listener-selected slots' audio
+rows (``CaptureControl.audio_sel``) ride the wire.
 
-With i16-pair words as input, kernel K1 unpacks the words while it
-builds the channelizer's arms, and also writes the complex block for the
-spectrum, the RSSI, the wide slots and the next history.  Kernel K7
-shifts and decimates the block for each wide slot group in one launch.
+The transports are the engine's: i16 pairs in int32 words, the adaptive
+i8 pairs in int16 words and i4 nibble pairs in int8 words (each with its
+block's f32 scale, a tensor on the card), or interleaved f32.  Kernel K1
+unpacks the words while it builds the channelizer's arms, and also
+writes the complex block for the spectrum, the RSSI, the wide slots and
+the next history.  Kernel K7 shifts and decimates the block for each
+wide slot group in one launch.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from ..models.analog import WbfmConfig, wbfm_demod_baseband, wbfm_init
 from ..models.p25.c4fm import C4fmConfig, c4fm_demodulate, c4fm_init
 from ..models.p25.cqpsk import CqpskConfig, cqpsk_demodulate, cqpsk_init
 from ..models.registry import get_demod
-from ..ops.channelizer import ChannelizerConfig, _channelize, _unpack_i16_words, channelizer_init
+from ..ops.channelizer import ChannelizerConfig, _channelize, channelizer_init, unpack_words
 from ..ops import fir as fir_ops
 from ..utils.torchenv import DeviceLike, resolve_device
 
@@ -120,7 +122,8 @@ def unpack_wire(unpacked: dict, flat_u8: np.ndarray) -> dict:
         shape = tuple(leaf.shape)
         per = int(np.prod(shape[1:])) if len(shape) > 1 else 1
         nb = per * np_dtype.itemsize
-        raw = np.ascontiguousarray(flat_u8[:, off : off + nb]).view(np_dtype)
+        # a copy: every leaf owns its memory (the engine reuses the buffer)
+        raw = np.array(flat_u8[:, off : off + nb], order="C").view(np_dtype)
         arr = raw.reshape(shape)
         if np_dtype != np.float32:
             arr = arr.astype(np.float32) * np.float32(1.0 / scale)
@@ -212,13 +215,6 @@ class CapturePipelineConfig:
         )
 
 
-def _check_supported(cfg: CapturePipelineConfig) -> None:
-    if cfg.audio_fetch_slots > 0:
-        raise NotImplementedError(
-            "the listener-selected audio fetch comes with the engine, ROADMAP Queue 1 item 9"
-        )
-
-
 class WideState(NamedTuple):
     nco_phase: torch.Tensor  # (W,) uint32
     fir_tail: torch.Tensor  # (W, taps-1) complex64
@@ -249,6 +245,9 @@ class CaptureControl(NamedTuple):
     wide: dict | None = None  # dsp key -> WideAssignment
     p25: ChannelAssignment | None = None
     p25p2: ChannelAssignment | None = None
+    # bank key -> (audio_fetch_slots,) int32 slot indices whose audio rides
+    # the wire (present only when cfg.audio_fetch_slots > 0)
+    audio_sel: dict | None = None
 
 
 def wide_assignment_init(capacity: int, device: DeviceLike = None) -> WideAssignment:
@@ -318,7 +317,6 @@ def p25p2_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> P25Bank
 
 
 def pipeline_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> CaptureState:
-    _check_supported(cfg)
     dev = resolve_device(device)
     banks = {m: bank_init(cfg.bank_cfg(m), device=dev) for m in cfg.narrow_modes}
     wide = ({g: wide_init(cfg.wide_cfg(g), device=dev) for g in cfg.wide_groups}
@@ -331,14 +329,15 @@ def pipeline_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> Capt
 
 
 def control_init(cfg: CapturePipelineConfig, device: DeviceLike = None) -> CaptureControl:
-    _check_supported(cfg)
     dev = resolve_device(device)
     banks = {m: assignment_init(cfg.narrow_capacity, device=dev) for m in cfg.narrow_modes}
     wide = ({g: wide_assignment_init(cfg.wide_capacity, device=dev) for g in cfg.wide_groups}
             if cfg.wide_capacity > 0 else None)
     p25 = assignment_init(cfg.p25_capacity, device=dev) if cfg.p25_capacity > 0 else None
     p25p2 = assignment_init(cfg.p25p2_capacity, device=dev) if cfg.p25p2_capacity > 0 else None
-    return CaptureControl(banks=banks, wide=wide, p25=p25, p25p2=p25p2)
+    audio_sel = ({m: torch.zeros(cfg.audio_fetch_slots, dtype=torch.int32, device=dev)
+                  for m in cfg.narrow_modes} if cfg.audio_fetch_slots > 0 else None)
+    return CaptureControl(banks=banks, wide=wide, p25=p25, p25p2=p25p2, audio_sel=audio_sel)
 
 
 def _wide_step(
@@ -386,16 +385,18 @@ def _p25_step(chans, state: P25BankState, assign: ChannelAssignment,
     return {"soft": soft, "rssi": rssi}, P25BankState(phases, c4states)
 
 
-def _to_complex(x_in: torch.Tensor) -> torch.Tensor:
-    """Transport words -> complex64: int32 words hold i16 pairs (low half
-    I) scaled 1/32768; f32 holds interleaved floats."""
-    if x_in.dtype == torch.int32:
-        return _unpack_i16_words(x_in)
-    if x_in.dtype == torch.float32:
-        return torch.complex(x_in[..., 0::2], x_in[..., 1::2])
-    raise NotImplementedError(
-        f"{x_in.dtype} transport (adaptive i8 / i4) is not ported yet; use i16 words"
-    )
+def _to_complex(x_in: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Transport words -> complex64: int8 words hold adaptive-i4 nibble
+    pairs and int16 words adaptive-i8 pairs (low half I), each times the
+    block's ``scale``; int32 words hold i16 pairs scaled 1/32768; f32
+    holds interleaved floats."""
+    if x_in.dtype in (torch.int8, torch.int16, torch.int32):
+        return unpack_words(x_in, scale)
+    return torch.complex(x_in[..., 0::2], x_in[..., 1::2])
+
+
+def _audio_gated(cfg: CapturePipelineConfig, ctl: CaptureControl) -> bool:
+    return 0 < cfg.audio_fetch_slots < cfg.narrow_capacity and ctl.audio_sel is not None
 
 
 def capture_step(
@@ -403,19 +404,22 @@ def capture_step(
     state: CaptureState,
     ctl: CaptureControl,
     cfg: CapturePipelineConfig,
+    scale: torch.Tensor | None = None,
 ):
     """One block through the whole capture.  Returns ``(outputs, state)``.
 
-    ``x`` is the complex64 block, or its int32 i16-pair words, which K1
+    ``x`` is the complex64 block, interleaved f32, or transport words
+    (``scale`` is the adaptive i8 / i4 block's f32 scale), which K1
     unpacks on the card as it builds the channelizer's arms.
     """
-    _check_supported(cfg)
+    if x.dtype == torch.float32:
+        x = _to_complex(x)
     new_chan_state = state.chan_state
     chans = None
     if state.chan_state is not None:
-        x, chans, new_chan_state = _channelize(x, state.chan_state, cfg.channelizer())
+        x, chans, new_chan_state = _channelize(x, state.chan_state, cfg.channelizer(), scale)
     elif not x.is_complex():
-        x = _to_complex(x)
+        x = _to_complex(x, scale)
 
     out: dict[str, Any] = {}
     out["spectrum"] = ops.spectrogram_sampled(x, cfg.fft_size, n_out=max(cfg.spectrum_frames, 1))
@@ -425,6 +429,11 @@ def capture_step(
     bank_out = {}
     for key in cfg.narrow_modes:
         o, s = bank_demod_step(chans, state.banks[key], ctl.banks[key], cfg.bank_cfg(key))
+        if _audio_gated(cfg, ctl):
+            # only the listener-selected rows' audio rides the wire; rssi
+            # (and the demod state) stay full-capacity
+            o = dict(o)
+            o["audio"] = torch.index_select(o["audio"], 0, ctl.audio_sel[key])
         bank_out[key] = o
         new_banks[key] = s
     out["banks"] = bank_out
@@ -459,16 +468,20 @@ def _stack(trees: list):
 
 
 def capture_multi(
-    x_rows: torch.Tensor,
+    x_rows,
     state: CaptureState,
     ctl: CaptureControl,
     cfg: CapturePipelineConfig,
 ):
     """Consecutive stacked blocks ``(n, N)`` through :func:`capture_step`,
     threading the state (the counterpart of ``jit_capture_multi``).
+    ``x_rows`` is the stacked rows, or ``(rows, scales)`` for the adaptive
+    i8 / i4 transports (``scales`` ``(n,)`` f32 on the rows' device).
     Outputs gain a leading block axis; ``_packed`` is ``(n, bytes)``."""
+    rows, scales = x_rows if isinstance(x_rows, tuple) else (x_rows, None)
     outs = []
-    for row in x_rows:
-        out, state = capture_step(row, state, ctl, cfg)
+    for k in range(rows.shape[0]):
+        out, state = capture_step(rows[k], state, ctl, cfg,
+                                  None if scales is None else scales[k])
         outs.append(out)
     return _stack(outs), state

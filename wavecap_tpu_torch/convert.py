@@ -62,11 +62,7 @@ def capture_state_from_numpy(
 def capture_control_from_numpy(
     cfg: CapturePipelineConfig, tree, device: DeviceLike = None
 ) -> CaptureControl:
-    """The reference's capture control (narrow, wide and P25 assignments)
-    as the port's."""
+    """The reference's capture control (narrow, wide and P25 assignments,
+    and the listener-selected ``audio_sel`` rows) as the port's."""
     dev = resolve_device(device)
-    if _field(tree, "audio_sel") is not None:
-        raise NotImplementedError(
-            "the listener-selected audio fetch comes with the engine, ROADMAP Queue 1 item 9"
-        )
     return _fill(control_init(cfg, device=dev), tree, "control")

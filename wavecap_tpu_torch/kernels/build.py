@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -35,7 +36,7 @@ _L = ctypes.c_longlong
 # every entry is the CUDA stream
 KERNELS: dict[str, tuple[str, str, tuple]] = {
     "K1_unpack_arms": (
-        "unpack_arms", "k1_unpack_arms", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "unpack_arms", "k1_unpack_arms", (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     ),
     "K2_arm_dft": ("arm_dft", "k2_arm_dft", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "K3_slot_frontend": (
@@ -58,6 +59,16 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
         "iir_cascade", "k9_iir_cascade", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ),
     "K10_pll": ("pll", "k10_pll", (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P)),
+    "K11a_noise_blanker": (
+        "noise_blanker", "k11a_noise_blanker", (_P, _P, _I, _I, _I, _F, _I, _P),
+    ),
+    "K11b_nr_frames": (
+        "noise_reduction", "k11b_nr_frames", (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    ),
+    "K11b_nr_gain": ("noise_reduction", "k11b_nr_gain", (_P, _I, _I, _I, _F, _F, _P)),
+    "K11b_nr_overlap_add": (
+        "noise_reduction", "k11b_nr_overlap_add", (_P,) * 5 + (_I,) * 6 + (_P,),
+    ),
     "K12_c4fm_timing": ("p25_timing", "k12_c4fm_timing", (_P,) * 5 + (_I,) * 3 + (_F,) * 8 + (_P,)),
     "K13_cqpsk_timing": ("p25_timing", "k13_cqpsk_timing", (_P,) * 5 + (_I,) * 3 + (_F,) * 8 + (_P,)),
     "K13_cfo_lines": ("cfo_lines", "k13_cfo_lines", (_P, _I, _I, _I, _I, _F, _P, _P, _P)),
@@ -70,6 +81,9 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
 _LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCTIONS: dict[str, tuple] = {}
+# the capture engine launches from its reader thread while a warmup or
+# another capture may build or launch from theirs
+_LOCK = threading.Lock()
 
 
 def nvcc_command(source: Path, output: Path, nvcc: str = "nvcc") -> list[str]:
@@ -140,19 +154,22 @@ def _function(name: str):
     at first use."""
     if name in _FUNCTIONS:
         return _FUNCTIONS[name]
-    stem, symbol, argtypes = KERNELS[name]
-    lib = _LIBS.get(stem)
-    if lib is None:
-        build_all()
-        lib = ctypes.CDLL(str(_library_path(stem)))
-        lib.wavecap_error_string.argtypes = (_I,)
-        lib.wavecap_error_string.restype = ctypes.c_char_p
-        _LIBS[stem] = lib
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = _I
-    _FUNCTIONS[name] = (fn, lib)
-    return fn, lib
+    with _LOCK:
+        if name in _FUNCTIONS:
+            return _FUNCTIONS[name]
+        stem, symbol, argtypes = KERNELS[name]
+        lib = _LIBS.get(stem)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(_library_path(stem)))
+            lib.wavecap_error_string.argtypes = (_I,)
+            lib.wavecap_error_string.restype = ctypes.c_char_p
+            _LIBS[stem] = lib
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = _I
+        _FUNCTIONS[name] = (fn, lib)
+        return fn, lib
 
 
 def launch(name: str, device: torch.device, *args) -> None:
@@ -170,7 +187,8 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"{name} failed to launch: {lib.wavecap_error_string(status).decode()}"
         )
-    _LAUNCHES[name] += 1
+    with _LOCK:
+        _LAUNCHES[name] += 1
 
 
 def launch_counts() -> dict[str, int]:
@@ -179,5 +197,6 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0

@@ -1,8 +1,10 @@
 // K1: packed-word unpack fused with the channelizer's polyphase arms.
 //
-// Replaces wavecap_tpu/capture/pipeline.py:_to_complex (the int32 branch:
-// i16 pairs scaled 1/32768) fused with the parity_stack inner function of
-// wavecap_tpu/ops/channelizer.py:channelize.  With x_ext = [history || x]
+// Replaces wavecap_tpu/capture/pipeline.py:_to_complex (its three word
+// branches: int32 words of i16 pairs scaled 1/32768; int16 words of i8
+// pairs and int8 words of i4 nibble pairs, each times the block's f32
+// scale, which the kernel reads from device memory) fused with the
+// parity_stack inner function of wavecap_tpu/ops/channelizer.py:channelize.  With x_ext = [history || x]
 // (history = the last M*T samples of the stream), it writes both parity
 // stacks of the NMDPFB:
 //
@@ -32,6 +34,32 @@ struct WordSource {
         const float re = static_cast<float>(((v & 0xFFFF) ^ 0x8000) - 0x8000);
         const float im = static_cast<float>(v >> 16);
         return make_float2(re * (1.0f / 32768.0f), im * (1.0f / 32768.0f));
+    }
+};
+
+// adaptive i8: low byte I, high byte Q (little-endian), times the scale
+struct I8Source {
+    const int16_t* w;
+    const float* scale;
+    __device__ __forceinline__ float2 operator()(long i) const {
+        const int v = w[i];
+        const float s = *scale;
+        const float re = static_cast<float>(((v & 0xFF) ^ 0x80) - 0x80);
+        const float im = static_cast<float>(v >> 8);
+        return make_float2(re * s, im * s);
+    }
+};
+
+// adaptive i4: low nibble I, high nibble Q, times the scale
+struct I4Source {
+    const int8_t* w;
+    const float* scale;
+    __device__ __forceinline__ float2 operator()(long i) const {
+        const int v = w[i];
+        const float s = *scale;
+        const float re = static_cast<float>(((v & 0xF) ^ 0x8) - 0x8);
+        const float im = static_cast<float>(v >> 4);
+        return make_float2(re * s, im * s);
     }
 };
 
@@ -80,24 +108,43 @@ int column_threads(int m) {
 
 }  // namespace
 
-WAVECAP_EXPORT int k1_unpack_arms(const void* words, const void* x, const void* hist,
-                                  const void* arms_rev, void* u, void* x_out, int m,
-                                  int t, int r_steps, void* stream) {
+template <class Source>
+void launch_arms(Source src, const void* hist, const void* arms_rev, void* u, void* x_out, int m,
+                 int t, int r_steps, cudaStream_t s) {
     const int rows_per_block = 8;
     const int threads = column_threads(m);
     const dim3 grid((m + threads - 1) / threads, (r_steps + rows_per_block - 1) / rows_per_block, 2);
+    unpack_arms_kernel<<<grid, threads, 0, s>>>(
+        src, static_cast<const float2*>(hist), static_cast<const float*>(arms_rev),
+        static_cast<float2*>(u), static_cast<float2*>(x_out), m, t, r_steps, rows_per_block);
+}
+
+// kind: 0 complex64 samples (no x_out), 1 int32 i16-pair words, 2 int16
+// i8-pair words, 3 int8 i4-nibble words (2 and 3 read ``scale``)
+WAVECAP_EXPORT int k1_unpack_arms(const void* src, int kind, const void* scale, const void* hist,
+                                  const void* arms_rev, void* u, void* x_out, int m, int t,
+                                  int r_steps, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float2* h = static_cast<const float2*>(hist);
-    const float* a = static_cast<const float*>(arms_rev);
-    float2* uo = static_cast<float2*>(u);
-    if (words != nullptr) {
-        unpack_arms_kernel<<<grid, threads, 0, s>>>(
-            WordSource{static_cast<const int32_t*>(words)}, h, a, uo,
-            static_cast<float2*>(x_out), m, t, r_steps, rows_per_block);
-    } else {
-        unpack_arms_kernel<<<grid, threads, 0, s>>>(
-            ComplexSource{static_cast<const float2*>(x)}, h, a, uo, nullptr, m, t,
-            r_steps, rows_per_block);
+    const float* sc = static_cast<const float*>(scale);
+    switch (kind) {
+        case 0:
+            launch_arms(ComplexSource{static_cast<const float2*>(src)}, hist, arms_rev, u, nullptr,
+                        m, t, r_steps, s);
+            break;
+        case 1:
+            launch_arms(WordSource{static_cast<const int32_t*>(src)}, hist, arms_rev, u, x_out, m,
+                        t, r_steps, s);
+            break;
+        case 2:
+            launch_arms(I8Source{static_cast<const int16_t*>(src), sc}, hist, arms_rev, u, x_out, m,
+                        t, r_steps, s);
+            break;
+        case 3:
+            launch_arms(I4Source{static_cast<const int8_t*>(src), sc}, hist, arms_rev, u, x_out, m,
+                        t, r_steps, s);
+            break;
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());
 }

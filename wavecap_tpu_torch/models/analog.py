@@ -5,8 +5,11 @@ Counterpart of ``wavecap_tpu/models/analog.py``: pure block functions
 (``B + (n,)``, the states stacked with the same leading axes), with the
 reference's config and state types.  As in the reference, every linear
 audio filter runs at ``audio_rate``, after the detector and the
-resampler.  The noise blanker and the spectral noise reduction (kernel
-K11) raise ``NotImplementedError``.
+resampler.  The noise blanker (kernel K11a) and the spectral noise
+reduction (K11b) run at the reference's places: the blanker on the IQ
+before the FM discriminators and on the AM, SSB and SAM detector
+outputs before their resamplers, the noise reduction on the NBFM and
+WBFM audio before normalization.
 """
 
 from __future__ import annotations
@@ -21,17 +24,9 @@ from scipy import signal as _sps
 
 from .. import ops
 from ..ops import iir as iir_ops
+from ..ops import noise as noise_ops
 from ..ops import pll as pll_ops
 from ..utils.torchenv import DeviceLike, resolve_device
-
-
-def check_supported(cfg) -> None:
-    """Raise for the options of the reference that are not ported yet."""
-    if getattr(cfg, "enable_noise_blanker", False) or getattr(cfg, "enable_noise_reduction", False):
-        raise NotImplementedError(
-            "the noise blanker and noise reduction are ROADMAP Queue 1 item 7's "
-            "last part, kernel K11 (ops/noise.py)"
-        )
 
 
 # --- shared audio post-chain ---------------------------------------------------
@@ -81,7 +76,6 @@ class WbfmState(NamedTuple):
 
 
 def wbfm_init(cfg: WbfmConfig, device: DeviceLike = None) -> WbfmState:
-    check_supported(cfg)
     dev = resolve_device(device)
     return WbfmState(
         disc_prev=ops.fm_discriminator_init(device=dev),
@@ -102,8 +96,9 @@ def wbfm_demod(iq: torch.Tensor, state: WbfmState, cfg: WbfmConfig):
 def wbfm_demod_baseband(iq: torch.Tensor, state: WbfmState, cfg: WbfmConfig):
     """Like :func:`wbfm_demod`, also returning the pre-MPX discriminator
     baseband at the input rate (where the 57 kHz RDS subcarrier lives)."""
-    check_supported(cfg)
     ar = cfg.audio_rate
+    if cfg.enable_noise_blanker:
+        iq = noise_ops.noise_blanker(iq, cfg.noise_blanker_threshold_db)
     fm, disc_prev = ops.quadrature_demod(iq, cfg.sample_rate, state.disc_prev)
     audio, rs_tail = ops.resample_poly_stream(fm, cfg.sample_rate, ar, state.rs_tail)
     deemph = state.deemph
@@ -116,6 +111,8 @@ def wbfm_demod_baseband(iq: torch.Tensor, state: WbfmState, cfg: WbfmConfig):
     if cfg.enable_highpass and cfg.highpass_hz > 0:
         audio, hp_z = iir_ops.highpass(audio, ar, cfg.highpass_hz, hp_z)
     audio, notch_z = _apply_notches(audio, ar, cfg.notch_frequencies, state.notch_z)
+    if cfg.enable_noise_reduction:
+        audio = noise_ops.spectral_noise_reduction(audio, cfg.noise_reduction_db)
     audio = ops.soft_clip(ops.rms_normalize(audio, cfg.target_rms))
     return audio, fm, WbfmState(disc_prev, deemph, mpx_z, hp_z, notch_z, rs_tail)
 
@@ -174,7 +171,6 @@ def voice_band_taps(cfg: NbfmConfig) -> np.ndarray:
 
 
 def nbfm_init(cfg: NbfmConfig, device: DeviceLike = None) -> NbfmState:
-    check_supported(cfg)
     dev = resolve_device(device)
     if cfg.filter_impl == "fir":
         hp_z = ops.fir_init(len(voice_band_taps(cfg)), torch.float32, device=dev)
@@ -194,9 +190,8 @@ def nbfm_init(cfg: NbfmConfig, device: DeviceLike = None) -> NbfmState:
 
 def nbfm_audio(fm: torch.Tensor, state: NbfmState, cfg: NbfmConfig):
     """NBFM after the discriminator: resample, deemphasis, the voice
-    filters, notches, normalize and clip.  ``state.disc_prev`` passes
-    through."""
-    check_supported(cfg)
+    filters, notches, the noise reduction, normalize and clip.
+    ``state.disc_prev`` passes through."""
     ar = cfg.audio_rate
     audio, rs_tail = ops.resample_poly_stream(fm, cfg.sample_rate, ar, state.rs_tail)
     deemph = state.deemph
@@ -212,13 +207,16 @@ def nbfm_audio(fm: torch.Tensor, state: NbfmState, cfg: NbfmConfig):
         if cfg.enable_lowpass and 0 < cfg.lowpass_hz < ar / 2:
             audio, lp_z = iir_ops.lowpass(audio, ar, cfg.lowpass_hz, lp_z)
     audio, notch_z = _apply_notches(audio, ar, cfg.notch_frequencies, state.notch_z)
+    if cfg.enable_noise_reduction:
+        audio = noise_ops.spectral_noise_reduction(audio, cfg.noise_reduction_db)
     audio = ops.soft_clip(ops.rms_normalize(audio, cfg.target_rms))
     return audio, NbfmState(state.disc_prev, deemph, hp_z, lp_z, notch_z, rs_tail)
 
 
 def nbfm_demod(iq: torch.Tensor, state: NbfmState, cfg: NbfmConfig):
     """Narrowband FM voice -> audio; discriminator scaled to max deviation."""
-    check_supported(cfg)
+    if cfg.enable_noise_blanker:
+        iq = noise_ops.noise_blanker(iq, cfg.noise_blanker_threshold_db)
     fm, disc_prev = ops.quadrature_demod(
         iq, cfg.sample_rate, state.disc_prev, max_deviation_hz=cfg.max_deviation_hz,
         atan_impl="fast" if cfg.fast_discriminator else "exact",
@@ -253,7 +251,6 @@ class AmState(NamedTuple):
 
 
 def am_init(cfg: AmConfig, device: DeviceLike = None) -> AmState:
-    check_supported(cfg)
     dev = resolve_device(device)
     return AmState(
         hp_z=ops.sos_init(iir_ops.n_sections("high", 5), device=dev),
@@ -282,8 +279,9 @@ def _voice_post(audio, hp_z, lp_z, agc, notch_z, cfg):
 
 def am_demod(iq: torch.Tensor, state: AmState, cfg: AmConfig):
     """AM envelope detection -> audio."""
-    check_supported(cfg)
     audio = ops.am_envelope(iq)
+    if cfg.enable_noise_blanker:
+        audio = noise_ops.noise_blanker(audio, cfg.noise_blanker_threshold_db)
     audio, rs_tail = ops.resample_poly_stream(audio, cfg.sample_rate, cfg.audio_rate,
                                               state.rs_tail)
     audio, hp_z, lp_z, agc, notch_z = _voice_post(
@@ -319,7 +317,6 @@ class SsbState(NamedTuple):
 
 
 def ssb_init(cfg: SsbConfig, device: DeviceLike = None) -> SsbState:
-    check_supported(cfg)
     dev = resolve_device(device)
     return SsbState(
         nco_phase=torch.zeros((), dtype=torch.uint32, device=dev),
@@ -334,11 +331,12 @@ def ssb_init(cfg: SsbConfig, device: DeviceLike = None) -> SsbState:
 def ssb_demod(iq: torch.Tensor, state: SsbState, cfg: SsbConfig):
     """SSB product detection: the fixed BFO shift (exact host tuning
     word), the real part, then the band-pass and AGC at audio rate."""
-    check_supported(cfg)
     ar = cfg.audio_rate
     shift = cfg.bfo_offset_hz if cfg.mode.lower() == "usb" else -cfg.bfo_offset_hz
     shifted, nco_phase = ops.freq_shift(iq, float(shift), cfg.sample_rate, state.nco_phase)
     audio = ops.ssb_product(shifted)
+    if cfg.enable_noise_blanker:
+        audio = noise_ops.noise_blanker(audio, cfg.noise_blanker_threshold_db)
     audio, rs_tail = ops.resample_poly_stream(audio, cfg.sample_rate, ar, state.rs_tail)
     bp_z = state.bp_z
     if cfg.enable_bandpass:
@@ -384,7 +382,6 @@ class SamState(NamedTuple):
 
 
 def sam_init(cfg: SamConfig, device: DeviceLike = None) -> SamState:
-    check_supported(cfg)
     dev = resolve_device(device)
     return SamState(
         pll=pll_ops.pll_init(device=dev),
@@ -399,7 +396,6 @@ def sam_init(cfg: SamConfig, device: DeviceLike = None) -> SamState:
 def sam_demod(iq: torch.Tensor, state: SamState, cfg: SamConfig):
     """Synchronous AM with PLL carrier recovery.  The recovered carrier
     offset in Hz is ``state.pll.freq * sample_rate / (2 pi)``."""
-    check_supported(cfg)
     coherent, pll_state = pll_ops.carrier_recovery_pll(
         iq, cfg.sample_rate, state.pll, cfg.pll_bandwidth_hz, cfg.pll_damping
     )
@@ -411,6 +407,8 @@ def sam_demod(iq: torch.Tensor, state: SamState, cfg: SamConfig):
     else:
         audio = coherent.real
     audio = audio.to(torch.float32)
+    if cfg.enable_noise_blanker:
+        audio = noise_ops.noise_blanker(audio, cfg.noise_blanker_threshold_db)
     audio, rs_tail = ops.resample_poly_stream(audio, cfg.sample_rate, cfg.audio_rate,
                                               state.rs_tail)
     audio, hp_z, lp_z, agc, notch_z = _voice_post(

@@ -11,8 +11,10 @@ version here:
 
 * K3 ``slot_frontend``: gather of the slot's channel row, the exact
   uint32 NCO shift and RSSI, then for NBFM the FM discriminator; for the
-  other modes it writes the shifted rows, which the mode's demod takes
-  (through the registry) on the whole ``(capacity, S)`` batch;
+  other modes, and for NBFM with the noise blanker (which the reference
+  runs on the shifted IQ before the discriminator), it writes the shifted
+  rows, which the mode's demod takes (through the registry) on the whole
+  ``(capacity, S)`` batch;
 * K4 ``voice_fir``: NBFM's 127-tap voice-band FIR (``filter_impl="fir"``)
   with its overlap-save carry, RMS normalization, soft clip, squelch and
   the active mask.
@@ -34,7 +36,7 @@ from .. import ops
 from ..kernels import launch
 from ..ops.channelizer import ChannelizerConfig, channelize, channelizer_init
 from ..utils.torchenv import DeviceLike, resolve_device
-from .analog import NbfmConfig, check_supported, nbfm_audio, voice_band_taps
+from .analog import NbfmConfig, nbfm_audio, voice_band_taps
 from .registry import get_demod
 
 _CLIP_GAIN = float(np.float32(1.0 / np.tanh(1.5)) * np.float32(0.95))  # soft_clip's
@@ -66,17 +68,18 @@ class ChannelAssignment(NamedTuple):
 
 
 def _check_bank(cfg: ChannelBankConfig):
-    get_demod(cfg.mode)  # raises for the reference's modes not ported yet
-    check_supported(cfg.demod_cfg)
+    get_demod(cfg.mode)  # raises for a mode neither package knows
     return cfg.demod_cfg
 
 
 def _voice_fir_path(cfg: ChannelBankConfig) -> bool:
-    """NBFM whose audio chain is the voice-band FIR alone: kernel K4."""
+    """NBFM whose audio chain is the voice-band FIR alone: kernel K4 (the
+    noise reduction sits between the FIR and the normalization)."""
     dc = cfg.demod_cfg
     return (cfg.mode.lower() == "nbfm" and dc.filter_impl == "fir"
             and (dc.enable_highpass or dc.enable_lowpass)
-            and not dc.enable_deemphasis and not dc.notch_frequencies)
+            and not dc.enable_deemphasis and not dc.notch_frequencies
+            and not dc.enable_noise_reduction)
 
 
 def assignment_init(capacity: int, device: DeviceLike = None) -> ChannelAssignment:
@@ -119,8 +122,9 @@ def _on(t: torch.Tensor, device: torch.device, dtype: torch.dtype, shape: tuple,
 
 
 def _k3_mode(cfg: ChannelBankConfig) -> int:
-    """K3's output: 0 exact discriminator, 1 fast, 2 the shifted rows."""
-    if cfg.mode.lower() != "nbfm":
+    """K3's output: 0 exact discriminator, 1 fast, 2 the shifted rows (every
+    mode but NBFM, and NBFM that blanks its IQ before the discriminator)."""
+    if cfg.mode.lower() != "nbfm" or cfg.demod_cfg.enable_noise_blanker:
         return 2
     return 1 if cfg.demod_cfg.fast_discriminator else 0
 
@@ -248,7 +252,7 @@ def bank_demod_step(
     """
     dc = _check_bank(cfg)
     ds = state.demod_states
-    if cfg.mode.lower() == "nbfm":
+    if _k3_mode(cfg) != 2:  # NBFM: K3 runs the discriminator
         fm, rssi, nco_phase, disc_prev = slot_frontend(
             chans, assign, state.nco_phase, ds.disc_prev, cfg
         )

@@ -13,7 +13,9 @@ steps, and the interleave and transpose to ``(M, S)``.
 
 Two kernels carry it on the card, each with its plain version here:
 
-* K1 ``unpack_arms``: the packed i16-pair words (or complex samples) and
+* K1 ``unpack_arms``: the packed transport words (i16 pairs in int32
+  words; the adaptive i8 pairs in int16 and i4 nibble pairs in int8
+  words, with the block's f32 scale on the card) or complex samples, and
   the history in, both parity stacks (and the unpacked block) out;
 * K2 ``arm_dft``: the factored matmul DFT across arms with the twiddle,
   sign, interleave and transpose.
@@ -163,23 +165,62 @@ def _unpack_i16_words(words: torch.Tensor) -> torch.Tensor:
     return torch.complex(lo.to(torch.float32) * s, hi.to(torch.float32) * s)
 
 
-def _check_block(x: torch.Tensor, hist: torch.Tensor, m: int, t: int) -> None:
+def _unpack_i8_words(words: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Adaptive-i8 pairs in int16 words (low byte I) -> complex64 times the
+    block's f32 ``scale`` (a tensor, so the card never hands it back)."""
+    lo = ((words & 0xFF) ^ 0x80) - 0x80
+    hi = words >> 8
+    return torch.complex(lo.to(torch.float32) * scale, hi.to(torch.float32) * scale)
+
+
+def _unpack_i4_words(words: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Adaptive-i4 nibble pairs in int8 words (low nibble I) -> complex64
+    times the block's f32 ``scale``."""
+    lo = ((words & 0xF) ^ 0x8) - 0x8
+    hi = words >> 4
+    return torch.complex(lo.to(torch.float32) * scale, hi.to(torch.float32) * scale)
+
+
+# word dtype -> K1's source kind (0 is complex64 samples)
+_WORD_KINDS = {torch.int32: 1, torch.int16: 2, torch.int8: 3}
+
+
+def unpack_words(words: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Transport words -> complex64: int32 i16 pairs, or int16 / int8
+    adaptive words with their block ``scale``."""
+    if words.dtype == torch.int32:
+        return _unpack_i16_words(words)
+    if scale is None:
+        raise ValueError(f"{words.dtype} transport words carry a scale")
+    if words.dtype == torch.int16:
+        return _unpack_i8_words(words, scale)
+    return _unpack_i4_words(words, scale)
+
+
+def _check_block(x: torch.Tensor, hist: torch.Tensor, m: int, t: int, scale) -> None:
     if x.dim() != 1 or x.shape[0] % m != 0:
         raise ValueError(f"block must be 1-D with a length that is a multiple of M={m}")
-    if x.dtype not in (torch.int32, torch.complex64):
-        raise TypeError(f"block must be int32 i16-pair words or complex64, not {x.dtype}")
+    if x.dtype not in (torch.complex64, *_WORD_KINDS):
+        raise TypeError(f"block must be transport words (int32, int16, int8) or complex64, not {x.dtype}")
+    if x.dtype in (torch.int16, torch.int8):
+        if scale is None or scale.dtype != torch.float32 or scale.numel() != 1:
+            raise ValueError(f"{x.dtype} words need their block scale as one float32 element")
+        if scale.device != x.device:
+            raise ValueError("block and scale lie on different devices")
     if hist.shape != (m * t,) or hist.dtype != torch.complex64:
         raise ValueError(f"history must be complex64 of shape ({m * t},)")
     if hist.device != x.device:
         raise ValueError("block and history lie on different devices")
 
 
-def unpack_arms_plain(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig):
+def unpack_arms_plain(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig,
+                      scale: torch.Tensor | None = None):
     """Plain version of K1: ``(x_complex, u)`` with ``u`` of shape
-    ``(2, N/M, M)`` complex64 (even stack, odd stack)."""
+    ``(2, N/M, M)`` complex64 (even stack, odd stack).  ``scale`` is the
+    adaptive i8 / i4 block's f32 scale."""
     m, t = cfg.channel_count, cfg.taps_per_channel
-    _check_block(x, hist, m, t)
-    x_c = _unpack_i16_words(x) if x.dtype == torch.int32 else x
+    _check_block(x, hist, m, t, scale)
+    x_c = x if x.is_complex() else unpack_words(x, scale)
     r_steps = x_c.shape[-1] // m
     arms = _arms_rev(m, t, cfg.cutoff_scale, x_c.device)
     x_ext = torch.cat([hist, x_c])
@@ -194,28 +235,28 @@ def unpack_arms_plain(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfi
     return x_c, torch.stack([parity_stack(1), parity_stack(1 + m // 2)])
 
 
-def unpack_arms(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig):
+def unpack_arms(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig,
+                scale: torch.Tensor | None = None):
     """K1: ``(x_complex, u)``; see :func:`unpack_arms_plain`.
 
     On a CUDA tensor this launches the kernel (which also writes the
-    unpacked block for word input); only a CPU tensor takes the plain
-    version."""
+    unpacked block for word input and reads ``scale`` on the card); only a
+    CPU tensor takes the plain version."""
     if x.device.type == "cpu":
-        return unpack_arms_plain(x, hist, cfg)
+        return unpack_arms_plain(x, hist, cfg, scale)
     m, t = cfg.channel_count, cfg.taps_per_channel
-    _check_block(x, hist, m, t)
+    _check_block(x, hist, m, t, scale)
     if not (x.is_contiguous() and hist.is_contiguous()):
         raise ValueError("K1 takes contiguous tensors")
     n = x.shape[0]
     r_steps = n // m
     u = torch.empty((2, r_steps, m), dtype=torch.complex64, device=x.device)
-    words = x.dtype == torch.int32
-    x_c = torch.empty(n, dtype=torch.complex64, device=x.device) if words else x
+    kind = _WORD_KINDS.get(x.dtype, 0)
+    x_c = torch.empty(n, dtype=torch.complex64, device=x.device) if kind else x
     arms = _arms_rev(m, t, cfg.cutoff_scale, x.device)
     launch(
-        "K1_unpack_arms", x.device,
-        x if words else None, None if words else x, hist, arms, u,
-        x_c if words else None, m, t, r_steps,
+        "K1_unpack_arms", x.device, x, kind, scale if kind >= 2 else None, hist, arms, u,
+        x_c if kind else None, m, t, r_steps,
     )
     return x_c, u
 
@@ -273,10 +314,11 @@ def arm_dft(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
 # --- the channelizer ---------------------------------------------------------
 
 
-def _channelize(x: torch.Tensor, state: torch.Tensor, cfg: ChannelizerConfig):
-    """``(x_complex, channels, state)`` for complex or i16-word input."""
+def _channelize(x: torch.Tensor, state: torch.Tensor, cfg: ChannelizerConfig,
+                scale: torch.Tensor | None = None):
+    """``(x_complex, channels, state)`` for complex or transport-word input."""
     m, t = cfg.channel_count, cfg.taps_per_channel
-    x_c, u = unpack_arms(x, state, cfg)
+    x_c, u = unpack_arms(x, state, cfg, scale)
     chans = arm_dft(u, cfg) if cfg._use_matmul_dft() else _fft_arms(u, cfg)
     h = m * t
     n = x_c.shape[-1]

@@ -14,6 +14,8 @@ the reference bit for bit.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -33,10 +35,22 @@ def _i64_to_u32(x: torch.Tensor) -> torch.Tensor:
     return (x & _MASK).to(torch.uint32)
 
 
+@lru_cache(maxsize=256)
+def _u32_const(value: int, device: torch.device) -> torch.Tensor:
+    """A host constant on ``device``, uploaded once: a fresh upload per block
+    would be a host sync per call on the card."""
+    return torch.tensor(value, dtype=torch.uint32, device=device)
+
+
+@lru_cache(maxsize=8)
+def _rad_per_count(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_RAD_PER_COUNT, device=device)
+
+
 def _as_u32(value, device: torch.device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device=device, dtype=torch.uint32)
-    return torch.tensor(int(value) & _MASK, dtype=torch.uint32, device=device)
+    return _u32_const(int(value) & _MASK, torch.device(device))
 
 
 def tuning_word(offset_hz, sample_rate: float, device: DeviceLike = None) -> torch.Tensor:
@@ -49,7 +63,7 @@ def tuning_word(offset_hz, sample_rate: float, device: DeviceLike = None) -> tor
     fs = float(sample_rate)
     if isinstance(offset_hz, (int, float)):
         word = int(round((float(offset_hz) / fs) * _TURN)) & _MASK
-        return torch.tensor(word, dtype=torch.uint32, device=resolve_device(device))
+        return _u32_const(word, resolve_device(device))
     off = offset_hz.to(torch.float32)
     # tensor / tensor: an IEEE f32 division, as the reference's
     frac = torch.remainder(off / torch.full_like(off, fs), 1.0)
@@ -67,8 +81,7 @@ def nco_phases(n: int, dphi_u32: torch.Tensor, phase0_u32: torch.Tensor) -> torc
     """
     idx = torch.arange(n, dtype=torch.int64, device=dphi_u32.device)
     acc = (_u32_to_i64(phase0_u32)[..., None] + idx * _u32_to_i64(dphi_u32)[..., None]) & _MASK
-    rad = torch.tensor(_RAD_PER_COUNT, device=acc.device)
-    return acc.to(torch.float32) * rad
+    return acc.to(torch.float32) * _rad_per_count(acc.device)
 
 
 def _next_phase(phase0_u32: torch.Tensor, n: int, dphi_u32: torch.Tensor) -> torch.Tensor:
