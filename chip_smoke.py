@@ -29,7 +29,15 @@ It drives the port's paths at full width:
   ``Capture`` with pinned staging and fetch buffers, a copy stream and
   event polling, the i16 / i8 / i4 transports (K1 unpacks all three), the
   noise blanker (K11a) and spectral noise reduction (K11b) in the analog
-  banks and the wide slots, and the listener-gated audio fetch.
+  banks and the wide slots, and the listener-gated audio fetch;
+* the P25 programs again with the per-symbol timing scans
+  (``WAVECAP_P25_TIMING=scan``: K12s, K13s);
+* the multi-device mesh on 8 shards of the card
+  (``WAVECAP_TORCH_DEVICE_COUNT=8``, ``stream=1,time=8``): the engine
+  (program E: program D's scene, five banks over every bin, two wide
+  slots, i16 / i8 / i4) and P25 (program F: program A's scene), with
+  K15's exchanges (the halo, the re-shard, the wide IF and history
+  gathers) as device copies.
 
 Phases:
 
@@ -43,18 +51,21 @@ Phases:
    and K2 at M = 80 and M = 38 (unfactorable) against their plain versions;
    K11a, K11b and K1 on the adaptive i8 and i4 words at program D's
    shapes; K6 (the spectrum on cuFFT) and K8 (``pack_wire``) timed;
+   last, K12s and K13s at programs A, B and C's shapes (dead air, and
+   positions past both ends of the reference's clamp), with their
+   serial-chain estimates;
 3. the first slice: a fake 10 Msps receiver with NBFM stations on known
-   bins, 8 consecutive blocks through ``pack_i16_words`` -> upload ->
+   bins, 6 consecutive blocks through ``pack_i16_words`` -> upload ->
    ``capture_multi`` (800 active slots) -> ``unpack_wire``: each station's
    1 kHz tone, the squelch of empty slots, one launch of each of K1-K4
    per block, and the first block against the plain path on the card;
 4. the mixed-analog capture: two stations per narrow mode and one WBFM
-   station, 8 blocks the same way: every station's 1 kHz tone, the
+   station, 6 blocks the same way: every station's 1 kHz tone, the
    squelch of empty slots, the launch count of each kernel that the
    configuration implies, the first two blocks against the plain path on
    the card, the wire within 1 LSB; warm ms per block;
 5. program A: six looped C4FM stations (one 2 kHz off its bin centre) and
-   three NBFM stations, 8 blocks: every station's hard decisions against
+   three NBFM stations, 6 blocks: every station's hard decisions against
    its transmitted dibits from block 3 on (>= 99.5 %), the NBFM tones,
    empty slots at the noise floor, exact launch counts, the first two
    blocks against the plain path, the wire soft within half an i8 LSB;
@@ -67,14 +78,29 @@ Phases:
    Msps, ``create_channel`` for every slot of five banks of 160 (``nbfm``;
    ``nbfm`` with the noise blanker and noise reduction; ``am``, ``usb``
    and ``sam`` with the blanker) and two WBFM slots with both options,
-   ``warmup``, ``start``, 12 blocks (4 each at i16, i8, i4), 32 audio
+   ``warmup``, ``start``, 9 blocks (3 each at i16, i8, i4), 32 audio
    fetch slots a bank: the capture running throughout, every kernel's
    launches, station lines, squelch, the blanker against pulses and the
    noise reduction on a weak voice-like station, the published audio
    against the kernels' output (half an LSB) and the plain path (>= 50
    dB) from the engine's own blocks, the gated rows, pinned buffers;
    block latency, the engine's stage times, host syncs, peak memory;
-8. a JSON line of the kernels and the final ``{"ok": true, ...}`` line.
+8. programs A, B and C with the scan timing: the same floors, K12s once
+   a block in A, K13s once in B and twice in C, the block timing never;
+9. program E, the engine on the mesh: program D's stations through
+   ``create_channel`` on a ``stream=1,time=8`` capture (one frequency a
+   bin; the grid runs five banks over all 800 bins), 9 blocks at i16 /
+   i8 / i4: exact launches a block a shard and K15's copies, station
+   lines, silent empty bins, the engine's words through a time=1 mesh
+   against time=8 (>= 60 dB on every open bin) and through the slot-bank
+   program (>= 50 dB), 0 host syncs, latency, memory; then K15's
+   exchanges at E's shapes against their plain versions (exact), timed;
+10. program F, P25 on the mesh: program A's scene at time=8 (M = 400, 50
+    bins a shard, 0.24 s blocks), the NBFM base bank and the C4FM bank
+    over every bin: the six stations' decisions from block 3 on (>= 99.5
+    %), the NBFM lines, launches and copies;
+11. a JSON line of the kernels (K15 with its copies and bytes) and the
+    final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
@@ -95,7 +121,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 SEED = 20261016
-N_BLOCKS = 8
+N_BLOCKS = 6
 MODE = ("nbfm", (("filter_impl", "fir"), ("fast_discriminator", True)))
 # (bin, fine offset Hz) of the fake receiver's NBFM stations: 1 kHz tone,
 # 4 kHz deviation, amplitude 0.1 each
@@ -242,6 +268,7 @@ def plain_kernels():
             (agc, "envelope", agc.envelope_plain), (pll, "_loop", pll._loop_plain),
             (c4fm, "c4fm_timing", c4fm.c4fm_timing_plain),
             (cqpsk, "cqpsk_timing", cqpsk.cqpsk_timing_plain),
+            (c4fm, "c4fm_scan", c4fm.c4fm_scan_plain), (cqpsk, "cqpsk_scan", cqpsk.cqpsk_scan_plain),
             (cqpsk, "cfo_lines", cqpsk.cfo_lines_plain),
             (eqz, "echo_fit", eqz.echo_fit_plain), (eqz, "echo_score", eqz.echo_score_plain),
         ):
@@ -1587,8 +1614,9 @@ def warm_ms(cfg, device, words, ctl, sync) -> tuple:
     return (time.perf_counter() - t0) * 1e3 / n, one_pass
 
 
-def run_program_a(cfg, device, sync=None) -> dict:
-    """Program A: C4FM at the BASELINE point (50 p25 + 50 nbfm slots)."""
+def run_program_a(cfg, device, sync=None, launches=None) -> dict:
+    """Program A: C4FM at the BASELINE point (50 p25 + 50 nbfm slots);
+    ``launches`` per block, A's block-timing ones by default."""
     import torch
 
     from wavecap_tpu_torch.capture.engine import pack_i16_words
@@ -1622,7 +1650,8 @@ def run_program_a(cfg, device, sync=None) -> dict:
         p25=ctl.p25._replace(channel_index=torch.tensor(p25_bins_, dtype=torch.int32, device=device),
                              fine_offset_hz=torch.from_numpy(fine).to(device),
                              active=torch.ones(p, dtype=torch.bool, device=device)))
-    words, outs, _, wire, counts, first_s = run_capture(cfg, device, words_np, ctl, A_LAUNCHES, sync)
+    words, outs, _, wire, counts, first_s = run_capture(cfg, device, words_np, ctl, launches or A_LAUNCHES,
+                                                        sync)
 
     soft = host(outs["p25"]["soft"])
     check(np.isfinite(soft).all() and np.isfinite(wire["spectrum"]).all(), "non-finite output")
@@ -1655,8 +1684,9 @@ def run_program_a(cfg, device, sync=None) -> dict:
                 wire_soft_max_abs=wire_err, **plain)
 
 
-def run_program_bc(cfg, device, name: str, sync=None) -> dict:
-    """Program B (LSM with the simulcast equalizer) or C (Phase 2 dual rate)."""
+def run_program_bc(cfg, device, name: str, sync=None, launches=None, echo_first=P25_FIRST) -> dict:
+    """Program B (LSM with the simulcast equalizer) or C (Phase 2 dual rate);
+    the echo station's decisions are counted from block ``echo_first + 1``."""
     import torch
 
     from wavecap_tpu_torch.capture.engine import pack_i8_words, pack_i16_words
@@ -1697,7 +1727,7 @@ def run_program_bc(cfg, device, name: str, sync=None) -> dict:
             channel_index=torch.tensor(bb, dtype=torch.int32, device=device),
             fine_offset_hz=torch.from_numpy(fine).to(device),
             active=torch.ones(len(bb), dtype=torch.bool, device=device))})
-    launches = B_LAUNCHES if name == "B" else C_LAUNCHES
+    launches = launches or (B_LAUNCHES if name == "B" else C_LAUNCHES)
     words, outs, state, wire, counts, first_s = run_capture(cfg, device, words_np, ctl, launches, sync)
 
     res = dict(phase=f"program {name}", blocks=N_BLOCKS, block_size=cfg.block_size, channels=m,
@@ -1711,8 +1741,11 @@ def run_program_bc(cfg, device, name: str, sync=None) -> dict:
         check(np.isfinite(soft).all(), f"{bank} soft not finite")
         agree = {}
         for slot, d in loops.items():
-            agree[slot] = min(agreement(soft[k, slot], d) for k in range(P25_FIRST, N_BLOCKS))
-            floor = 0.95 if slot == echo_slot and bank == "p25" else 0.99
+            echo = slot == echo_slot and bank == "p25"
+            agree[slot] = min(agreement(soft[k, slot], d) for k in range(echo_first if echo else P25_FIRST, N_BLOCKS))
+            if echo:
+                res["echo_block3_decisions_right"] = agreement(soft[P25_FIRST, slot], d)
+            floor = 0.95 if echo else 0.99
             check(agree[slot] >= floor, f"{bank} station on slot {slot}: {agree[slot]:.4f} of decisions right < {floor}")
         rssi = wire[bank]["rssi"]
         empty = [i for i in range(soft.shape[1]) if i not in loops]
@@ -1756,7 +1789,7 @@ D_BANKS = (
 )
 D_WIDE_DSP = {"enable_noise_blanker": True, "enable_noise_reduction": True}
 D_LADDER = ("i16", "i8", "i4")
-D_SEGMENT = 4  # blocks per transport: 12 in all
+D_SEGMENT = 3  # blocks per transport: 9 in all
 D_AMPLITUDE = 0.05
 D_WEAK_SNR_DB = 10.0  # the weak station over the fake receiver's noise in a 25 kHz channel
 D_GATE = (0.16, 0.08)  # the voice-like stations' 1 kHz tone: gate period, on time (s)
@@ -2034,12 +2067,21 @@ def engine_kernel_checks(device, c: int = 160, n_block: int = 1_968_000, m: int 
              "spectrum": dev(np.zeros((1, 2, 2048), np.float32)),
              "wide": {(): {"audio": dev(rng.uniform(-1, 1, (1, 2, n_audio)).astype(np.float32)),
                            "rssi": dev(np.zeros((1, 2), np.float32))}}}
-    for name, fn, what in (
-        ("K6_spectrum", lambda: ops.spectrogram_sampled(xb, 2048, n_out=2), f"({n_block},) complex64, 2 frames"),
-        ("K8_pack_wire", lambda: pack_wire(out_d), f"{len(D_BANKS)} banks x {D_FETCH_SLOTS} gated rows + 2 wide"),
+    # bytes bounds: the spectrum reads its 16 sampled frames and writes 2
+    # spectra; pack_wire reads every leaf and writes the packed buffer
+    wire_bytes = int(pack_wire(out_d).numel())
+    leaf_bytes = sum(t.numel() * t.element_size() for t in (
+        [v for b in rows_d.values() for v in b.values()] + [out_d["rssi"], out_d["spectrum"]]
+        + list(out_d["wide"][()].values())))
+    for name, fn, what, nbytes in (
+        ("K6_spectrum", lambda: ops.spectrogram_sampled(xb, 2048, n_out=2), f"({n_block},) complex64, 2 frames",
+         16 * 2048 * 8 + 2 * 2048 * 4),
+        ("K8_pack_wire", lambda: pack_wire(out_d), f"{len(D_BANKS)} banks x {D_FETCH_SLOTS} gated rows + 2 wide",
+         leaf_bytes + wire_bytes),
     ):
         cases.append(dict(name=name, case=what, route="torch", ms=timer(fn), launches_per_call=launches_per_call(fn),
-                          wall_ms=time_ms(fn)))
+                          wall_ms=time_ms(fn), bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                          bound_by="bytes"))
     return [lines[k] for k in ("K11a_noise_blanker", "K11b_nr_frames", "K11b_nr_gain", "K11b_nr_overlap_add")], cases
 
 
@@ -2265,6 +2307,592 @@ def run_engine(device, fs: int = 10_000_000, c: int = 160, n_blocks: int = 3 * D
                 pinned_buffers=len(pinned))
 
 
+# --- the per-symbol P25 timing scans (K12s, K13s): kernel checks and programs ----------
+
+# the scans' launches in place of the block timing's
+A_SCAN_LAUNCHES = {**A_LAUNCHES, "K12_c4fm_timing": 0, "K12s_c4fm_scan": 1}
+B_SCAN_LAUNCHES = {**B_LAUNCHES, "K13_cqpsk_timing": 0, "K13s_cqpsk_scan": 1}
+C_SCAN_LAUNCHES = {**C_LAUNCHES, "K13_cqpsk_timing": 0, "K13s_cqpsk_scan": 2}
+# the scan's dependent chain per symbol, read from p25_scan.cu's loop: floor,
+# clamp, address, two shared-memory loads, the lerps, the Gardner error's
+# IEEE division, four clips and the position update, ~130 SM cycles
+SCAN_CYCLES = 130
+
+
+def scan_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_hz=None):
+    """K12s and K13s against their plain versions at programs A, B and C's
+    shapes: station rows, a dead-air row, a row whose position starts
+    below the first sample (the clamp at 0) and one whose clock runs past
+    the last (the clamp at len - 2).  Dibits equal; soft within 1e-3 and
+    the carried state within 1e-3 (the plain mean(filt) sums in another
+    order, and the loop walks an ulp a little).  Returns ``(lines, cases)``."""
+    import torch
+
+    from wavecap_tpu_torch.capture.pipeline import p25_cfg_for, p25p2_cfg_for
+    from wavecap_tpu_torch.models.p25 import c4fm, cqpsk
+    from wavecap_tpu_torch.models.p25.c4fm import timing_consts
+
+    clock_hz = clock_hz or sm_clock_hz()
+    rng = np.random.default_rng(SEED + 8)
+    lines, cases = {}, []
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def clamp_rows(st, sps_, cqpsk_: bool, c):
+        st = st.copy()
+        st[0, 0], st[1, 0] = 0.3, sps_  # y_mid reads before the first sample
+        st[0, 1], st[1, 1], st[2, 1] = 64.0 + sps_ + 5.0, c.fmax, c.integ_hi  # runs past the end
+        return st
+
+    def case(name, kfn, pfn, rows_np, st_np, n_sym, cfg, what, source, replaces, item):
+        buf, st = dev(rows_np), dev(st_np)
+        s_k, d_k, o_k = (host(v) for v in kfn(buf, st, n_sym, cfg))
+        s_p, d_p, o_p = (host(v) for v in pfn(buf, st, n_sym, cfg))
+        check(np.array_equal(d_k, d_p), f"{name} ({what}): dibits differ from the plain version "
+              f"({int((d_k != d_p).sum())} of {d_k.size})")
+        err_soft, err_state = max_abs(s_p, s_k), float(np.max(np.abs(o_k - o_p)))
+        check(err_soft <= 1e-3 and err_state <= 1e-3,
+              f"{name} ({what}): soft off by {err_soft:.3g}, state by {err_state:.3g} (<= 1e-3)")
+        rows, length = rows_np.shape
+        b, f = bound(rows * (length * item + n_sym * 5 + 48), rows * 60.0 * n_sym)
+        k = dict(name=name, case=what, route="cuda", source=source, replaces=replaces, max_abs_err=err_soft,
+                 state_max_abs=err_state, bound_ms=b, bound_by=f,
+                 chain_ms=n_sym * SCAN_CYCLES / clock_hz * 1e3, chain_cycles_per_symbol=SCAN_CYCLES,
+                 ms=timer(lambda: kfn(buf, st, n_sym, cfg), "scan_kernel"),
+                 wrapper_ms=wall_timer(lambda: kfn(buf, st, n_sym, cfg)),
+                 # the plain loop is ~20 launches a symbol: its wall time, 3 calls
+                 plain_ms=time_ms(lambda: pfn(buf, st, n_sym, cfg), reps=3),
+                 plain_note="wall time between CUDA events (the Python loop over symbols)",
+                 library_ms=None, library_note="no single PyTorch call runs a timing loop")
+        cases.append(k)
+        lines.setdefault(name, k)
+
+    src = "wavecap_tpu_torch/kernels/csrc/p25_scan.cu"
+    ca = p25_cfg_for(cfgs["A"])
+    n_a = 2 * cfgs["A"].block_size // cfgs["A"].channelizer().channel_count
+    rows_a = cfgs["A"].p25_capacity
+    c = timing_consts(ca.sps, ca.max_clock_ppm, 0.005)
+    st = timing_state(rng, rows_a, ca.sps, cqpsk=False)
+    st[5] = rng.uniform(-3, 3, rows_a)  # the last raw symbol, which the scan reads
+    case("K12s_c4fm_scan", c4fm.c4fm_scan, c4fm.c4fm_scan_plain, c4fm_rows(rng, rows_a, 64 + n_a, ca.sample_rate),
+         clamp_rows(st, ca.sps, False, c), c4fm.n_symbols_per_block(ca, n_a), ca,
+         f"program A: ({rows_a}, {64 + n_a}) f32 -> {c4fm.n_symbols_per_block(ca, n_a)} symbols", src,
+         "wavecap_tpu/models/p25/c4fm.py:268-337 (the step :281-290, the scan :294)", 4)
+    n_b = 2 * cfgs["B"].block_size // cfgs["B"].channelizer().channel_count
+    for cfg_q, rows, what in ((p25_cfg_for(cfgs["B"]), cfgs["B"].p25_capacity, "program B, 4800 baud"),
+                              (p25p2_cfg_for(cfgs["C"]), cfgs["C"].p25p2_capacity, "program C, 6000 baud")):
+        c = timing_consts(cfg_q.sps, cfg_q.max_clock_ppm, 0.002)
+        n_sym = cqpsk.n_symbols_per_block(cfg_q, n_b)
+        case("K13s_cqpsk_scan", cqpsk.cqpsk_scan, cqpsk.cqpsk_scan_plain,
+             cqpsk_rows(rng, rows, 64 + n_b, cfg_q.sample_rate, cfg_q.symbol_rate, cfg_q.rrc_alpha),
+             clamp_rows(timing_state(rng, rows, cfg_q.sps, cqpsk=True), cfg_q.sps, True, c), n_sym, cfg_q,
+             f"{what}: ({rows}, {64 + n_b}) c64 -> {n_sym} symbols", src,
+             "wavecap_tpu/models/p25/cqpsk.py:346-373 (gains, interp, step) + :453-457 (the scan)", 8)
+    return [lines["K12s_c4fm_scan"], lines["K13s_cqpsk_scan"]], cases
+
+
+@contextlib.contextmanager
+def scan_timing():
+    """``WAVECAP_P25_TIMING=scan`` while the programs' configs are built and run."""
+    import os
+
+    os.environ["WAVECAP_P25_TIMING"] = "scan"
+    try:
+        yield
+    finally:
+        del os.environ["WAVECAP_P25_TIMING"]
+
+
+def run_scan_programs(cfgs, device) -> list:
+    """Programs A, B and C with the scan timing: the same scenes and floors."""
+    with scan_timing():
+        # B's echo station from block 4 on: its equalizer engages in block 3
+        # (two decisive fits), and the per-symbol loop, at 0.5 % of the
+        # symbol rate, settles to the new taps' delay within the next block
+        # (the block timing within the block): the reference's own scan
+        # reads 0.9139 there on this scene, as the port's plain version
+        out = [run_program_a(cfgs["A"], device, launches=A_SCAN_LAUNCHES),
+               run_program_bc(cfgs["B"], device, "B", launches=B_SCAN_LAUNCHES, echo_first=P25_FIRST + 1),
+               run_program_bc(cfgs["C"], device, "C", launches=C_SCAN_LAUNCHES)]
+    for r in out:
+        r["phase"] += " (scan timing)"
+    return out
+
+
+# --- the mesh: K15, program E (the engine) and program F (P25) --------------------------
+
+MESH_SPEC = "stream=1,time=8"
+MESH_SHARDS = 8
+
+
+def on_mesh(shards, fn):
+    """``fn()`` with every shard's stream after the caller's work so far
+    and the caller's after every shard's (a mesh step's fork and join)."""
+    from wavecap_tpu_torch.parallel import Shard
+
+    caller = Shard.current(shards[0].device)
+    fork = caller.record()
+    for sh in shards:
+        sh.wait(fork)
+    out = fn()
+    for sh in shards:
+        caller.wait(sh.record())
+    return out
+
+
+def k15_checks(device, m: int, taps: int, n_block: int, wide_n: int, wide_rows: int, copies: dict,
+               timer=device_ms):
+    """K15's exchanges on 8 shards of the card at program E's shapes, each
+    against its plain version (one device, one stream: clone, cat, stack)
+    exactly, and timed: the halo (7 tails of M*T), the re-shard (8 x (M,
+    S_local) -> 8 x (M/8, S)), the wide IF gather (8 x (W, n/8/decim) to the
+    first shard) and the history (one tail).  ``copies`` holds program E's
+    per-block copy counts; bytes and the bound are those of one block."""
+    import torch
+
+    from wavecap_tpu_torch import parallel as tpar
+    from wavecap_tpu_torch.capture.mesh import build_mesh
+
+    rng = np.random.default_rng(SEED + 9)
+    shards = build_mesh(MESH_SPEC, device).shards[0]
+    n = len(shards)
+    h, s_local, mb = m * taps, 2 * n_block // n // m, m // n
+
+    def on(shape, sh):
+        a = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        with sh.use():
+            return torch.from_numpy(a).to(sh.device)
+
+    tails = [on((h,), sh) for sh in shards]
+    blocks = [on((m, s_local), sh) for sh in shards]
+    decs = [on((wide_rows, wide_n), sh) for sh in shards]
+    torch.cuda.synchronize()
+    ex = {
+        "halo": (lambda: tpar.ppermute(tails, shards, [(i, i + 1) for i in range(n - 1)], label="check")[1:],
+                 lambda: [t.clone() for t in tails[:-1]]),
+        "reshard": (lambda: tpar.all_to_all_tiled(blocks, shards, label="check"),
+                    lambda: [torch.cat([b[d * mb:(d + 1) * mb] for b in blocks], dim=1) for d in range(n)]),
+        "wide_if": (lambda: [tpar.all_gather(decs, shards, to=shards[0], label="check")],
+                    lambda: [torch.stack(decs)]),
+        "history": (lambda: tpar.ppermute(tails, shards, [(n - 1, 0)], label="check")[:1],
+                    lambda: [tails[-1].clone()]),
+    }
+    parts, total_ms, plain_ms, total_bytes = {}, 0.0, 0.0, 0
+    for label, (fn, plain) in ex.items():
+        got = on_mesh(shards, fn)
+        torch.cuda.synchronize()
+        want = plain()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"K15 {label} differs from its plain version")
+        nbytes = copies[label]["bytes"]
+        ms = timer(lambda: on_mesh(shards, fn))
+        p_ms = timer(plain)
+        parts[label] = dict(copies=copies[label]["copies"], bytes=nbytes, ms=ms, plain_ms=p_ms,
+                            bound_ms=2 * nbytes / PEAK_BYTES_PER_S * 1e3,
+                            wall_ms=time_ms(lambda: on_mesh(shards, fn)))
+        total_ms += ms
+        plain_ms += p_ms
+        total_bytes += nbytes
+    return dict(name="K15_exchanges", route="cuda", source="wavecap_tpu_torch/parallel/collectives.py",
+                replaces="wavecap_tpu/parallel/sharded.py:218-236 (ppermute halo, all_to_all), :271, :354 "
+                         "(all_gather)",
+                max_abs_err=0.0, ms=total_ms, plain_ms=plain_ms, bound_ms=2 * total_bytes / PEAK_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None, bytes_per_block=total_bytes,
+                copies_per_block=sum(p["copies"] for p in parts.values()), parts=parts,
+                note="8 shards on one card: device-to-device copies; copies between distinct cards "
+                     "(NVLink peer copies) are not measured, there is one card")
+
+
+def mesh_channels(cap, lay: dict) -> dict:
+    """Program E's channels, one frequency a bin: the steady 1 kHz stations
+    and two empty listened bins of ``nbfm``, ``am``, ``usb`` and ``sam``
+    (program D's banks 0, 2, 3, 4), the pulsed and the weak voice-like
+    stations in the ``nbfm`` bank with the blanker and noise reduction
+    (bank 1; the weak one squelch-open), and the two WBFM slots."""
+    from wavecap_tpu_torch.capture import ChannelSpec
+
+    ch = cap._channelizer
+    handles = {}
+    for k, (mode, dsp) in enumerate(D_BANKS):
+        slots = ([(lay["pulse"], SQUELCH_DB), (lay["weak"], None)] if k == 1 else
+                 [(s, SQUELCH_DB) for s in (*lay["tone"], *lay["empty"])])
+        for s, sq in slots:
+            b = lay["base"][k] + s
+            handles[(k, s)] = cap.create_channel(ChannelSpec(
+                id=f"b{k}s{s}", mode=mode, frequency_hz=D_CENTER + ch.channel_offset_hz(b), squelch_db=sq,
+                dsp=dict(dsp)))
+    for j, b in enumerate(lay["wide"]):
+        handles[("w", j)] = cap.create_channel(ChannelSpec(
+            id=f"w{j}", mode="wbfm", frequency_hz=D_CENTER + ch.channel_offset_hz(b),
+            squelch_db=D_WIDE_SQUELCH_DB, dsp=dict(D_WIDE_DSP)))
+    return handles
+
+
+def mesh_launches(n: int) -> dict:
+    """Program E's kernel launches a block on ``n`` shards: K1, K2 and K3
+    (the grid's shift and RSSI of every bin) once a shard; every bank a
+    shard as program D's banks (K5 5, K9 12, K10 1, K11a 4, K11b 1); K7 the
+    wide decimator a shard; the wide group's demod once (K5, K9 2, K11a,
+    K11b)."""
+    per_shard = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 1, "K5_resample_poly": 5,
+                 "K7_strided_fir": 1, "K9_iir_cascade": 12, "K10_pll": 1, "K11a_noise_blanker": 4,
+                 "K11b_nr_frames": 1, "K11b_nr_gain": 1, "K11b_nr_overlap_add": 1}
+    wide = {"K5_resample_poly": 1, "K9_iir_cascade": 2, "K11a_noise_blanker": 1, "K11b_nr_frames": 1,
+            "K11b_nr_gain": 1, "K11b_nr_overlap_add": 1}
+    return {k: n * v + wide.get(k, 0) for k, v in per_shard.items()}
+
+
+def mesh_copies(n: int, scaled: bool, wide_groups: int, out_leaves: int, wide_leaves: int) -> dict:
+    """K15's copies a block on ``n`` shards, by label."""
+    return {"scatter": n * (2 if scaled else 1), "halo": n - 1, "reshard": n * n,
+            "wide_if": n * wide_groups, "history": 1, "outputs": n * out_leaves + wide_leaves}
+
+
+def audio_vs(ref: np.ndarray, got: np.ndarray, floor: float, what: str) -> float:
+    """The worst SNR of ``got``'s rows against ``ref``'s where ``ref`` is
+    open; silent where ``ref`` is."""
+    worst = float("inf")
+    for i in range(ref.shape[0]):
+        if np.abs(ref[i]).max() == 0:
+            check(not got[i].any(), f"{what}: row {i} open where the reference is silent")
+            continue
+        worst = min(worst, snr_db(ref[i], got[i]))
+    check(worst >= floor, f"{what}: {worst:.1f} dB < {floor}")
+    return worst
+
+
+def slot_bank_program(pipe_cfg, cap, handles: dict, device):
+    """Program D's slot-bank program on program E's channels: one slot a
+    channel in its group's bank (bin, fine offset, squelch), the wide
+    slots as the mesh's; ``(cfg, ctl, slot_of)``."""
+    import dataclasses
+
+    import torch
+
+    from wavecap_tpu_torch.capture import pipeline as pl
+
+    cfg = dataclasses.replace(pipe_cfg, audio_fetch_slots=0)
+    ctl = pl.control_init(cfg, device=device)
+    arrays = {g: {f: getattr(ctl.banks[g], f).clone() for f in ctl.banks[g]._fields} for g in cfg.narrow_modes}
+    slot_of, used = {}, {g: 0 for g in cfg.narrow_modes}
+    ch = cap._channelizer
+    for key, h in handles.items():
+        if key[0] == "w":
+            continue
+        g = h.mode_group
+        slot = used[g]
+        used[g] += 1
+        off = h.spec.frequency_hz - D_CENTER
+        arrays[g]["channel_index"][slot] = ch.channel_index(off)
+        arrays[g]["fine_offset_hz"][slot] = off - ch.channel_offset_hz(ch.channel_index(off))
+        arrays[g]["active"][slot] = True
+        arrays[g]["squelch_db"][slot] = -1e9 if h.spec.squelch_db is None else h.spec.squelch_db
+        slot_of[key] = slot
+    banks = {g: pl.ChannelAssignment(**a) for g, a in arrays.items()}
+    wide = {}
+    for g in cfg.wide_groups:
+        w = pl.wide_assignment_init(cfg.wide_capacity, device=device)
+        off, act, sq = w.offset_hz.clone(), w.active.clone(), w.squelch_db.clone()
+        for key, h in handles.items():
+            if key[0] == "w" and h.mode_group[1] == g:
+                off[h.slot] = h.spec.frequency_hz - D_CENTER
+                act[h.slot] = True
+                sq[h.slot] = h.spec.squelch_db
+        wide[g] = pl.WideAssignment(off, act, sq)
+    return cfg, ctl._replace(banks=banks, wide=wide or None, audio_sel=None), slot_of
+
+
+def run_engine_mesh(device, fs: int = 10_000_000, c: int = 160, n_blocks: int = 3 * D_SEGMENT,
+                    sync=None) -> dict:
+    """Program E: the engine on the mesh.  ``CaptureManager`` ->
+    ``create_capture(CaptureConfig(mesh="stream=1,time=8"))`` over program
+    D's scene, 8 shards of the card (``WAVECAP_TORCH_DEVICE_COUNT=8``),
+    ``create_channel`` for program D's stations in its five narrow groups
+    (the grid runs five banks over all M bins) and two WBFM slots;
+    ``warmup``, ``start``, ``n_blocks`` stepping i16 -> i8 -> i4.  Then the
+    checks: the launches and K15's copies a block, the station lines,
+    silent empty bins, the engine's words through a time=1 mesh against
+    time=8 (>= 60 dB on every open bin), the stations against the
+    slot-bank program on the same words (>= 50 dB), 0 host syncs, memory,
+    latency."""
+    import os
+
+    import torch
+
+    from wavecap_tpu_torch.capture import CaptureConfig, CaptureManager
+    from wavecap_tpu_torch.capture import mesh as mesh_mod
+    from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from wavecap_tpu_torch.parallel import copy_counts, reset_copy_counts
+
+    os.environ["WAVECAP_TORCH_DEVICE_COUNT"] = str(MESH_SHARDS)
+    sync = sync or torch.cuda.synchronize
+    lay = engine_layout(c)
+    m = int(fs / 12_500) - int(fs / 12_500) % 2
+    cfg = CaptureConfig(center_hz=D_CENTER, sample_rate=fs, channel_bandwidth=12_500.0, block_seconds=0.2,
+                        narrow_capacity=c, wide_capacity=2, p25_capacity=0, audio_rate=48_000, fft_size=2048,
+                        transport="i16", adaptive_transport=True, pipeline_depth=1, blocks_per_dispatch=1,
+                        mesh=MESH_SPEC)
+    mgr = CaptureManager(engine_scene(fs, m, lay), device=device)
+    cap = mgr.create_capture(config=cfg)
+    handles = mesh_channels(cap, lay)
+    subs = {key: h.audio.subscribe(maxsize=4 * n_blocks) for key, h in handles.items()}
+    iq_sub = cap.iq_subs.subscribe(maxsize=n_blocks + 4)
+    t0 = time.perf_counter()
+    w = cap.warmup()
+    w.join(timeout=900)
+    warm_s = time.perf_counter() - t0
+    check(not w.is_alive() and cap.warmup_error is None, f"warmup failed: {cap.warmup_error}")
+    real = cap._dispatch_blocks
+    sent = [0]
+
+    def dispatch(blocks):
+        if sent[0] >= n_blocks:
+            cap._stop.wait()
+            return
+        cap.transport_active = D_LADDER[sent[0] // D_SEGMENT]
+        sent[0] += 1
+        real(blocks)
+
+    cap._dispatch_blocks = dispatch
+    reset_launch_counts()
+    reset_copy_counts()
+    torch.cuda.reset_peak_memory_stats()
+    states = set()
+    t0 = time.perf_counter()
+    cap.start()
+    try:
+        while cap.blocks_processed < n_blocks and time.perf_counter() - t0 < 600:
+            if cap.state != "starting":
+                states.add(cap.state)
+            time.sleep(0.005)
+        run_s = time.perf_counter() - t0
+        states.add(cap.state)
+        counts, copies = launch_counts(), copy_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+    finally:
+        cap.stop()
+    check(states == {"running"}, f"capture states {states}: error {cap.error}")
+    check(cap.blocks_processed == n_blocks, f"{cap.blocks_processed} blocks processed, not {n_blocks}")
+    per_block = mesh_launches(MESH_SHARDS)
+    want = {k: n_blocks * per_block.get(k, 0) for k in counts}
+    check(counts == want, f"launch counts {counts} != {want}")
+    n_wide = len(cap._pipe_cfg.wide_groups)
+    want_copies = {}
+    for k in range(n_blocks):
+        for label, v in mesh_copies(MESH_SHARDS, D_LADDER[k // D_SEGMENT] != "i16", n_wide, 2, 2 * n_wide).items():
+            want_copies[label] = want_copies.get(label, 0) + v
+    got_copies = {k: v["copies"] for k, v in copies.items()}
+    check(got_copies == want_copies, f"K15 copies {got_copies} != {want_copies}")
+
+    blocks = []
+    while (b := iq_sub.get_nowait()) is not None:
+        blocks.append(b)
+    check(len(blocks) == n_blocks, f"{len(blocks)} IQ blocks published, not {n_blocks}")
+    audio = {}
+    for key, sub in subs.items():
+        got = []
+        while (a := sub.get_nowait()) is not None:
+            got.append(a)
+        audio[key] = got
+        check(len(got) == n_blocks and all(np.isfinite(a).all() for a in got), f"channel {key}: audio")
+
+    # the stations' lines per transport segment, the empty bins silent
+    margins, line_min = {}, [float("inf")] * len(D_LADDER)
+    for seg in range(len(D_LADDER)):
+        blk = range(max(1, seg * D_SEGMENT), (seg + 1) * D_SEGMENT)
+        for key in [(k, s) for k in (0, 2, 3, 4) for s in lay["tone"]] + [("w", 0)]:
+            v = tone_margin_db(np.concatenate([audio[key][b] for b in blk]), 48_000.0)
+            margins[f"{D_LADDER[seg]}:{key[0]}:{key[1]}"] = v
+            line_min[seg] = min(line_min[seg], v)
+            check(v >= 20.0, f"{D_LADDER[seg]}: station {key} 1 kHz line {v:.1f} dB < 20")
+    for key in [(k, s) for k in (0, 2, 3, 4) for s in lay["empty"]] + [("w", 1)]:
+        check(not any(a.any() for a in audio[key]), f"empty listened channel {key}: squelch opened")
+
+    # the engine's own words through time=8 and time=1 meshes, and the
+    # slot-bank program; the published audio against the time=8 output
+    pipe_cfg, ctl8, mesh8 = cap._pipe_cfg, cap._ctl, cap._mesh
+    entry = cap._mesh_entry(pipe_cfg)
+    mesh1 = mesh_mod.build_mesh("stream=1,time=1", device)
+    chans = [h for h in handles.values()]
+    ctl1 = mesh_mod.mesh_control(pipe_cfg, chans, D_CENTER, mesh1, entry)
+    step8 = mesh_mod.mesh_capture_multi(pipe_cfg, mesh8, entry)
+    step1 = mesh_mod.mesh_capture_multi(pipe_cfg, mesh1, entry)
+    st8, st1 = mesh_mod.mesh_init(pipe_cfg, entry, mesh8), mesh_mod.mesh_init(pipe_cfg, entry, mesh1)
+    slot_cfg, slot_ctl, slot_of = slot_bank_program(pipe_cfg, cap, handles, device)
+    st_s = pipeline_init(slot_cfg, device=device)
+    worst_t1, worst_wide_t1, worst_slot, worst_wide_slot, lsb = (float("inf"),) * 4 + (0.0,)
+    for k, block in enumerate(blocks):
+        batch = _batch_on(device, *_words_for(D_LADDER[k // D_SEGMENT], block))
+        o8, st8 = step8(batch, st8, ctl8)
+        o1, st1 = step1(batch, st1, ctl1)
+        os_, st_s = capture_multi(batch, st_s, slot_ctl, slot_cfg)
+        a8, a1 = host(o8["banks"][entry]["audio"][0]), host(o1["banks"][entry]["audio"][0])
+        worst_t1 = min(worst_t1, audio_vs(a8, a1, 60.0, f"block {k}: time=1 against time=8"))
+        # the wide slots are no bins: the reference's shard NCO phases
+        # (parallel/sharded.py:257-266, copied) turn each shard's IF by a
+        # constant, which the discriminator sees at the seams; reported
+        for g in pipe_cfg.wide_groups:
+            worst_wide_t1 = min(worst_wide_t1, audio_vs(host(o8["wide"][g]["audio"][0]),
+                                                        host(o1["wide"][g]["audio"][0]), 0.0,
+                                                        f"block {k}: wide, time=1 against time=8"))
+        for key, h in handles.items():
+            if key[0] == "w":
+                row8 = host(o8["wide"][h.mode_group[1]]["audio"][0, h.slot])
+                row_s = host(os_["wide"][h.mode_group[1]]["audio"][0, h.slot])
+            else:
+                row8 = a8[h.slot]
+                row_s = host(os_["banks"][h.mode_group]["audio"][0, slot_of[key]])
+            lsb = max(lsb, float(np.max(np.abs(audio[key][k] - np.clip(row8, -1.0, 1.0)))))
+            if np.abs(row_s).max() == 0:
+                check(not row8.any(), f"channel {key} block {k}: the mesh is open where the slot banks are silent")
+                continue
+            v = snr_db(row_s, row8)
+            if key[0] == "w":
+                worst_wide_slot = min(worst_wide_slot, v)
+            else:
+                worst_slot = min(worst_slot, v)
+    check(lsb <= 0.5 / 32767 + 1e-6, f"published audio off the mesh's output by {lsb:.3g} > half an LSB")
+    check(worst_slot >= 50.0, f"mesh stations {worst_slot:.1f} dB < 50 against the slot-bank program")
+
+    syncs = {}
+    for transport in D_LADDER:
+        batch = _batch_on(device, *_words_for(transport, blocks[0]))
+        syncs[transport] = host_syncs(lambda: step8(batch, mesh_mod.mesh_init(pipe_cfg, entry, mesh8), ctl8))
+    check(all(v[0] == 0 for v in syncs.values()), f"host syncs in the mesh step: {syncs}")
+    lat = np.asarray(list(cap.block_latency_ms)[1:])
+    perf = {k: v / cap.perf["dispatches"] for k, v in cap.perf.items() if k != "dispatches"}
+    words16 = torch.from_numpy(np.concatenate([_words_for("i16", b)[0] for b in blocks[:D_SEGMENT]])).to(device)
+
+    def one_pass():
+        o, _ = step8(words16, mesh_mod.mesh_init(pipe_cfg, entry, mesh8), ctl8)
+        host(o["_packed"])
+
+    one_pass()
+    sync()
+    t0 = time.perf_counter()
+    one_pass()
+    sync()
+    direct_ms = (time.perf_counter() - t0) * 1e3 / D_SEGMENT
+    n_audio = host(o8["banks"][entry]["audio"]).shape[-1]
+    k15 = k15_checks(device, m, cap._channelizer.taps_per_channel, cap.block_size,
+                     cap.block_size // MESH_SHARDS // pipe_cfg.wide_cfg(pipe_cfg.wide_groups[0]).decim,
+                     pipe_cfg.wide_capacity,
+                     {k: {"copies": v["copies"] // n_blocks, "bytes": v["bytes"] // n_blocks}
+                      for k, v in copies.items()})
+    return dict(phase="engine on the mesh (program E)", mesh=MESH_SPEC, shards=MESH_SHARDS, blocks=n_blocks,
+                block_size=cap.block_size, channels=m, bins_per_shard=m // MESH_SHARDS, banks=len(D_BANKS),
+                listened_channels=len(handles), audio_samples_per_block=n_audio,
+                transports=[D_LADDER[k // D_SEGMENT] for k in range(n_blocks)], launches=counts,
+                launches_per_block=per_block, copies=copies, warmup_s=warm_s, run_s=run_s, states=sorted(states),
+                warm_latency_ms_p50=float(np.percentile(lat, 50)), warm_latency_ms_p95=float(np.percentile(lat, 95)),
+                latency_ms=[float(v) for v in cap.block_latency_ms], perf_ms_per_block=perf,
+                host_syncs_per_block={k: v[0] for k, v in syncs.items()},
+                peak_device_memory_bytes=int(peak_mem), direct_ms_per_block=direct_ms,
+                profile=profile_blocks(one_pass, D_SEGMENT, sync), tone_margin_db=margins,
+                line_min_db=dict(zip(D_LADDER, line_min)), time1_vs_time8_min_db=worst_t1,
+                wide_time1_vs_time8_min_db=worst_wide_t1,
+                slot_bank_min_db=worst_slot, wide_slot_bank_min_db=worst_wide_slot, wire_audio_max_abs=lsb,
+                k15=k15)
+
+
+F_BLOCK = 2_400_000  # 0.24 s: program A's 0.25 s does not split into M x 8 shards
+F_LAUNCHES_PER_SHARD = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 1, "K5_resample_poly": 1,
+                        "K7_strided_fir": 2, "K9_iir_cascade": 2, "K12_c4fm_timing": 1}
+
+
+def run_program_f(cfgs, device, sync=None) -> dict:
+    """Program F: program A's scene and geometry (10 Msps, 25 kHz bins,
+    M = 400, 50 a shard) through ``capture/mesh.py``'s
+    ``mesh_capture_multi`` at time=8: the ``nbfm`` base bank and the C4FM
+    own-output bank (``p25-soft``) over every bin; the six C4FM stations'
+    decisions from block 3 on, the NBFM lines, launches and copies."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from wavecap_tpu_torch.capture import mesh as mesh_mod
+    from wavecap_tpu_torch.capture.engine import pack_i16_words
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from wavecap_tpu_torch.parallel import copy_counts, reset_copy_counts
+    from wavecap_tpu_torch.parallel.sharded import control_from_numpy
+
+    os.environ["WAVECAP_TORCH_DEVICE_COUNT"] = str(MESH_SHARDS)
+    sync = sync or torch.cuda.synchronize
+    cfg = dataclasses.replace(cfgs["A"], block_size=F_BLOCK)
+    rng = np.random.default_rng(SEED + 4)
+    ch = cfg.channelizer()
+    m = ch.channel_count
+    p, c = cfg.p25_capacity, cfg.narrow_capacity
+    bins = p25_bins(m, p + c, 3)
+    p25_bins_, nbfm_bins = bins[:p], bins[p:]
+    loops, stations = {}, []
+    fine = np.zeros((1, m), np.float32)
+    for slot, f in A_C4FM_STATIONS:
+        d, iq = p25_loop(rng, "c4fm", cfg.sample_rate)
+        loops[p25_bins_[slot]] = d
+        fine[0, p25_bins_[slot]] = f
+        stations.append(dict(offset_hz=ch.channel_offset_hz(p25_bins_[slot]) + f, kind="iq_loop", iq_loop=iq,
+                             amplitude=P25_AMPLITUDE))
+    for slot in A_NBFM_STATIONS:
+        stations.append(dict(offset_hz=ch.channel_offset_hz(nbfm_bins[slot]), kind="nbfm", tone_hz=1000.0,
+                             deviation_hz=4000.0, amplitude=P25_AMPLITUDE))
+    stream = p25_scene(cfg, stations)
+    words_np = pack_i16_words([stream.read(cfg.block_size)[0] for _ in range(N_BLOCKS)])
+    mesh = mesh_mod.build_mesh(MESH_SPEC, device)
+    gcfg = mesh_mod.mesh_grid_cfg(cfg, "nbfm")
+    active = np.zeros((1, m), bool)
+    active[0, bins] = True
+    squelch = np.full((1, m), -1e9, np.float32)
+    squelch[0, nbfm_bins] = P25_SQUELCH_DB
+    ctl = control_from_numpy(gcfg, mesh, fine, active, squelch)
+    step = mesh_mod.mesh_capture_multi(cfg, mesh, "nbfm")
+    reset_launch_counts()
+    reset_copy_counts()
+    t0 = time.perf_counter()
+    words = torch.from_numpy(words_np).to(device)
+    outs, _ = step(words, mesh_mod.mesh_init(cfg, "nbfm", mesh), ctl)
+    host(outs["_packed"])
+    sync()
+    first_s = time.perf_counter() - t0
+    counts, copies = launch_counts(), copy_counts()
+    want = {k: N_BLOCKS * MESH_SHARDS * F_LAUNCHES_PER_SHARD.get(k, 0) for k in counts}
+    check(counts == want, f"program F launch counts {counts} != {want}")
+    want_copies = {k: N_BLOCKS * v for k, v in mesh_copies(MESH_SHARDS, False, 0, 3, 0).items() if v}
+    check({k: v["copies"] for k, v in copies.items()} == want_copies, f"program F copies {copies}")
+    soft = host(outs["p25"]["soft"])
+    check(np.isfinite(soft).all(), "program F soft not finite")
+    n_sym = soft.shape[-1]
+    check(n_sym == round(2 * F_BLOCK / m / (ch.channel_rate / 4800.0)), "soft symbols per block")
+    agree = {b: min(agreement(soft[k, b], d) for k in range(P25_FIRST, N_BLOCKS)) for b, d in loops.items()}
+    for b, a in agree.items():
+        check(a >= 0.995, f"program F: C4FM station on bin {b}: {a:.4f} of decisions right < 0.995")
+    audio = host(outs["banks"]["nbfm"]["audio"])
+    margins = {s: tone_margin_db(audio[P25_FIRST:, nbfm_bins[s]].ravel(), cfg.audio_rate) for s in A_NBFM_STATIONS}
+    for s, v in margins.items():
+        check(v >= 20.0, f"program F: NBFM station on bin {nbfm_bins[s]}: 1 kHz line only {v:.1f} dB up")
+    empty_nbfm = [nbfm_bins[i] for i in range(c) if i not in A_NBFM_STATIONS]
+    check(not audio[:, empty_nbfm].any(), "program F: an empty nbfm bin's squelch opened")
+
+    def one_pass():
+        o, _ = step(words, mesh_mod.mesh_init(cfg, "nbfm", mesh), ctl)
+        host(o["_packed"])
+
+    one_pass()
+    sync()
+    t0 = time.perf_counter()
+    one_pass()
+    sync()
+    ms_block = (time.perf_counter() - t0) * 1e3 / N_BLOCKS
+    return dict(phase="P25 on the mesh (program F)", mesh=MESH_SPEC, blocks=N_BLOCKS, block_size=F_BLOCK,
+                channels=m, bins_per_shard=m // MESH_SHARDS, symbols_per_block=n_sym, launches=counts,
+                copies=copies, first_run_s=first_s, warm_ms_per_block=ms_block,
+                msps=F_BLOCK / ms_block / 1e3, profile=profile_blocks(one_pass, N_BLOCKS, sync),
+                decisions_right={str(k): v for k, v in agree.items()},
+                nbfm_tone_margin_db={str(nbfm_bins[k]): v for k, v in margins.items()})
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -2322,6 +2950,11 @@ def main() -> int:
         for k in cases:
             log(dict(phase="kernel-case", **k))
         kernels += mixed_lines
+        # last: the scans' plain loops are ~20 launches a symbol
+        scan_lines, cases = scan_kernel_checks(p25, device)
+        for k in cases:
+            log(dict(phase="kernel-case", **k))
+        kernels += scan_lines
         for g in other_geometry_checks(device):
             log(g)
         sl = run_slice(cfg, device)
@@ -2334,29 +2967,44 @@ def main() -> int:
         log(pb)
         pc = run_program_bc(p25["C"], device, "C")
         log(pc)
+        pa_s, pb_s, pc_s = run_scan_programs(p25, device)
+        for r in (pa_s, pb_s, pc_s):
+            log(r)
         pd = run_engine(device)
         log({k: v for k, v in pd.items() if k != "latency_ms"})
         log(dict(phase="engine latency", latency_ms=pd["latency_ms"]))
+        pe = run_engine_mesh(device)
+        log({k: v for k, v in pe.items() if k not in ("latency_ms", "k15")})
+        log(dict(phase="engine on the mesh latency", latency_ms=pe["latency_ms"]))
+        log(dict(phase="kernel-case", **pe["k15"]))
+        pf = run_program_f(p25, device)
+        log(pf)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("chain_ms", "bytes_per_block", "copies_per_block")
     # each kernel's launches on its own path: K4 on the first slice's, K12
     # on program A's, K13 and K14 on program B's, K11 on the engine's
     # (program D), the others on the mixed capture's
     path = {"K4_voice_fir": sl, "K12_c4fm_timing": pa, "K13_cqpsk_timing": pb,
             "K13_cfo_lines": pb, "K14_echo_fit": pb, "K11a_noise_blanker": pd,
-            "K11b_nr_frames": pd, "K11b_nr_gain": pd, "K11b_nr_overlap_add": pd}
+            "K11b_nr_frames": pd, "K11b_nr_gain": pd, "K11b_nr_overlap_add": pd,
+            "K12s_c4fm_scan": pa_s, "K13s_cqpsk_scan": pb_s}
     for k in kernels:
         k["launches"] = path.get(k["name"], mx)["launches"][k["name"]]
         if k["launches"] == 0:
             print(f"chip_smoke: FAILED: {k['name']} was not launched on its path", file=sys.stderr)
             return 1
-    if {k["name"] for k in kernels} != set(launch_counts()):
+    # K15 on program E's path: every exchange copy of its run
+    k15 = dict(pe["k15"], launches=sum(v["copies"] for v in pe["copies"].values()))
+    kernels.append(k15)
+    if {k["name"] for k in kernels} != set(launch_counts()) | {"K15_exchanges"}:
         print("chip_smoke: FAILED: a kernel was not checked", file=sys.stderr)
         return 1
-    log({"kernels": [{key: k[key] for key in keys} for k in kernels]})
+    log({"kernels": [{**{key: k[key] for key in keys}, **{key: k[key] for key in extra if key in k}}
+                     for k in kernels]})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

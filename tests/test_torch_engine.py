@@ -259,9 +259,11 @@ class TestDispatchModes:
     def test_pipelined_depth_matches_sync(self):
         assert abs(self._run_capture(pipeline_depth=0) - 900.0) < 20
 
-    def test_mesh_raises_naming_its_item(self):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            make_manager([]).create_capture(config=CaptureConfig(**BASE, mesh="stream=1,time=8"))
+    def test_mesh_demodulates(self, monkeypatch):
+        """``CaptureConfig.mesh`` through the reader and fetch threads: the
+        grid on 8 shards of the CPU (``WAVECAP_TORCH_DEVICE_COUNT``)."""
+        monkeypatch.setenv("WAVECAP_TORCH_DEVICE_COUNT", "8")
+        assert abs(self._run_capture(mesh="stream=1,time=8") - 900.0) < 20
 
 
 class TestLiveRetune:

@@ -1,7 +1,8 @@
 """The port's P25 modems against the JAX package's, on the CPU.
 
 The plain versions of K12 (C4FM block timing), K13 (CQPSK block timing
-and the 4th-power line search) and K14 (the echo fit) run here, with K7's
+and the 4th-power line search), K12s / K13s (the per-symbol timing scans
+of ``timing_impl="scan"``) and K14 (the echo fit) run here, with K7's
 plain ``conv1d`` for the filters and the equaliser.  The same numpy
 inputs go through the reference's (unbatched) functions row by row and
 the port's batched ones.  Tolerances, each with its reason: hard
@@ -303,11 +304,66 @@ def test_resolve_cfo_alias_matches(rng):
     assert got[2] == np.float32(1000.0)
 
 
-def test_scan_timing_raises():
-    for cfg in (tc.C4fmConfig(timing_impl="scan"), tq.CqpskConfig(timing_impl="scan")):
-        init = tc.c4fm_init if isinstance(cfg, tc.C4fmConfig) else tq.cqpsk_init
-        with pytest.raises(NotImplementedError, match="K12s/K13s"):
-            init(cfg, device="cpu")
+@pytest.mark.parametrize("kind", ["c4fm", "lsm-cfo600", "phase2-6000", "lsm-equalizer-echo"])
+def test_scan_timing_matches(rng, kind):
+    """``timing_impl="scan"`` (K12s / K13s' plain versions) over 4
+    consecutive 0.1 s blocks at 48 kHz against the reference's scan: C4FM,
+    CQPSK at 4800 baud (+600 Hz CFO) and 6000 baud, and LSM behind a 70 us
+    echo with the equalizer.  Dibits equal; soft >= 50 dB and the state
+    within the file's bound (the serial loop feeds each symbol's error into
+    the next position, so the mean's other summation order walks a little)."""
+    fs, block = 48_000, 4_800
+    if kind == "c4fm":
+        rows = np.stack([c4fm_iq(rng, fs, 4 * block), c4fm_iq(rng, fs, 4 * block)])
+        args = (jc.c4fm_demodulate, jc.c4fm_init, jc.C4fmConfig(timing_impl="scan"),
+                tc.c4fm_demodulate, tc.c4fm_init, tc.C4fmConfig(timing_impl="scan"))
+    else:
+        rs, alpha, cfo, taps = {"lsm-cfo600": (4800.0, 0.2, 600.0, 0), "phase2-6000": (6000.0, 1.0, 0.0, 0),
+                                "lsm-equalizer-echo": (4800.0, 0.2, 600.0, 41)}[kind]
+        rows = np.stack([cqpsk_iq(rng, fs, 4 * block, rs, alpha, cfo, echo=taps > 0),
+                         cqpsk_iq(rng, fs, 4 * block, rs, alpha, -300.0)])
+        kw = dict(sample_rate=fs, symbol_rate=rs, rrc_alpha=alpha, equalizer_taps=taps, timing_impl="scan")
+        args = (jq.cqpsk_demodulate, jq.cqpsk_init, jq.CqpskConfig(**kw),
+                tq.cqpsk_demodulate, tq.cqpsk_init, tq.CqpskConfig(**kw))
+    out = run_both(*args, rows, block)
+    assert_blocks_match(out, f"scan {kind}")
+    # the loop acquired: the last block's decisions are a clean constellation
+    soft = out[-1][2]
+    assert np.mean(np.abs(np.abs(soft) - np.round(np.abs(soft))) < 0.5) == 1.0
+    if kind == "lsm-equalizer-echo":
+        assert int(out[-1][5].eq_hits[0]) >= 2
+
+
+@pytest.mark.parametrize("kind", ["c4fm", "cqpsk"])
+def test_scan_timing_streams_like_the_reference(rng, kind):
+    """The scan over odd block sizes (4,799 + 4,801 + 4,800) against one
+    shot of the same 14,400 samples: where the reference's split stream
+    agrees with its one-shot decisions, the port's does, symbol for
+    symbol (both packages' split and one-shot dibits equal)."""
+    fs, sizes = 48_000, (4_799, 4_801, 4_800)
+    n = sum(sizes)
+    if kind == "c4fm":
+        x = c4fm_iq(rng, fs, n)
+        jfn, jinit, jcfg = jc.c4fm_demodulate, jc.c4fm_init, jc.C4fmConfig(timing_impl="scan")
+        tfn, tinit, tcfg = tc.c4fm_demodulate, tc.c4fm_init, tc.C4fmConfig(timing_impl="scan")
+    else:
+        x = cqpsk_iq(rng, fs, n, 4800.0, 0.2, 0.0)
+        jfn, jinit, jcfg = jq.cqpsk_demodulate, jq.cqpsk_init, jq.CqpskConfig(timing_impl="scan")
+        tfn, tinit, tcfg = tq.cqpsk_demodulate, tq.cqpsk_init, tq.CqpskConfig(timing_impl="scan")
+    jst, tst, jd, td, at = jinit(jcfg), tinit(tcfg, device="cpu"), [], [], 0
+    for size in sizes:
+        _, d, jst = jfn(jnp.asarray(x[at:at + size]), jst, jcfg)
+        jd.append(np.asarray(d))
+        _, d, tst = tfn(t(x[at:at + size]), tst, tcfg)
+        td.append(d.numpy())
+        at += size
+    j_split, t_split = np.concatenate(jd), np.concatenate(td)
+    np.testing.assert_array_equal(t_split, j_split)
+    j_one = np.asarray(jfn(jnp.asarray(x), jinit(jcfg), jcfg)[1])
+    t_one = tfn(t(x), tinit(tcfg, device="cpu"), tcfg)[1].numpy()
+    np.testing.assert_array_equal(t_one, j_one)
+    k = min(len(j_one), len(j_split))
+    assert np.mean(j_split[k // 3:k] == j_one[k // 3:k]) >= 0.99
 
 
 def test_one_unbatched_row_matches_a_batch(rng):

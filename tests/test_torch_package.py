@@ -37,7 +37,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     added = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "wavecap_tpu_torch.capture.pipeline" in added
+    for name in ("wavecap_tpu_torch.capture.pipeline", "wavecap_tpu_torch.capture.mesh",
+                 "wavecap_tpu_torch.parallel.collectives", "wavecap_tpu_torch.parallel.mesh",
+                 "wavecap_tpu_torch.parallel.sharded"):
+        assert name in added
     bad = [m for m in added
            if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "wavecap_tpu"
            or m.startswith("wavecap_tpu.")]
@@ -69,8 +72,10 @@ def test_kernel_wrappers_have_no_fallback():
         "ops/agc.py": {"envelope"},
         "ops/pll.py": {"_loop"},
         "ops/noise.py": {"noise_blanker", "spectral_noise_reduction"},
-        "models/p25/c4fm.py": {"c4fm_timing", "launch_timing"},
-        "models/p25/cqpsk.py": {"cqpsk_timing", "cfo_lines"},
+        "models/p25/c4fm.py": {"c4fm_timing", "launch_timing", "c4fm_scan", "launch_scan"},
+        "models/p25/cqpsk.py": {"cqpsk_timing", "cfo_lines", "cqpsk_scan"},
+        "parallel/collectives.py": {"copy_to", "ppermute", "all_to_all_tiled", "all_gather", "scatter",
+                                    "replicate"},
         "models/p25/equalizer.py": {"echo_fit", "echo_score", "_k14"},
         "kernels/build.py": {"launch"},
     }
@@ -119,6 +124,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         call(device="cpu")
+    from wavecap_tpu_torch.capture.mesh import build_mesh
+    from wavecap_tpu_torch.parallel import make_mesh
+
+    for call in (lambda **kw: make_mesh(1, 1, **kw), lambda **kw: build_mesh("stream=1,time=1", **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        assert call(device="cpu").devices[0, 0] == torch.device("cpu")
     state = pipeline.pipeline_init(cfg, device="cpu")
     assert state.chan_state.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -148,7 +160,7 @@ def test_launch_counts_start_at_zero_and_reset():
                            "K5_resample_poly", "K7_strided_fir", "K9_iir_cascade", "K10_pll",
                            "K11a_noise_blanker", "K11b_nr_frames", "K11b_nr_gain",
                            "K11b_nr_overlap_add", "K12_c4fm_timing", "K13_cqpsk_timing",
-                           "K13_cfo_lines", "K14_echo_fit"}
+                           "K12s_c4fm_scan", "K13s_cqpsk_scan", "K13_cfo_lines", "K14_echo_fit"}
     assert not any(counts.values())
 
 

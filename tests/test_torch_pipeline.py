@@ -12,7 +12,8 @@ handed from the JAX package to the port mid-flight through
   baseband exported, 48 kHz audio.  Blocks of 20,000 samples stream every
   resampler; blocks of 20,240 send both the narrow (48/25) and the wide
   (24/125) resampler to the reference's one-shot fallback;
-* the three P25 programs at small width (1.2 Msps, 25 kHz bins): C4FM
+* the three P25 programs at small width (1.2 Msps, 25 kHz bins), with
+  the block timing and with the scan timing (``WAVECAP_P25_TIMING=scan``): C4FM
   beside an NBFM bank, LSM with the simulcast equalizer, and Phase 2's
   dual-rate capture (see the P25 section below).
 """
@@ -617,6 +618,26 @@ def test_p25_capture_multi_matches(p25_run):
             np.testing.assert_array_equal(tb.c4fm.eq_hits.numpy(), np.asarray(jb.c4fm.eq_hits))
     if name == "lsm-equalizer":
         assert int(tstate.p25.c4fm.eq_hits[0]) >= 2  # the equalizer engaged on the echo
+
+
+@pytest.mark.parametrize("name", list(P25_PROGRAMS))
+def test_p25_scan_timing_capture_matches(name, monkeypatch):
+    """``WAVECAP_P25_TIMING=scan`` picks the per-symbol timing loops (K12s,
+    K13s) for every P25 bank of both packages: each program over 3 blocks
+    of i16 words against the reference's jitted ``capture_step``."""
+    monkeypatch.setenv("WAVECAP_P25_TIMING", "scan")
+    jcfg = jpipe.CapturePipelineConfig(**p25_kw(name))
+    tcfg = tpipe.CapturePipelineConfig(**p25_kw(name))
+    assert tpipe.p25_cfg_for(tcfg).timing_impl == "scan"
+    words = pack_i16_words(p25_blocks(name, 3))
+    jctl, tctl = p25_controls(name, jcfg, tcfg)
+    step = jpipe.jit_capture_step(jcfg)
+    jstate = jpipe.pipeline_init(jcfg)
+    touts, _ = tpipe.capture_multi(torch.from_numpy(words), tpipe.pipeline_init(tcfg, device="cpu"), tctl,
+                                   tcfg)
+    for k in range(3):
+        jo, jstate = step(jnp.asarray(words[k]), jstate, jctl)
+        assert_p25_match(jax.device_get(jo), tpipe._rebuild(touts, iter(v[k] for _, v in tpipe._leaves(touts))))
 
 
 def test_p25_mid_stream_handover_through_convert(p25_run):

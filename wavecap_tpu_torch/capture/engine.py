@@ -32,6 +32,11 @@ and an ``is_ready`` sleep-poll fetch) becomes explicit CUDA objects:
 ``device="cpu"`` is asked for; there the same engine runs the plain
 versions synchronously (no streams, no pinned memory).  A kernel error
 fails the capture: nothing falls back.
+
+With ``CaptureConfig.mesh`` (``"stream=1,time=8"``) the block program is
+the mesh's (:mod:`.mesh`): channels map to channelizer bins of one grid,
+the block is uploaded to the first shard's device and the mesh step
+splits it from there; the shards' streams follow the compute stream.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from ..ops.channelizer import ChannelizerConfig
 from ..utils.broadcast import FanOut
 from ..utils.observability import ERROR_TRACKER
 from ..utils.torchenv import DeviceLike, resolve_device
+from . import mesh as mesh_mod
 from . import pipeline as pl
 from .classifier import ChannelClassifier
 
@@ -121,7 +127,8 @@ class CaptureConfig:
     blocks_per_dispatch: int = 1
     # > 0: restart the capture every N seconds (not counted as a failure)
     restart_interval_s: float = 0.0
-    # the multi-card mesh backend: not ported (ROADMAP Queue 1 item 10, K15)
+    # the multi-device mesh backend: "stream=1,time=8" shards the block over
+    # its devices (torchenv.devices); None is the single-device slot banks
     mesh: str | None = None
 
 
@@ -371,11 +378,6 @@ class Capture:
 
     def __init__(self, device: Device, config: CaptureConfig, capture_id: str | None = None,
                  torch_device: DeviceLike = None):
-        if config.mesh:
-            raise NotImplementedError(
-                "the multi-card mesh backend is not ported: ROADMAP Queue 1 item 10 "
-                "(parallel/sharded.py and capture/mesh.py, collectives K15)"
-            )
         self.id = capture_id or f"cap{next(self._ids)}"
         self.device = device
         self.config = config
@@ -466,9 +468,17 @@ class Capture:
             # whole symbols per block, or the demod slips a symbol
             for sym_rate in (4800, 6000):
                 unit = int(np.lcm(unit, cfg.sample_rate // gcd(int(cfg.sample_rate), sym_rate)))
+        min_block = unit
+        if cfg.mesh:
+            n_time = mesh_mod.parse_mesh_spec(cfg.mesh)["time"]
+            # each time shard channelizes whole M-sample steps, and its
+            # sub-block must cover the M*T halo history
+            unit = int(np.lcm(unit, m * n_time))
+            min_block = -(-(m * ch.taps_per_channel * n_time) // unit) * unit
         n = int(round(cfg.sample_rate * cfg.block_seconds))
-        self.block_size = max(unit, (n // unit) * unit)
+        self.block_size = max(min_block, unit, (n // unit) * unit)
         self._channelizer = ch
+        self._mesh = None  # built at the first mesh program rebuild
 
     # -- channel management ----------------------------------------------
 
@@ -527,6 +537,35 @@ class Capture:
             raise RuntimeError(f"no free {name} slots (capacity {cap})")
         return free[0]
 
+    def _mesh_bin(self, spec: ChannelSpec, exclude_id: str | None = None) -> int:
+        """The mesh's slot: the channelizer bin of the frequency.  Channels
+        at the same frequency may share a bin (both read the one stream);
+        two frequencies in one bin would need two fine offsets, which the
+        per-bin control cannot hold."""
+        bin_idx = self._channelizer.channel_index(spec.frequency_hz - self.config.center_hz)
+        for c in self.channels.values():
+            if (c.spec.id != exclude_id and not self._is_wide(c.mode_group) and c.slot == bin_idx
+                    and c.spec.frequency_hz != spec.frequency_hz):
+                raise ValueError(
+                    f"channelizer bin {bin_idx} already carries channel {c.spec.id!r} at "
+                    f"{c.spec.frequency_hz} Hz (mesh backend: one frequency per bin)")
+        return bin_idx
+
+    def _check_mesh_group(self, group) -> None:
+        if group == "p25p2" and self.config.p25p2_capacity <= 0:
+            raise ValueError("mesh p25p2 channels need p25p2_capacity > 0 at creation "
+                             "(enables the dual-rate grid)")
+        if group in ("p25", "p25p2") and self.config.p25_capacity <= 0:
+            # the symbol-commensurate block geometry is decided at creation
+            raise ValueError("mesh p25 channels need p25_capacity > 0 at capture creation")
+
+    def _mesh_slot(self, group, spec: ChannelSpec, exclude_id: str | None = None) -> int:
+        """Wide mesh channels take slot-bank-style slots (they run off the
+        raw stream); the others their bin."""
+        if self._is_wide(group):
+            return self._alloc_slot(group, exclude_id=exclude_id)
+        return self._mesh_bin(spec, exclude_id=exclude_id)
+
     def _check_span(self, frequency_hz: float) -> None:
         off = float(frequency_hz) - self.config.center_hz
         half = self.config.sample_rate / 2
@@ -539,7 +578,12 @@ class Capture:
                 raise ValueError(f"channel {spec.id!r} exists")
             group = self._group_for(spec)
             self._check_span(spec.frequency_hz)
-            ch = ChannelHandle(spec, group, self._alloc_slot(group))
+            if self.config.mesh:
+                self._check_mesh_group(group)
+                slot = self._mesh_slot(group, spec)
+            else:
+                slot = self._alloc_slot(group)
+            ch = ChannelHandle(spec, group, slot)
             self.channels[spec.id] = ch
             self._rebuild_pipeline_if_needed()
             self._ctl_dirty = True
@@ -573,7 +617,13 @@ class Capture:
                 cand = ChannelSpec(id=ch.spec.id, mode=new_mode or ch.spec.mode,
                                    frequency_hz=ch.spec.frequency_hz, dsp=cand_dsp)
                 group = self._group_for(cand)  # validates mode + dsp
-                if group != ch.mode_group:
+                if self.config.mesh:
+                    self._check_mesh_group(group)
+                    if self._is_wide(group) != self._is_wide(ch.mode_group):
+                        # wide <-> narrow: a wide slot <-> a bin
+                        ch.slot = self._mesh_slot(group, ch.spec, exclude_id=ch.spec.id)
+                    ch.mode_group = group
+                elif group != ch.mode_group:
                     ch.slot = self._alloc_slot(group, exclude_id=ch.spec.id)
                     ch.mode_group = group
                 ch.spec.mode = cand.mode
@@ -583,6 +633,9 @@ class Capture:
                     ch.spec.squelch_db = v  # explicit None = open squelch
                 elif v is not None and hasattr(ch.spec, k):
                     setattr(ch.spec, k, v)
+            if self.config.mesh and freq is not None and not self._is_wide(ch.mode_group):
+                # a retune re-bins the channel (a wide slot retunes by its offset)
+                ch.slot = self._mesh_bin(ch.spec, exclude_id=ch.spec.id)
             self._rebuild_pipeline_if_needed()
             self._ctl_dirty = True
             return ch
@@ -646,6 +699,9 @@ class Capture:
 
     @property
     def _audio_gated(self) -> bool:
+        # the mesh grid fetches every bin's audio: gating is the slot banks'
+        if self.config.mesh:
+            return False
         return 0 < self.config.audio_fetch_slots < self.config.narrow_capacity
 
     def _narrow_modes(self) -> tuple:
@@ -695,21 +751,46 @@ class Capture:
         if new_cfg != self._pipe_cfg:
             self._flush_pending()
             self._pipe_cfg = new_cfg
-            self._step = functools.partial(pl.capture_multi, cfg=new_cfg)
-            self._init_state = functools.partial(pl.pipeline_init, new_cfg, self.torch_device)
+            if self._on_mesh(new_cfg):
+                if self._mesh is None:
+                    self._mesh = mesh_mod.build_mesh(self.config.mesh, self.torch_device)
+                entry = self._mesh_entry(new_cfg)
+                self._step = mesh_mod.mesh_capture_multi(new_cfg, self._mesh, entry)
+                self._init_state = functools.partial(mesh_mod.mesh_init, new_cfg, entry, self._mesh)
+            else:
+                self._step = functools.partial(pl.capture_multi, cfg=new_cfg)
+                self._init_state = functools.partial(pl.pipeline_init, new_cfg, self.torch_device)
             self._reset_state()
             # tag the state with its program: an in-flight batch of the old
             # program must not write its state back over this one
             self._pipe_gen += 1
             self._program_warm = False
 
+    def _on_mesh(self, cfg: pl.CapturePipelineConfig) -> bool:
+        return bool(self.config.mesh) and bool(cfg.narrow_modes or cfg.p25_capacity or cfg.wide_groups)
+
+    @staticmethod
+    def _mesh_entry(cfg: pl.CapturePipelineConfig):
+        """The grid's base bank: the first narrow group, else "p25", else
+        None (a wide-only capture)."""
+        if cfg.narrow_modes:
+            return cfg.narrow_modes[0]
+        return "p25" if cfg.p25_capacity else None
+
     def _reset_state(self) -> None:
         with self._seam.compute():
             self._dev_state = self._init_state()
 
-    def _build_control(self) -> pl.CaptureControl:
+    def _build_control(self):
         assert self._pipe_cfg is not None
         cfg = self._pipe_cfg
+        if self._on_mesh(cfg):
+            groups = set(cfg.narrow_modes) | {("wide", g) for g in cfg.wide_groups}
+            if cfg.p25_capacity or cfg.p25p2_capacity:
+                groups |= {"p25", "p25p2"}  # the base bank or the own-output banks
+            chans = [c for c in self.channels.values() if c.mode_group in groups]
+            return mesh_mod.mesh_control(cfg, chans, self.config.center_hz, self._mesh,
+                                         self._mesh_entry(cfg))
         ch_cfg = self._channelizer
         dev = self.torch_device
         wide_arrays = {g: dict(off=[0.0] * cfg.wide_capacity, act=[False] * cfg.wide_capacity,
@@ -1221,6 +1302,9 @@ class Capture:
                     continue
                 if self._is_wide(ch.mode_group):
                     grp = (out.get("wide") or {}).get(ch.mode_group[1])
+                elif self.config.mesh:
+                    # the mesh grid emits one bank: each bin's bank_idx chose its mode
+                    grp = next(iter(out["banks"].values()), None)
                 else:
                     grp = out["banks"].get(ch.mode_group)
                 if grp is None:

@@ -11,6 +11,12 @@ and return the port's on the requested device, so a stream can move from
 one package to the other mid-flight.  The port's own initial state is
 the template: every leaf is taken from the reference by field name and
 must match the template's shape.
+
+The mesh's ``GridState`` / ``GridControl`` hand over the same way into
+the port's per-shard layout: each ``(n_streams, M, ...)`` leaf split over
+the mesh's time shards, the history and the wide demods onto each row's
+first shard (the wide NCO phases, replicated in the reference, onto
+every shard).
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import torch
 
 from .capture.pipeline import CaptureControl, CaptureState, CapturePipelineConfig
 from .capture.pipeline import control_init, pipeline_init
+from .parallel.mesh import Mesh
+from .parallel.sharded import GridControl, GridState, ShardedGridConfig, control_from_numpy, grid_init
 from .utils.torchenv import DeviceLike, resolve_device
 
 
@@ -66,3 +74,51 @@ def capture_control_from_numpy(
     and the listener-selected ``audio_sel`` rows) as the port's."""
     dev = resolve_device(device)
     return _fill(control_init(cfg, device=dev), tree, "control")
+
+
+def _map(tree, fn):
+    """``fn`` on every numpy leaf of a reference pytree (NamedTuples,
+    tuples, dicts)."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(v, fn) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map(v, fn) for v in tree)
+    if tree is None:
+        return None
+    return fn(np.asarray(tree))
+
+
+def grid_state_from_numpy(cfg: ShardedGridConfig, mesh: Mesh, tree) -> GridState:
+    """The reference's mesh ``GridState`` (leaves ``(n_streams, ...)``) as
+    the port's on ``mesh``."""
+    n_streams, n_time = mesh.shape["stream"], mesh.shape["time"]
+    mb = cfg.channelizer.channel_count // n_time
+
+    def shards(bins_tree):
+        return tuple(tuple(_map(bins_tree, lambda a, r=r, t=t: a[r, t * mb:(t + 1) * mb])
+                           for t in range(n_time)) for r in range(n_streams))
+
+    wide = _field(tree, "wide")
+    src = GridState(
+        hist=tuple(np.asarray(_field(tree, "hist"))[r] for r in range(n_streams)),
+        demod_states=shards(_field(tree, "demod_states")),
+        nco_phase=shards(_field(tree, "nco_phase")),
+        demod_states2=tuple(shards(d) for d in _field(tree, "demod_states2")),
+        demod_states_extra=tuple(shards(d) for d in _field(tree, "demod_states_extra")),
+        wide=None if wide is None else tuple(
+            {gk: {"nco": tuple(np.asarray(g["nco"])[r] for _ in range(n_time)),
+                  "demod": _map(g["demod"], lambda a, r=r: a[r])} for gk, g in wide.items()}
+            for r in range(n_streams)),
+    )
+    return _fill(grid_init(cfg, mesh), src, "grid state")
+
+
+def grid_control_from_numpy(cfg: ShardedGridConfig, mesh: Mesh, tree) -> GridControl:
+    """The reference's mesh ``GridControl`` (``(n_streams, M)`` leaves and
+    the wide groups' ``(n_streams, W)``) as the port's on ``mesh``."""
+    wide = _field(tree, "wide")
+    return control_from_numpy(cfg, mesh, _field(tree, "fine_offset_hz"), _field(tree, "active"),
+                              _field(tree, "squelch_db"), _field(tree, "bank_idx"),
+                              None if wide is None else _map(wide, lambda a: a))

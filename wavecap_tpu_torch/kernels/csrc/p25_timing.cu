@@ -36,38 +36,21 @@
 // every pass after the first reads on-chip; each reduction's scalar
 // result is broadcast to every thread, which then computes the next step
 // redundantly instead of waiting on a single thread.
-#include "common.cuh"
+#include "p25_common.cuh"
 
 namespace {
 
+using namespace p25;
+
 constexpr int kThreads = 512;
-constexpr int kTail = 64;  // INTERP_TAIL
 constexpr float kNegTwoPi = static_cast<float>(-6.283185307179586);
 constexpr float kTwoPi = static_cast<float>(6.283185307179586);
-constexpr float kQuarterPi = static_cast<float>(0.7853981633974483);
-
-struct Consts {
-    float sps, fmin, fmax, integ_lo, integ_hi, half, recenter_hi, lock;
-};
-
-__device__ __forceinline__ float clip(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 
 // jnp.mod / torch.remainder: the remainder takes the divisor's sign
 __device__ __forceinline__ float floor_mod(float x, float y) {
     float r = fmodf(x, y);
     if (r != 0.f && ((r < 0.f) != (y < 0.f))) r = __fadd_rn(r, y);
     return r;
-}
-
-__device__ __forceinline__ float lerp(float a, float b, float fr) {
-    return __fadd_rn(__fmul_rn(a, __fsub_rn(1.f, fr)), __fmul_rn(b, fr));
-}
-__device__ __forceinline__ float2 lerp(float2 a, float2 b, float fr) {
-    return make_float2(lerp(a.x, b.x, fr), lerp(a.y, b.y, fr));
-}
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float2 sub(float2 a, float2 b) {
-    return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
 }
 
 // the interpolated row at p, clipped to [0, hi] as the reference does
@@ -83,17 +66,6 @@ __device__ __forceinline__ float power(float v) { return __fmul_rn(v, v); }
 __device__ __forceinline__ float power(float2 v) {
     const float m = hypotf(v.x, v.y);  // jnp.abs(y) ** 2
     return __fmul_rn(m, m);
-}
-
-// one term of the Gardner discriminant: (y0 - y1) ym, or Re(conj(ym) (y0 - y1))
-__device__ __forceinline__ float gardner_term(float d, float ym) { return __fmul_rn(d, ym); }
-__device__ __forceinline__ float gardner_term(float2 d, float2 ym) {
-    return __fadd_rn(__fmul_rn(ym.x, d.x), __fmul_rn(ym.y, d.y));
-}
-
-__device__ __forceinline__ unsigned char to_dibit(float s) {
-    const bool outer = fabsf(s) >= 2.f;
-    return s >= 0.f ? (outer ? 1 : 0) : (outer ? 3 : 2);
 }
 
 template <typename V, bool kCqpsk>
@@ -214,66 +186,30 @@ timing_kernel(const V* __restrict__ rows_in, const float* __restrict__ st, float
 
     // --- every symbol along the corrected ramp
     const float mid = 0.5f * static_cast<float>(n_sym);
-    float acc = 0.f;
     for (int m = tid; m < n_sym; m += bs) {
         const float ramp =
             __fadd_rn(delta, __fmul_rn(slope, __fsub_rn(static_cast<float>(m), mid)));
-        const V y = sample(__fadd_rn(at(m, 0.f), ramp));
-        sym[m] = y;
-        if constexpr (!kCqpsk) acc += fabsf(y);
+        sym[m] = sample(__fadd_rn(at(m, 0.f), ramp));
     }
     __syncthreads();
 
-    float pos_next = __fsub_rn(
-        __fadd_rn(__fadd_rn(pos, delta), __fmul_rn(static_cast<float>(n_sym), freq_next)),
-        static_cast<float>(len - kTail));
-    if (pos_next < 4.f) pos_next = __fadd_rn(pos_next, c.sps);
-    if (pos_next > c.recenter_hi) pos_next = __fsub_rn(pos_next, c.sps);
+    const float pos_next = recenter(
+        __fadd_rn(__fadd_rn(pos, delta), __fmul_rn(static_cast<float>(n_sym), freq_next)), len, c);
     float* srow = soft + static_cast<long long>(r) * n_sym;
     unsigned char* drow = dibits + static_cast<long long>(r) * n_sym;
-
+    float vals[6];
     if constexpr (!kCqpsk) {
-        // blockwise amplitude normalization and the slow gain EMA
-        acc = block_sum(acc, scratch);
-        const float scale = __fdiv_rn(2.f, fmaxf(__fdiv_rn(acc, static_cast<float>(n_sym)), 0.05f));
-        float gain = s3 < 0.01f ? scale : __fadd_rn(__fmul_rn(0.95f, s3), __fmul_rn(0.05f, scale));
-        gain = clip(gain, 0.05f, 40.f);
-        for (int m = tid; m < n_sym; m += bs) {
-            const float v = __fmul_rn(sym[m], gain);
-            srow[m] = v;
-            drow[m] = to_dibit(v);
-        }
-        if (tid == 0) {
-            const float vals[6] = {pos_next, freq_next, integ, gain, dc0, sym[n_sym - 1]};
-            for (int q = 0; q < 6; ++q) out[q * rows + r] = vals[q];
-        }
+        const float gain = c4fm_gain(sym, n_sym, s3, srow, drow, scratch);
+        const float v[6] = {pos_next, freq_next, integ, gain, dc0, sym[n_sym - 1]};
+        for (int q = 0; q < 6; ++q) vals[q] = v[q];
     } else {
-        // differential phase detection and the pi/4 bias tracker
-        const float bias_in = s3;
-        const float2 prev = make_float2(s4, s5);
-        for (int m = tid; m < n_sym; m += bs) {
-            const float2 s = sym[m];
-            const float2 p = m > 0 ? sym[m - 1] : prev;
-            const float zr = __fadd_rn(__fmul_rn(s.x, p.x), __fmul_rn(s.y, p.y));
-            const float zi = __fsub_rn(__fmul_rn(s.y, p.x), __fmul_rn(s.x, p.y));
-            const float d = atan2f(zi, zr);
-            dph[m] = d;
-            const float q = clip(rintf(__fdiv_rn(__fsub_rn(d, bias_in), kQuarterPi)), -3.f, 3.f);
-            acc += __fsub_rn(__fsub_rn(d, bias_in), __fmul_rn(q, kQuarterPi));
-        }
-        acc = block_sum(acc, scratch);  // its barriers also publish dph
-        const float bias =
-            __fadd_rn(bias_in, __fmul_rn(0.02f, __fdiv_rn(acc, static_cast<float>(n_sym))));
-        for (int m = tid; m < n_sym; m += bs) {
-            const float v = __fdiv_rn(__fsub_rn(dph[m], bias), kQuarterPi);
-            srow[m] = v;
-            drow[m] = to_dibit(v);
-        }
-        if (tid == 0) {
-            const float2 last = sym[n_sym - 1];
-            const float vals[6] = {pos_next, freq_next, integ, bias, last.x, last.y};
-            for (int q = 0; q < 6; ++q) out[q * rows + r] = vals[q];
-        }
+        const float bias = cqpsk_detect(sym, dph, n_sym, make_float2(s4, s5), s3, srow, drow, scratch);
+        const float2 last = sym[n_sym - 1];
+        const float v[6] = {pos_next, freq_next, integ, bias, last.x, last.y};
+        for (int q = 0; q < 6; ++q) vals[q] = v[q];
+    }
+    if (tid == 0) {
+        for (int q = 0; q < 6; ++q) out[q * rows + r] = vals[q];
     }
 }
 

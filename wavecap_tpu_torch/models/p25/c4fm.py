@@ -6,14 +6,15 @@ complex FIR), the baseband low-pass (K7), the FM discriminator, the RRC
 matched filter (K7), then block timing recovery (K12): an Oerder-Meyr
 |x|^2 line at the symbol rate for the clock error, lock and a coarse
 phase, two Newton steps on a block-averaged Gardner discriminant, and
-one gather of every symbol along the corrected ramp.  Block continuity
-is explicit state (filter tails, discriminator carry, a tail of filtered
-samples, the fractional timing position).
+one gather of every symbol along the corrected ramp.  With
+``timing_impl="scan"`` (``WAVECAP_P25_TIMING=scan``) the per-symbol
+Gardner loop takes its place (K12s).  Block continuity is explicit state
+(filter tails, discriminator carry, a tail of filtered samples, the
+fractional timing position).
 
 The demod is batched over a leading slot axis: ``iq`` is ``(R, n)`` and
 every state leaf has a leading ``R`` (one row, ``(n,)`` with unbatched
-state, also works).  The per-symbol scan timing (``timing_impl="scan"``)
-is not ported yet and raises.
+state, also works).
 
 Deviation map (TIA-102.BAAA): dibit 01 -> +3 (+1800 Hz), 00 -> +1
 (+600 Hz), 10 -> -1, 11 -> -3.
@@ -46,15 +47,7 @@ DIBIT_SYMBOLS = np.array([1.0, 3.0, -1.0, -3.0], np.float32)
 # f32 constants as the reference's traced arithmetic rounds them
 _TWO_PI = float(np.float32(2.0 * np.pi))
 _NEG_TWO_PI = float(np.float32(-2.0 * np.pi))
-_SMEM_LIMIT = 200 * 1024  # bytes of shared memory K12 and K13 ask for, at most
-
-
-def _check_timing(cfg) -> None:
-    if cfg.timing_impl != "block":
-        raise NotImplementedError(
-            "the per-symbol scan timing (timing_impl='scan', WAVECAP_P25_TIMING=scan) is "
-            "ROADMAP Queue 2 K12s/K13s"
-        )
+_SMEM_LIMIT = 200 * 1024  # bytes of shared memory K12, K13, K12s and K13s ask for, at most
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +105,7 @@ class C4fmConfig:
     rrc_alpha: float = 0.2
     loop_bandwidth: float = 0.005  # fraction of symbol rate
     max_clock_ppm: float = 2000.0
-    timing_impl: str = "block"  # "block" (K12); "scan" is not ported yet
+    timing_impl: str = "block"  # "block" (K12) or "scan" (the per-symbol loop, K12s)
     # simulcast echo-fit MMSE equalizer on the raw IQ (equalizer.py); 0 disables
     equalizer_taps: int = 0
     eq_lambda: float = 0.01
@@ -173,7 +166,6 @@ def _c4fm_eq_grid(sample_rate: int, max_delay: int, device: torch.device) -> eqz
 
 
 def c4fm_init(cfg: C4fmConfig, device: DeviceLike = None) -> C4fmState:
-    _check_timing(cfg)
     dev = resolve_device(device)
     lpf = design_baseband_lpf(float(cfg.sample_rate))
     rrc = design_rrc(float(cfg.sample_rate), cfg.rrc_alpha)
@@ -230,7 +222,6 @@ def c4fm_demodulate(iq: torch.Tensor, state: C4fmState, cfg: C4fmConfig, eq_enab
     restarts the echo fit); None means unguarded."""
     if iq.dim() == 1:
         return _one_row(c4fm_demodulate, iq, state, cfg, eq_enable)
-    _check_timing(cfg)
     fs = float(cfg.sample_rate)
     dev = iq.device
     lpf, rrc = _filters_on(fs, cfg.rrc_alpha, dev)
@@ -256,7 +247,8 @@ def c4fm_demodulate(iq: torch.Tensor, state: C4fmState, cfg: C4fmConfig, eq_enab
     filt, rrc_tail = ops.fir_filter(fm, rrc, state.rrc_tail)
     buf = torch.cat([state.interp_tail, filt], dim=-1)
     n_sym = n_symbols_per_block(cfg, iq.shape[-1])
-    soft, dibits, out = c4fm_timing(buf, _timing_state(state), n_sym, cfg)
+    timing = c4fm_timing if cfg.timing_impl == "block" else c4fm_scan
+    soft, dibits, out = timing(buf, _timing_state(state), n_sym, cfg)
     pos, freq, integ, gain, dc, prev = out
     new_state = C4fmState(
         lpf_tail=lpf_tail, disc_prev=disc_prev, rrc_tail=rrc_tail,
@@ -278,9 +270,10 @@ def _engage(est, sig, allowed, hits, cfg):
 
 
 def _timing_state(state: C4fmState) -> torch.Tensor:
-    """K12's carried scalars, ``(6, R)`` f32: pos, freq, integrator, gain, dc."""
-    z = torch.zeros_like(state.pos)
-    return torch.stack([state.pos, state.freq, state.integrator, state.gain, state.dc, z])
+    """K12's and K12s' carried scalars, ``(6, R)`` f32: pos, freq,
+    integrator, gain, dc and the last raw symbol (which only the scan reads)."""
+    return torch.stack([state.pos, state.freq, state.integrator, state.gain, state.dc,
+                        state.prev_soft])
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +435,7 @@ def c4fm_timing(buf, st, n_sym: int, cfg: C4fmConfig):
                          timing_consts(cfg.sps, cfg.max_clock_ppm, 0.005))
 
 
-def _loop_gains(cfg: C4fmConfig):
+def _loop_gains(cfg):
     # standard 2nd-order PI loop, damping 0.707
     bw = cfg.loop_bandwidth
     zeta = 0.707
@@ -450,6 +443,118 @@ def _loop_gains(cfg: C4fmConfig):
     alpha = 4 * zeta * bw / denom
     beta = 4 * bw * bw / denom
     return float(alpha), float(beta)
+
+
+# ---------------------------------------------------------------------------
+# K12s: the per-symbol Gardner scan
+# ---------------------------------------------------------------------------
+
+
+def interp_clamped(buf, p):
+    """Linear interpolation of each row at ``p`` as the reference's scan
+    reads it: ``dynamic_slice(buf, (i0,), (2,))`` clamps the start to
+    ``[0, len - 2]`` while the fraction uses the unclamped ``i0`` (the
+    block branch clips ``p`` instead)."""
+    f = torch.floor(p)
+    fr = p - f
+    i0 = f.clamp(0.0, float(buf.shape[-1] - 2)).to(torch.int64)[:, None]
+    return (buf.gather(1, i0) * (1.0 - fr)[:, None] + buf.gather(1, i0 + 1) * fr[:, None])[:, 0]
+
+
+def scan_loop(sample, pos, freq, integ, prev, n_sym: int, c: TimingConsts, gains, error):
+    """The reference's ``lax.scan`` of Gardner steps, one Python iteration
+    a symbol over every row at once: ``sample(p)`` reads the rows at ``p``,
+    ``error(y, y_mid, prev)`` is the clipped timing error, and the PI loop
+    moves ``integ``, ``freq`` and ``pos``.  Returns ``(syms (R, n_sym),
+    pos, freq, integ, prev)``."""
+    alpha, beta = gains
+    syms = []
+    for _ in range(n_sym):
+        y = sample(pos)
+        err = error(y, sample(pos - freq * 0.5), prev)
+        integ = (integ + beta * err).clamp(c.integ_lo, c.integ_hi)
+        freq = (c.sps + integ).clamp(c.fmin, c.fmax)
+        pos = (pos + freq) + alpha * err
+        prev = y
+        syms.append(y)
+    return torch.stack(syms, -1), pos, freq, integ, prev
+
+
+def c4fm_scan_plain(buf, st, n_sym: int, cfg: C4fmConfig):
+    """Plain version of K12s, the per-symbol timing of
+    ``timing_impl="scan"``, over rows ``buf = interp_tail ++ filt`` and the
+    carried scalars ``st`` ``(6, R)`` (pos, freq, integrator, gain, dc,
+    the last raw symbol).  Returns ``(soft, dibits, out)``, ``out`` as
+    :func:`c4fm_timing_plain`'s."""
+    c = timing_consts(cfg.sps, cfg.max_clock_ppm, 0.005)
+    pos, freq, integ, gain_in, _, prev = (st[k] for k in range(6))
+    dc0 = _scan_dc(buf, st)
+    # the previous block's amplitude: gain is a soft-output multiplier
+    amp_prev = torch.where(gain_in < 0.01, torch.full_like(gain_in, 2.0),
+                           2.0 / gain_in.clamp_min(0.05))
+    den = amp_prev * amp_prev
+
+    def sample(p):
+        return interp_clamped(buf, p) - dc0
+
+    def error(y, y_mid, prev):
+        # Gardner's timing error on the 4-level waveform
+        return ((prev - y) * y_mid / den).clamp(-2.0, 2.0)
+
+    raw, pos, freq, integ, _ = scan_loop(sample, pos, freq, integ, prev, n_sym, c,
+                                         _loop_gains(cfg), error)
+    block_scale = 2.0 / raw.abs().mean(-1).clamp_min(0.05)
+    gain = torch.where(gain_in < 0.01, block_scale, 0.95 * gain_in + 0.05 * block_scale)
+    gain = gain.clamp(0.05, 40.0)
+    soft = raw * gain[:, None]
+    pos_next = recenter(pos - float(buf.shape[-1] - INTERP_TAIL), c)
+    out = torch.stack([pos_next, freq, integ, gain, dc0, raw[:, -1]])
+    return soft, soft_to_dibits(soft), out
+
+
+def _scan_dc(buf, st):
+    """The scan's DC estimate, ``dc 0.9 + mean(filt) 0.1``, in torch for the
+    kernel and the plain version alike: every symbol reads it, so one ulp
+    from another summation order would walk the loop apart."""
+    return st[4] * 0.9 + buf[:, INTERP_TAIL:].mean(-1) * 0.1
+
+
+def launch_scan(name: str, buf, st, n_sym: int, c: TimingConsts, gains, dc0=None):
+    """K12s or K13s on the card: one CTA per row, its one thread walking
+    the symbols; the row is staged in shared memory where it fits.
+    ``dc0`` ``(R,)`` is C4FM's DC estimate (None for CQPSK)."""
+    dev = buf.device
+    if buf.dim() != 2 or buf.dtype not in (torch.float32, torch.complex64):
+        raise ValueError(f"{name} takes float32 or complex64 rows of shape (R, L)")
+    rows, length = buf.shape
+    if n_sym < 1 or length < 2 + INTERP_TAIL:
+        raise ValueError(f"{name} needs rows of more than {INTERP_TAIL + 1} samples and a symbol")
+    if st.shape != (6, rows):
+        raise ValueError(f"{name}'s carried state must be (6, {rows})")
+    item = buf.element_size()
+    # the symbols (and CQPSK's phase steps) always; the row where it fits
+    fixed = n_sym * item + (n_sym * 4 if buf.is_complex() else 0)
+    if fixed > _SMEM_LIMIT:
+        raise NotImplementedError(f"{name} stages {n_sym} symbols: too many")
+    staged = int(fixed + length * item <= _SMEM_LIMIT)
+    soft = torch.empty((rows, n_sym), dtype=torch.float32, device=dev)
+    dibits = torch.empty((rows, n_sym), dtype=torch.uint8, device=dev)
+    out = torch.empty((6, rows), dtype=torch.float32, device=dev)
+    alpha, beta = (float(np.float32(g)) for g in gains)
+    launch(name, dev, buf.contiguous(), st.to(device=dev, dtype=torch.float32).contiguous(),
+           None if dc0 is None else dc0.contiguous(), soft, dibits, out, rows, length, n_sym, staged, *c,
+           alpha, beta)
+    return soft, dibits, out
+
+
+def c4fm_scan(buf, st, n_sym: int, cfg: C4fmConfig):
+    """K12s: see :func:`c4fm_scan_plain`.  Only a CPU tensor takes the
+    plain version."""
+    if buf.device.type == "cpu":
+        return c4fm_scan_plain(buf, st, n_sym, cfg)
+    return launch_scan("K12s_c4fm_scan", buf, st, n_sym,
+                       timing_consts(cfg.sps, cfg.max_clock_ppm, 0.005), _loop_gains(cfg),
+                       _scan_dc(buf, st))
 
 
 def soft_to_dibits(soft: torch.Tensor) -> torch.Tensor:

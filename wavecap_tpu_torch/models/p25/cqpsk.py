@@ -7,12 +7,14 @@ K13 ``cfo_lines``), the optional simulcast equalizer (K14 fit with the
 alias resolution, K7 per-slot complex FIR), then K13 ``cqpsk_timing``:
 the block timing of the C4FM path on the complex envelope (O&M line on
 |y|^2, complex Gardner), differential detection ``y[k] conj(y[k-1])``
-and the slow bias tracker.
+and the slow bias tracker; with ``timing_impl="scan"`` the per-symbol
+complex Gardner loop (K13s) takes the block timing's place before the
+same detector.
 
 Output soft symbols use the C4FM scale (delta-phase / (pi/4) in
 {+-1, +-3}).  Phase 1 LSM (4800 baud) and Phase 2 H-DQPSK (6000 baud)
 via ``symbol_rate``.  Batched over a leading slot axis like
-``c4fm_demodulate``; the scan timing raises.
+``c4fm_demodulate``.
 """
 
 from __future__ import annotations
@@ -33,16 +35,20 @@ from . import equalizer as eqz
 from .c4fm import (
     DIBIT_SYMBOLS,
     INTERP_TAIL,
-    _check_timing,
+    TimingConsts,
     _div,
     _engage,
+    _loop_gains,
     _one_row,
     _sample,
+    interp_clamped,
+    launch_scan,
     launch_timing,
     loop_update,
     newton_phase,
     om_line,
     recenter,
+    scan_loop,
     soft_to_dibits,
     timing_consts,
 )
@@ -86,7 +92,7 @@ class CqpskConfig:
     rrc_alpha: float = 0.2  # the reference uses 1.0 for Phase 2
     loop_bandwidth: float = 0.005
     max_clock_ppm: float = 2000.0
-    timing_impl: str = "block"  # "block" (K13); "scan" is not ported yet
+    timing_impl: str = "block"  # "block" (K13) or "scan" (the per-symbol loop, K13s)
     # coarse CFO acquisition from the 4th-power spectrum; -1 = auto
     # (0.23 * symbol_rate), 0.0 disables
     cfo_max_hz: float = -1.0
@@ -129,7 +135,6 @@ class CqpskState(NamedTuple):
 
 
 def cqpsk_init(cfg: CqpskConfig, device: DeviceLike = None) -> CqpskState:
-    _check_timing(cfg)
     dev = resolve_device(device)
     rrc = design_rrc_cqpsk(float(cfg.sample_rate), cfg.symbol_rate, cfg.rrc_alpha)
     t = max(cfg.equalizer_taps, 0)
@@ -304,8 +309,14 @@ def cqpsk_timing_plain(buf, st, n_sym: int, cfg: CqpskConfig):
     slope = torch.where(sig, slope, torch.zeros_like(slope))
     integ, freq = loop_update(integ_in, slope, delta, n_sym, c)
     syms = _sample(buf, base + (delta[:, None] + slope[:, None] * (m - 0.5 * n_sym)), hi)
-    pos_next = pos + delta + n_sym * freq
+    return _detect(buf, syms, prev_sym, bias_in, pos + delta + n_sym * freq, freq, integ, c)
 
+
+def _detect(buf, syms, prev_sym, bias_in, pos_end, freq, integ, c: TimingConsts):
+    """Differential detection of the symbols ``syms`` ``(R, n_sym)`` after
+    the carried one (``prev_sym``) and the slow bias tracker, shared by
+    the block timing and the scan: ``(soft, dibits, out)``, ``out`` the
+    recentered position, freq, integrator, bias and the last symbol."""
     # differential phase detection (includes the block-boundary carry)
     prev_syms = torch.cat([prev_sym[:, None], syms[:, :-1]], dim=-1)
     z = syms * torch.conj(prev_syms)
@@ -317,9 +328,42 @@ def cqpsk_timing_plain(buf, st, n_sym: int, cfg: CqpskConfig):
     bias = bias_in + 0.02 * resid.mean(-1)
     soft = _div(dphi - bias[:, None], _QUARTER_PI)
     last = syms[:, -1]
-    out = torch.stack([recenter(pos_next - float(buf.shape[-1] - INTERP_TAIL), c), freq, integ,
+    out = torch.stack([recenter(pos_end - float(buf.shape[-1] - INTERP_TAIL), c), freq, integ,
                        bias, last.real, last.imag])
     return soft, soft_to_dibits(soft), out
+
+
+def cqpsk_scan_plain(buf, st, n_sym: int, cfg: CqpskConfig):
+    """Plain version of K13s, the per-symbol timing of
+    ``timing_impl="scan"`` (the complex Gardner loop), over complex rows
+    ``buf`` and the carried scalars ``st`` ``(6, R)``, then the block
+    branch's detector.  Returns ``(soft, dibits, out)`` as
+    :func:`cqpsk_timing_plain`."""
+    c = timing_consts(cfg.sps, cfg.max_clock_ppm, 0.002)
+    pos, freq_in, integ, bias_in = st[0], st[1], st[2], st[3]
+    prev_sym = torch.complex(st[4], st[5])
+    freq0 = torch.where(freq_in < 1.0, torch.full_like(freq_in, c.sps), freq_in)
+
+    def sample(p):
+        return interp_clamped(buf, p)
+
+    def error(y, y_mid, prev):
+        # the complex Gardner TED, Re(conj(y_mid) (prev - y))
+        d = prev - y
+        return (y_mid.real * d.real + y_mid.imag * d.imag).clamp(-2.0, 2.0)
+
+    syms, pos, freq, integ, _ = scan_loop(sample, pos, freq0, integ, prev_sym, n_sym, c,
+                                          _loop_gains(cfg), error)
+    return _detect(buf, syms, prev_sym, bias_in, pos, freq, integ, c)
+
+
+def cqpsk_scan(buf, st, n_sym: int, cfg: CqpskConfig):
+    """K13s: see :func:`cqpsk_scan_plain`.  Only a CPU tensor takes the
+    plain version."""
+    if buf.device.type == "cpu":
+        return cqpsk_scan_plain(buf, st, n_sym, cfg)
+    return launch_scan("K13s_cqpsk_scan", buf, st, n_sym,
+                       timing_consts(cfg.sps, cfg.max_clock_ppm, 0.002), _loop_gains(cfg))
 
 
 def cqpsk_timing(buf, st, n_sym: int, cfg: CqpskConfig):
@@ -340,7 +384,6 @@ def cqpsk_demodulate(iq: torch.Tensor, state: CqpskState, cfg: CqpskConfig, eq_e
     guard (False holds identity taps and restarts the echo fit)."""
     if iq.dim() == 1:
         return _one_row(cqpsk_demodulate, iq, state, cfg, eq_enable)
-    _check_timing(cfg)
     fs = float(cfg.sample_rate)
     dev = iq.device
     cfo_on = cfg.cfo_span_hz > 0
@@ -393,7 +436,8 @@ def cqpsk_demodulate(iq: torch.Tensor, state: CqpskState, cfg: CqpskConfig, eq_e
 
     buf = torch.cat([state.interp_tail, filt], dim=-1)
     n_sym = n_symbols_per_block(cfg, iq.shape[-1])
-    soft, dibits, out = cqpsk_timing(buf, _timing_state(state), n_sym, cfg)
+    timing = cqpsk_timing if cfg.timing_impl == "block" else cqpsk_scan
+    soft, dibits, out = timing(buf, _timing_state(state), n_sym, cfg)
     new_state = CqpskState(
         rrc_tail=rrc_tail, interp_tail=buf[:, -INTERP_TAIL:], pos=out[0], freq=out[1],
         integrator=out[2], prev_sym=torch.complex(out[4], out[5]), bias=out[3], cfo_hz=cfo_hz,

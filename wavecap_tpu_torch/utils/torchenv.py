@@ -8,6 +8,8 @@ for (the tests pass ``device="cpu"``).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 DeviceLike = str | torch.device | None
@@ -29,3 +31,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def devices(device: DeviceLike = None) -> list[torch.device]:
+    """The devices a mesh may take, the counterpart of ``jax.devices()``:
+    every CUDA card (``cuda:0..n-1``), or the CPU alone for ``device="cpu"``.
+
+    ``WAVECAP_TORCH_DEVICE_COUNT=n`` gives ``n`` copies of the one device
+    instead (the CPU, or the card ``device`` names), the counterpart of
+    XLA's ``--xla_force_host_platform_device_count``: a mesh of ``n``
+    shards on one device, each with its own CUDA stream, whose exchanges
+    are copies on that device.  Tests and ``chip_smoke.py`` set it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    forced = os.environ.get("WAVECAP_TORCH_DEVICE_COUNT")
+    if forced:
+        return [dev] * int(forced)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
