@@ -105,6 +105,18 @@ Phases:
 Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 It imports nothing of JAX.
+
+To time K2 and K9 against another checkout of the port on the same card::
+
+    python3 chip_smoke.py --phase2-turns OTHER_CHECKOUT [--out FILE]
+
+runs phase 2's K2 and K9 checks of OTHER_CHECKOUT's ``chip_smoke.py``
+and of this one in turns (other, this, this, other), each in its own
+process with its own kernels built from its own sources, and prints one
+JSON line a turn: the K2 records of ``kernel_checks`` (M = 800, with the
+``torch.fft`` route), K2 at M = 400 through that checkout's
+``device_ms``, K9 at 100 rows (a mesh shard's) the same way, and the
+K9 records of ``mixed_kernel_checks``.
 """
 
 from __future__ import annotations
@@ -128,6 +140,8 @@ MODE = ("nbfm", (("filter_impl", "fir"), ("fast_discriminator", True)))
 STATIONS = ((7, 0.0), (40, 0.0), (123, 800.0), (399, -500.0), (520, 0.0), (777, 300.0))
 SQUELCH_DB = -45.0  # between the noise floor (~-86 dBFS) and a station (-20 dBFS)
 FMA_CYCLES = 4  # latency of a dependent f32 multiply-add on Hopper, in SM cycles
+K2_KERNELS = ("arm_dft_kernel",)  # K2's CUDA kernels (one launch a call), for device_ms
+K9_KERNELS = ("iir_scan_kernel",)  # K9's CUDA kernels (one launch a call), for device_ms
 
 # --- the mixed-analog capture (phase 4) ---
 MIXED_MODES = ("am", "lsb", "nbfm", "sam", "usb")  # engine._narrow_modes(), sorted
@@ -372,7 +386,7 @@ def kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms) -> list[dict
         name="K2_arm_dft", route="cuda", source="wavecap_tpu_torch/kernels/csrc/arm_dft.cu",
         replaces="wavecap_tpu/ops/planar.py:106 (+ ops/channelizer.py:173)",
         max_abs_err=max_abs(host(y_p), host(y_k)), rel_l2=err,
-        ms=timer(lambda: chz.arm_dft(u_p, ch), "arm_dft_kernel"),
+        ms=timer(lambda: chz.arm_dft(u_p, ch), K2_KERNELS),
         wrapper_ms=wall_timer(lambda: chz.arm_dft(u_p, ch)),
         plain_ms=timer(lambda: chz.arm_dft_plain(u_p, ch)),
         bound_ms=b, bound_by=f,
@@ -458,15 +472,19 @@ def kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms) -> list[dict
 
 
 def other_geometry_checks(device) -> list[dict]:
-    """K1 on complex input and K2 at other M than the slice's: 80 = 8 x 10
-    (1 Msps / 12.5 kHz) and 38, which does not factor and runs 1 x 38."""
+    """K1 on complex input and K2 at the other M of the paths: 400 = 20 x 20
+    (programs A and F), 96 = 8 x 12 (B and C), 80 = 8 x 10 (1 Msps / 12.5
+    kHz) and 38, which does not factor and runs 1 x 38; and at M = 1600
+    (tiles of 2 steps), 2000 (the tables read from device memory), 4800
+    and 6250 (tiles of 1 step; the design before it reached M ~6,300)."""
     import torch
 
     from wavecap_tpu_torch.ops import channelizer as chz
 
     rng = np.random.default_rng(SEED + 1)
     results = []
-    for fs in (1_000_000.0, 475_000.0):
+    for fs in (5_000_000.0, 1_200_000.0, 1_000_000.0, 475_000.0, 20_000_000.0, 25_000_000.0,
+               60_000_000.0, 78_125_000.0):
         ch = chz.ChannelizerConfig(sample_rate=fs, channel_bandwidth=12_500.0, dft_impl="matmul")
         m, t = ch.channel_count, ch.taps_per_channel
         n = m * 301
@@ -843,6 +861,42 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
         library_ms=timer(lambda: F.conv1d(xin5, taps5.flip(0).reshape(1, 1, -1), stride=5)),
     ))
 
+    # empty and short blocks through K5's and K7's wrappers: no output, the
+    # tail and NCO phase carried as the reference carries them.  Without an
+    # NCO nothing launches; with one, K7 runs with no output tiles and
+    # writes the mixed tail and the next phase, held against the plain version
+    from wavecap_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()
+    tail24 = fir.resample_stream_init(50_000, 48_000, device=device).expand(96, -1)
+    y_e, t_e = fir.resample_poly_stream(x3[0][:, :0], 50_000, 48_000, tail24)
+    check(y_e.shape == (96, 0) and t_e is tail24, "K5 stream: an empty block is not a no-op")
+    y_e = fir.polyphase_resample(x3[0], up, down, 0, tail24, 0)
+    check(y_e.shape == (96, 0), "K5: no outputs asked, some given")
+    y_e, t_e = fir.resample_poly_stream(x5[:, :0], 240_000, 48_000, tail5)
+    check(y_e.shape == (2, 0) and torch.equal(t_e, tail5), "K7 stream: an empty block is not a no-op")
+    check(fir.conv_valid(x5[:, :10], taps5).shape == (2, 0), "K7: a row shorter than its taps gave output")
+    short = (x5[:, :7], taps5, 5, tail5[:, :50].contiguous())
+    out_k, out_p = fir.strided_fir(*short), fir.strided_fir_plain(*short)
+    check(out_k[0].shape == (2, 0) and torch.equal(out_k[1], out_p[1]),
+          "K7: a block shorter than its taps does not carry its tail")
+    check(launch_counts() == before, "an empty or short block without an NCO launched a kernel")
+    for n_short, h_len in ((5, 10), (0, t_len - 1)):
+        short = (xw[:n_short], taps, wide.decim, head[:, :h_len].contiguous(), (dphi, p0))
+        out_k, out_p = fir.strided_fir(*short), fir.strided_fir_plain(*short)
+        check(out_k[0].shape == (2, 0) and out_k[1].shape == out_p[1].shape == (2, h_len + n_short)
+              and rel_l2(host(out_p[1]), host(out_k[1])) <= 1e-6 and torch.equal(out_k[2], out_p[2]),
+              f"K7: a short block ({h_len} + {n_short} samples) with an NCO does not carry its "
+              "mixed tail and phase")
+    check(torch.equal(out_k[1], head) and torch.equal(out_k[2], p0),
+          "K7: an empty block changed the head or the NCO phase")
+    after = launch_counts()
+    check(after["K7_strided_fir"] - before["K7_strided_fir"] == 2
+          and sum(after.values()) - sum(before.values()) == 2,
+          "K7: a short block with an NCO did not launch K7 once")
+    cases.append(dict(name="K5_resample_poly", case="empty and short blocks (K5, K7 wrappers)",
+                      empty_blocks_ok=True))
+
     # K9: the mixed capture's cascades at their shapes
     k9_src, k9_rep = ("wavecap_tpu_torch/kernels/csrc/iir_cascade.cu",
                       "wavecap_tpu/ops/iir.py:88 _biquad_scan / :130 sos_filter, :40 onepole_filter "
@@ -869,10 +923,13 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
         ("notch 1 kHz", xa, iir.notch_sos(1000.0, 30.0, ar)),
         ("wide MPX low-pass 15 kHz", xw2, iir.butter_sos("low", (15000.0,), 5, ar)),
     ]
-    for case, x, sos in k9_cases:
-        rows, n_sec = x.shape[0], sos.shape[0]
-        z0 = carried(sos, rows)
-        y_k, z_k = (host(v) for v in iir.sos_filter(x, sos, z0))
+    def k9_case(case, x, sos, z0):
+        """K9's cascade on ``x`` against the plain scan and float64 scipy."""
+        rows, n_sec, n_x = x.shape[0], sos.shape[0], x.shape[-1]
+
+        def call():
+            return iir.sos_filter(x, sos, z0)
+        y_k, _ = (host(v) for v in call())
         y_p, _ = (host(v) for v in iir.sos_filter_plain(x, sos, z0))
         err = snr_db(y_p, y_k)
         check(err >= 50.0, f"K9 {case}: {err:.1f} dB < 50 against the plain scan")
@@ -880,16 +937,35 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
         ref64 = np.stack([sps.sosfilt(sos, xs[i], zi=host(z0)[i].astype(np.float64))[0] for i in range(len(xs))])
         err64 = snr_db(ref64, y_k[:4])
         check(err64 >= 55.0, f"K9 {case}: {err64:.1f} dB < 55 against float64 scipy")
-        b, f = bound(2 * rows * n_audio * 4 + 2 * rows * n_sec * 8 + n_sec * 20, 10.0 * rows * n_audio * n_sec)
-        record("K9_iir_cascade", f"{case}: {n_sec} sections, ({rows}, {n_audio})", k9_src, k9_rep,
-               None, max_abs_err=float(np.max(np.abs(y_k - y_p))), snr_vs_plain_db=err,
-               snr_vs_float64_db=err64, bound_ms=b, bound_by=f,
-               chain_ms=chain_ms(n_audio * n_sec, FMA_CYCLES, clock_hz),
-               ms=timer(lambda: iir.sos_filter(x, sos, z0), "iir_cascade_kernel"),
-               wrapper_ms=wall_timer(lambda: iir.sos_filter(x, sos, z0)),
+        ch_len, segment = iir.k9_plan(n_x)
+        b, f = bound(2 * rows * n_x * 4 + 2 * rows * n_sec * 8 + n_sec * 20, 10.0 * rows * n_x * n_sec)
+        record("K9_iir_cascade", f"{case}: {n_sec} sections, ({rows}, {n_x}), chunks of {ch_len}",
+               k9_src, k9_rep, None, max_abs_err=float(np.max(np.abs(y_k - y_p))), snr_vs_plain_db=err,
+               snr_vs_float64_db=err64, bound_ms=b, bound_by=f, chunk=ch_len, segment=segment,
+               n_mod_chunk=n_x % ch_len,
+               # one chunk's chain: L samples x sections x a dependent multiply-add pair
+               chain_ms=chain_ms(2 * ch_len * n_sec, FMA_CYCLES, clock_hz),
+               ms=timer(call, K9_KERNELS), wrapper_ms=wall_timer(call),
                # one call: the plain scan launches thousands of kernels
                plain_ms=timer(lambda: iir.sos_filter_plain(x, sos, z0), reps=1, warm=1),
                library_note="no torch op runs an IIR recurrence")
+
+    for case, x, sos in k9_cases:
+        k9_case(case, x, sos, carried(sos, x.shape[0]))
+    # the edges of the chunked scan: a mesh shard's 100 rows, 1 row, the
+    # 8-section maximum, a short row, rows of 3 segments
+    hp = iir.butter_sos("high", (300.0,), 5, ar)
+    shard_rows = min(100, c)  # program E's 800 bins over 8 shards
+    k9_case("nbfm high-pass, a shard's rows", xa[:shard_rows], hp, carried(hp, shard_rows))
+    k9_case("nbfm high-pass, one row", xa[:1], hp, carried(hp, 1))
+    lp16 = iir.butter_sos("low", (2000.0,), 16, ar)
+    k9_case("low-pass 2 kHz, 8 sections", xa, lp16, carried(lp16, c))
+    lp = iir.butter_sos("low", (3000.0,), 5, ar)
+    # k9_plan keeps chunks at ceil(segment / 256) or less, so a row is never
+    # shorter than its chunk; 50 samples run 50 chunks of 1
+    k9_case("low-pass 3 kHz, 50 samples", xa[:4, :50].contiguous(), lp, carried(lp, 4))
+    long_x = dev(np.tile(xa_np[:4], 4)[:, :30_000])
+    k9_case("low-pass 3 kHz, 3 segments", long_x, lp, carried(lp, 4))
     b0, a = iir.deemphasis_coeffs(ar)
     y0 = dev(np.array([0.1, -0.2], np.float32))
     y_k, l_k = (host(v) for v in iir.onepole_filter(xw2, b0, a, y0))
@@ -902,10 +978,10 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
     cases.append(dict(name="K9_iir_cascade", case="deemphasis 75 us one-pole, (2, %d)" % n_audio,
                       snr_vs_plain_db=err, snr_vs_float64_db=err64,
                       max_abs_err=float(np.max(np.abs(y_k - y_p))), bound_ms=b, bound_by=f,
-                      ms=timer(lambda: iir.onepole_filter(xw2, b0, a, y0), "iir_cascade_kernel"),
+                      ms=timer(lambda: iir.onepole_filter(xw2, b0, a, y0), K9_KERNELS),
                       wrapper_ms=wall_timer(lambda: iir.onepole_filter(xw2, b0, a, y0)),
                       plain_ms=timer(lambda: iir.onepole_filter_plain(xw2, b0, a, y0)),
-                      library_ms=None, chain_ms=chain_ms(n_audio, FMA_CYCLES, clock_hz)))
+                      library_ms=None, chain_ms=chain_ms(iir.k9_plan(n_audio)[0], FMA_CYCLES, clock_hz)))
     ca, cr = agc._coef(5.0, ar), agc._coef(50.0, ar)
     st = agc.AgcState(dev(np.full(c, 0.1, np.float32)), dev(np.full(c, 0.2, np.float32)))
     e_k, s_k = agc.envelope(xa, ca, cr, st)
@@ -918,10 +994,10 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
     cases.append(dict(name="K9_iir_cascade", case=f"AGC envelope, two one-poles + max, ({c}, {n_audio})",
                       snr_vs_plain_db=err, max_abs_err=float(torch.max(torch.abs(e_k - e_p))),
                       bound_ms=b, bound_by=f,
-                      ms=timer(lambda: agc.envelope(xa, ca, cr, st), "iir_cascade_kernel"),
+                      ms=timer(lambda: agc.envelope(xa, ca, cr, st), K9_KERNELS),
                       wrapper_ms=wall_timer(lambda: agc.envelope(xa, ca, cr, st)),
                       plain_ms=timer(lambda: agc.envelope_plain(xa, ca, cr, st)),
-                      library_ms=None, chain_ms=chain_ms(2 * n_audio, FMA_CYCLES, clock_hz)))
+                      library_ms=None, chain_ms=chain_ms(2 * iir.k9_plan(n_audio)[0], FMA_CYCLES, clock_hz)))
 
     # K10: SAM's carrier PLL and the Costas loop at (160, S)
     k10_src, k10_rep = ("wavecap_tpu_torch/kernels/csrc/pll.cu",
@@ -1123,7 +1199,9 @@ def run_mixed(cfg, device, sync=None) -> dict:
 def profile_blocks(one_pass, blocks: int, sync) -> dict:
     """One warm pass under torch.profiler, per block: traced wall ms, the
     card's busy ms (kernels and copies, CUPTI), its idle share, the host's
-    CPU ms and the ops with the most device time."""
+    CPU ms, the ops with the most device time, and K2's and K9's device
+    time and launches summed over all their kernels' instances (each
+    template instance is an op of its own, and may miss the top list)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1147,6 +1225,10 @@ def profile_blocks(one_pass, blocks: int, sync) -> dict:
                                        if e.device_type == DeviceType.CPU) / 1e3 / blocks,
         top_device_ms_per_block=[dict(op=e.key[:80], calls_per_block=e.count / blocks, ms=dev_ms(e))
                                  for e in top if dev_ms(e) > 0],
+        kernel_totals_per_block={
+            name: dict(ms=sum(dev_ms(e) for e in hits), launches=sum(e.count for e in hits) / blocks)
+            for name, kernels in (("K2_arm_dft", K2_KERNELS), ("K9_iir_cascade", K9_KERNELS))
+            for hits in [[e for e in on_card if any(k in e.key for k in kernels)]]},
     )
 
 
@@ -2904,12 +2986,77 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else out.stderr.strip()
 
 
-def main() -> int:
+# one turn of --phase2-turns, run in the checkout given as its argument
+PHASE2_TURN = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import chip_smoke as cs
+from wavecap_tpu_torch.kernels import build_all
+from wavecap_tpu_torch.ops import channelizer as chz, iir
+
+build_all()
+dev = torch.device("cuda")
+k2 = [k for k in cs.kernel_checks(cs.slice_config(), dev) if k["name"] == "K2_arm_dft"]
+ch = chz.ChannelizerConfig(sample_rate=10e6, channel_bandwidth=25e3, dft_impl="matmul")
+rng = np.random.default_rng(cs.SEED)
+u = torch.from_numpy((rng.standard_normal((2, 3000, 400)) + 1j * rng.standard_normal((2, 3000, 400)))
+                     .astype(np.complex64)).to(dev)
+k2.append(dict(name="K2_arm_dft", case="M = 400, 3,000 steps", ms=cs.device_ms(lambda: chz.arm_dft(u, ch),
+               ("arm_dft_kernel",)), library_ms=cs.device_ms(lambda: chz._fft_arms(u, ch))))
+x = torch.from_numpy((0.3 * rng.standard_normal((100, 9447))).astype(np.float32)).to(dev)
+hp = iir.butter_sos("high", (300.0,), 5, 48_000)
+z = torch.zeros((100, hp.shape[0], 2), device=dev)
+k9 = [dict(name="K9_iir_cascade", case="high-pass, 3 sections, (100, 9447)",
+           ms=cs.device_ms(lambda: iir.sos_filter(x, hp, z), ("iir_cascade_kernel", "iir_scan_kernel")))]
+lines, cases = cs.mixed_kernel_checks(cs.mixed_config(), dev)
+k9 += [k for k in lines + cases if k["name"] == "K9_iir_cascade"]
+print(json.dumps(dict(checkout=sys.argv[1], K2=k2, K9=k9), default=float))
+"""
+
+
+def phase2_turns(other: str, out: str | None) -> int:
+    """``--phase2-turns``: see the module's docstring."""
+    import os
+    from pathlib import Path
+
+    here = str(Path(__file__).resolve().parent)
+    other = str(Path(other).resolve())
+    card = card_line()
+    log(card)
+    lines = []
+    for root in (other, here, here, other):
+        proc = subprocess.run([sys.executable, "-c", PHASE2_TURN, root], cwd=root,
+                              env=dict(os.environ, PYTHONPATH=root), capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            print(f"chip_smoke: the turn in {root} failed\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            return 1
+        line = dict(json.loads(proc.stdout.strip().splitlines()[-1]), card=card)
+        log(line)
+        lines.append(line)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text("".join(json.dumps(line) + "\n" for line in lines))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
+    ap.add_argument("--phase2-turns", metavar="OTHER_CHECKOUT",
+                    help="time K2 and K9 of this checkout and OTHER_CHECKOUT in turns")
+    ap.add_argument("--out", help="with --phase2-turns: also write its JSON lines here")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.phase2_turns:
+        return phase2_turns(args.phase2_turns, args.out)
     try:
         from wavecap_tpu_torch.kernels import build_all, launch_counts
     except ImportError as e:

@@ -128,3 +128,89 @@ def test_short_block_history_and_bad_length():
     np.testing.assert_array_equal(new.numpy(), np.concatenate([hist.numpy(), x.numpy()])[-m * tt:])
     with pytest.raises(ValueError):
         tchz.channelize(x[:-1], hist, cfg)
+
+
+# --- K2's tables, in the kernel's layout, evaluated in numpy ------------------
+
+
+def tf32_trunc(x: np.ndarray) -> np.ndarray:
+    """The 10 mantissa bits of an f32 that the tensor cores read."""
+    return (np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def k2_emulated(u: np.ndarray, m: int, three_tf32: bool) -> np.ndarray:
+    """K2's two real GEMMs and epilogues on the host: the table buffer read
+    in the kernel's layout, products in float64, each stage's sums rounded
+    to f32.  With ``three_tf32`` the products are the kernel's: operands
+    split ``x = hi + lo`` (the tables' pairs as stored, the data with
+    ``tf32_split``), ``lo`` read to TF32, ``lo hi + hi lo + hi hi`` summed."""
+    m1, m2, k1p, n1s, k2p, n2s = tchz._k2_layout(m)
+    tab = tchz.k2_tables_np(m)
+    b1 = tab[: 2 * k1p * n1s].reshape(k1p, n1s, 2)[:, :k1p]
+    tab = tab[2 * k1p * n1s :]
+    b2 = tab[: 2 * k2p * n2s].reshape(k2p, n2s, 2)[:, :k2p]
+    tab = tab[2 * k2p * n2s :]
+    tw = tab[: 2 * m].reshape(m1, m2, 2)
+    ch = tab[2 * m :].view(np.complex64)
+
+    def gemm(a, b):
+        f = lambda p, q: p.astype(np.float64) @ q.astype(np.float64)  # noqa: E731
+        if not three_tf32:
+            return f(a, b[..., 0] + b[..., 1]).astype(np.float32)
+        ah, al = tchz.tf32_split(a)
+        bh, bl = b[..., 0], b[..., 1]
+        return (f(tf32_trunc(al), bh) + f(ah, tf32_trunc(bl)) + f(ah, bh)).astype(np.float32)
+
+    s = 2 * u.shape[1]
+    x = np.stack([u[0], u[1]], axis=1).reshape(s, m1, m2)  # out column s = 2 step + parity
+    x1 = np.zeros((s, m2, k1p), np.float32)
+    x1[:, :, 0 : 2 * m1 : 2] = x.real.transpose(0, 2, 1)
+    x1[:, :, 1 : 2 * m1 : 2] = x.imag.transpose(0, 2, 1)
+    a = gemm(x1, b1)
+    a = (a[..., 0 : 2 * m1 : 2] + 1j * a[..., 1 : 2 * m1 : 2]).transpose(0, 2, 1)  # (s, c1, k2)
+    bt = (a * (tw[..., 0] + 1j * tw[..., 1])).astype(np.complex64)
+    x2 = np.zeros((s, m1, k2p), np.float32)
+    x2[..., 0 : 2 * m2 : 2], x2[..., 1 : 2 * m2 : 2] = bt.real, bt.imag
+    y = gemm(x2, b2)
+    y = y[..., 0 : 2 * m2 : 2] + 1j * y[..., 1 : 2 * m2 : 2]  # (s, c1, c2)
+    y = y.transpose(0, 2, 1).reshape(s, m) * ch
+    odd = (np.arange(s) % 2 == 1)[:, None] & (np.arange(m) % 2 == 1)[None, :]
+    return np.where(odd, -y, y).T.astype(np.complex64)
+
+
+@pytest.mark.parametrize("m", [800, 400, 96, 80, 38])
+def test_k2_tables_in_the_kernels_layout(rng, m):
+    """The kernel's table buffer computes the channels: against the FFT
+    route in float64 (1e-6, the f32 tables), and with the kernel's 3xTF32
+    split against the plain version (the card's floor, 1e-5)."""
+    cfg = tchz.ChannelizerConfig(sample_rate=m * 12_500.0, channel_bandwidth=12_500.0,
+                                 dft_impl="matmul")
+    assert cfg.channel_count == m
+    u = (rng.standard_normal((2, 7, m)) + 1j * rng.standard_normal((2, 7, m))).astype(np.complex64)
+    ref = tchz._fft_arms(torch.from_numpy(u).to(torch.complex128), cfg).numpy()
+    exact = k2_emulated(u, m, three_tf32=False)
+    assert np.linalg.norm(exact - ref) / np.linalg.norm(ref) <= 1e-6
+    plain = tchz.arm_dft_plain(t(u), cfg).numpy()
+    split = k2_emulated(u, m, three_tf32=True)
+    assert np.linalg.norm(split - plain) / np.linalg.norm(plain) <= 1e-5
+
+
+@pytest.mark.parametrize("m", [800, 38])
+def test_k2_table_split(m):
+    """The tables' (hi, lo) pairs: hi keeps TF32's 10 mantissa bits, and
+    hi + lo is the f32 table exactly."""
+    m1, m2, k1p, n1s, k2p, n2s = tchz._k2_layout(m)
+    pairs = tchz.k2_tables_np(m)[: 2 * (k1p * n1s + k2p * n2s)].reshape(-1, 2)
+    hi, lo = pairs[:, 0], pairs[:, 1]
+    assert not np.any(hi.view(np.uint32) & np.uint32(0x1FFF))
+    w1, w2, _ = tchz.k2_stage_mats(m)
+    x = np.concatenate([tchz._real_form(*w1, k1p, n1s).ravel(), tchz._real_form(*w2, k2p, n2s).ravel()])
+    np.testing.assert_array_equal(hi + lo, x)
+    assert np.all(np.abs(lo) <= np.abs(hi) * 2.0**-11)
+
+
+@pytest.mark.parametrize("m", [800, 2000, 4800, 6250, 9000])
+def test_k2_reach(m):
+    """K2 runs every M up to ~9,000 (tiles of one step, the tables read
+    from device memory past ~4,700): its least shared memory fits a block."""
+    assert tchz._k2_smem_bytes(m) <= tchz._SMEM_LIMIT

@@ -146,3 +146,108 @@ def test_cpu_tensors_never_reach_k9(rng):
     tops.sos_filter(t(noise(rng, (2, 300))), sos, tops.sos_init(5, device="cpu"))
     tops.onepole_filter(t(noise(rng, 300)), 0.3, 0.7, tops.onepole_init(device="cpu"))
     assert launch_counts() == before
+
+
+# --- K9's chunked scan: the host-side tables, evaluated in float64 ------------
+
+K9_CASCADES = [  # chip_smoke.py's six cascades at 48 kHz, and the 8-section maximum
+    tiir.butter_sos("high", (300.0,), 5, FS),
+    tiir.butter_sos("low", (3000.0,), 5, FS),
+    tiir.butter_sos("high", (100.0,), 5, FS),
+    tiir.butter_sos("band", (300.0, 3000.0), 5, FS),
+    tiir.notch_sos(1000.0, 30.0, FS),
+    tiir.butter_sos("low", (15000.0,), 5, FS),
+    tiir.butter_sos("low", (2000.0,), 16, FS),
+]
+
+
+def k9_cases():
+    """(name, coeffs, mode, n_sec, float64 reference filter) per case; the
+    coefficients are the f32 values K9's wrappers pass."""
+    from wavecap_tpu_torch.ops import agc as tagc
+
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    cases = []
+    for sos in K9_CASCADES:
+        n_sec = sos.shape[0]
+        coeffs = tuple(f32(sos[i, j]) for i in range(n_sec) for j in (0, 1, 2, 4, 5))
+        sos32 = np.array([[coeffs[5 * i], coeffs[5 * i + 1], coeffs[5 * i + 2], 1.0,
+                           coeffs[5 * i + 3], coeffs[5 * i + 4]] for i in range(n_sec)])
+
+        def ref(x, z0, sos32=sos32, n_sec=n_sec):
+            y, zf = sps.sosfilt(sos32, x, zi=z0.reshape(n_sec, 2))
+            return y, zf.ravel()
+        cases.append((f"sos{n_sec}", coeffs, tiir._K9_SOS, n_sec, ref))
+    b0, a = (f32(v) for v in tiir.deemphasis_coeffs(FS))
+
+    def ref_deemph(x, z0):
+        y = sps.lfilter([b0], [1.0, -a], x, zi=[a * z0[0]])[0]
+        return y, y[-1:]
+    cases.append(("deemphasis", (b0, a), tiir._K9_ONEPOLE, 1, ref_deemph))
+    ca, cr = tagc._coef(5.0, FS), tagc._coef(50.0, FS)
+    c = tuple(f32(v) for v in (ca, 1.0 - ca, cr, 1.0 - cr))
+
+    def ref_agc(x, z0):
+        ea = sps.lfilter([c[0]], [1.0, -c[1]], np.abs(x), zi=[c[1] * z0[0]])[0]
+        er = sps.lfilter([c[2]], [1.0, -c[3]], ea, zi=[c[3] * z0[1]])[0]
+        return np.maximum(ea, er), np.array([ea[-1], er[-1]])
+    cases.append(("agc", c, tiir._K9_ENVELOPE, 2, ref_agc))
+    return cases
+
+
+def chunked_scan(x, coeffs, mode, n_sec, chunk, z0):
+    """K9's three passes in float64 over one row: every chunk from a zero
+    state (the first from ``z0``), a Kogge-Stone scan of the chunks' end
+    states with ``k9_scan_matrices``, every chunk again from its start."""
+    n = len(x)
+    chunks = -(-n // chunk)
+    levels = (chunks - 1).bit_length()
+    mats = tiir.k9_scan_matrices(coeffs, mode, n_sec, chunk, levels)
+    xp = np.concatenate([x, np.zeros(chunks * chunk - n)]).reshape(chunks, chunk)
+    lens = np.minimum(chunk, n - chunk * np.arange(chunks))
+
+    def run(start):
+        s, ys, ends = start.copy(), [], start.copy()
+        for k in range(chunk):
+            s, y = tiir.k9_step(s, xp[:, k], coeffs, mode, n_sec)
+            ys.append(y)
+            ends[lens == k + 1] = s[lens == k + 1]
+        return np.stack(ys, axis=1), ends
+
+    d = tiir.k9_state_size(mode, n_sec)
+    start = np.zeros((chunks, d))
+    start[0] = z0
+    _, e = run(start)
+    for j in range(levels):
+        step = 1 << j
+        e = np.concatenate([e[:step], e[step:] + e[:-step] @ mats[j].T])
+    y, ends = run(np.concatenate([z0[None], e[:-1]]))
+    return y.ravel()[:n], ends[-1]
+
+
+@pytest.mark.parametrize("chunk", [1, 64, 256])
+@pytest.mark.parametrize("n", [1000, 50])
+@pytest.mark.parametrize("case", k9_cases(), ids=lambda c: c[0])
+def test_k9_scan_tables_match_scipy(case, n, chunk):
+    """The chunked evaluation with the host's matrices equals float64
+    scipy to 1e-9 (n not a multiple of the chunk, and n < chunk)."""
+    name, coeffs, mode, n_sec, ref = case
+    rng = np.random.default_rng(chunk * 7 + n)
+    x = 0.3 * np.sin(2 * np.pi * 900.0 * np.arange(n) / FS) + 0.05 * rng.standard_normal(n)
+    z0 = 0.1 * rng.standard_normal(tiir.k9_state_size(mode, n_sec))
+    if mode == tiir._K9_ENVELOPE:
+        z0 = np.abs(z0)
+    y_ref, z_ref = ref(x, z0)
+    y, z = chunked_scan(x, coeffs, mode, n_sec, chunk, z0)
+    scale = np.max(np.abs(y_ref))
+    assert np.max(np.abs(y - y_ref)) <= 1e-9 * scale
+    assert np.max(np.abs(z - z_ref)) <= 1e-9 * max(scale, np.max(np.abs(z_ref)))
+
+
+@pytest.mark.parametrize("n", [1, 37, 256, 257, 9_447, 12_288, 12_289, 50_000])
+def test_k9_plan_covers_the_row(n):
+    chunk, segment = tiir.k9_plan(n)
+    chunks = -(-segment // chunk)
+    assert chunk % 2 == 1 and chunks <= tiir.K9_THREADS and segment <= tiir.K9_SEGMENT
+    assert -(-n // segment) * segment >= n and segment <= n
+    assert chunk <= n  # no row is shorter than its chunk

@@ -38,7 +38,7 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     "K1_unpack_arms": (
         "unpack_arms", "k1_unpack_arms", (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     ),
-    "K2_arm_dft": ("arm_dft", "k2_arm_dft", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "K2_arm_dft": ("arm_dft", "k2_arm_dft", (_P, _P, _P) + (_I,) * 7 + (_P,)),
     "K3_slot_frontend": (
         "slot_frontend", "k3_slot_frontend",
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
@@ -56,7 +56,7 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
         (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     ),
     "K9_iir_cascade": (
-        "iir_cascade", "k9_iir_cascade", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "iir_cascade", "k9_iir_cascade", (_P,) * 6 + (_I,) * 7 + (_P,),
     ),
     "K10_pll": ("pll", "k10_pll", (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P)),
     "K11a_noise_blanker": (

@@ -12,7 +12,7 @@
 //
 //   mix_r(x)[i] = x[i] * (cos, sin)(float(phase0[r] + i * dphi[r]) * 2 pi / 2^32)
 //   y[r, m]     = sum_{k < T} h[k] * v[m * stride + T - 1 - k],  m < n_out
-//   tail[r]     = the last T - 1 samples of v,   phase1[r] = phase0[r] + n * dphi[r]
+//   tail[r]     = the last min(T - 1, |v|) samples of v,   phase1[r] = phase0[r] + n * dphi[r]
 //
 // with the uint32 accumulator of K3 (wraps mod 2^32).  x is complex or
 // real; one row of x may feed every output row (the wide slots share the
@@ -102,8 +102,9 @@ __global__ void strided_fir_kernel(const V* __restrict__ x, int x_rows, const V*
     const unsigned d = mix ? dphi[row] : 0u, p0 = mix ? phase0[row] : 0u;
 
     if (static_cast<int>(blockIdx.x) == n_tiles) {  // the tail and the next phase
-        const int t1 = n_taps - 1;
         const long long total = static_cast<long long>(head_len) + n;
+        // fewer samples than T - 1 (no output then): the tail holds them all
+        const int t1 = static_cast<int>(min(static_cast<long long>(n_taps - 1), total));
         if (tail) {
             for (int i = threadIdx.x; i < t1; i += blockDim.x) {
                 const long long j = total - t1 + i;

@@ -44,7 +44,7 @@ from .planar import (
     planar_matmul_dft,
 )
 
-_SMEM_LIMIT = 200 * 1024  # bytes of shared memory K2 asks for, at most
+_SMEM_LIMIT = 232_448  # bytes of shared memory a block can have on Hopper
 
 
 @lru_cache(maxsize=32)
@@ -131,24 +131,80 @@ def _k2_factors(m: int) -> tuple[int, int]:
     return _dft_factor(m) or (1, m)
 
 
+def _stride_mod(n: int, r: int, q: int = 32) -> int:
+    """The least stride >= n that is r mod q (rows in distinct banks)."""
+    return n + (r - n) % q
+
+
+def _k2_layout(m: int) -> tuple[int, int, int, int, int, int]:
+    """``(m1, m2, k1p, n1s, k2p, n2s)`` of K2's tables: stage ``i``'s real
+    (2 mi x 2 mi) table padded to ``kip`` (a multiple of 8) rows and
+    columns of (hi, lo) pairs, rows ``nis`` pairs apart (4 mod 16)."""
+    m1, m2 = _k2_factors(m)
+    k1p, k2p = -(-2 * m1 // 8) * 8, -(-2 * m2 // 8) * 8
+    return m1, m2, k1p, _stride_mod(k1p, 4, 16), k2p, _stride_mod(k2p, 4, 16)
+
+
+def _k2_smem_bytes(m: int) -> int:
+    """The least shared memory a K2 block runs with (kernels/csrc/arm_dft.cu
+    make_layout): two input buffers of 1 step and its stage-2 rows, the
+    tables read from device memory.  The kernel takes tiles of 2 or 4
+    steps and the tables into shared memory where those fit."""
+    m1, m2, _, _, k2p, _ = _k2_layout(m)
+    xsz = max(m1 * _stride_mod(2 * m2, 16, 32), 2 * (m + 4))
+    return 4 * (2 * xsz + m1 * _stride_mod(k2p, 4, 32))
+
+
+def tf32_split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """f32 ``x = hi + lo`` exactly: ``hi`` rounded to TF32's 10 mantissa
+    bits, to nearest with ties away from zero (``cvt.rna.tf32.f32``), and
+    ``lo`` the f32 remainder, of which the tensor cores read 10 bits."""
+    x = np.asarray(x, np.float32)
+    hi = ((x.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    return hi, (x - hi).astype(np.float32)
+
+
+def _real_form(c: np.ndarray, s: np.ndarray, rows: int, stride: int) -> np.ndarray:
+    """The real (2k x 2n) form of the complex table ``c + i s`` on
+    interleaved (re, im) rows and columns, zero-padded to ``rows`` x
+    ``stride``: ``[x_re, x_im] @ [[c, s], [-s, c]] = [y_re, y_im]``."""
+    k, n = c.shape
+    out = np.zeros((rows, stride), np.float32)
+    out[0 : 2 * k : 2, 0 : 2 * n : 2] = c
+    out[1 : 2 * k : 2, 0 : 2 * n : 2] = -s
+    out[0 : 2 * k : 2, 1 : 2 * n : 2] = s
+    out[1 : 2 * k : 2, 1 : 2 * n : 2] = c
+    return out
+
+
+def k2_stage_mats(m: int):
+    """``((c1, s1), (c2, s2), (twc, tws))``: the f32 (cos, sin) planes of
+    K2's two stages and its stage twiddle, the plain version's tables; an
+    unfactorable ``m`` runs as 1 x m."""
+    if _dft_factor(m) is not None:
+        return _factored_mats(m, False)
+    one, zero = np.ones((1, 1), np.float32), np.zeros((1, 1), np.float32)
+    return ((one, zero), dft_matrices(m, False),
+            (np.ones((1, m), np.float32), np.zeros((1, m), np.float32)))
+
+
+def k2_tables_np(m: int) -> np.ndarray:
+    """K2's tables in one f32 buffer, in the kernel's layout: W1 and W2 in
+    their real forms (:func:`_real_form`) as (hi, lo) pairs
+    (:func:`tf32_split`), the stage twiddle as (cos, sin) pairs ``(m1, m2,
+    2)``, then the channel twiddle as (re, im) pairs.  The entries are the
+    plain version's f32 tables."""
+    m1, m2, k1p, n1s, k2p, n2s = _k2_layout(m)
+    (c1, s1), (c2, s2), (twc, tws) = k2_stage_mats(m)
+    parts = [np.stack(tf32_split(_real_form(c1, s1, k1p, n1s)), axis=-1).ravel(),
+             np.stack(tf32_split(_real_form(c2, s2, k2p, n2s)), axis=-1).ravel(),
+             np.stack([twc, tws], axis=-1).ravel(), _twiddle_np(m).view(np.float32)]
+    return np.concatenate(parts)
+
+
 @lru_cache(maxsize=32)
 def _k2_tables(m: int, device: torch.device) -> torch.Tensor:
-    """K2's tables in one f32 buffer: W1 (cos, sin), W2 (cos, sin), the
-    stage twiddle (cos, sin), then the channel twiddle as (re, im) pairs."""
-    if _dft_factor(m) is not None:
-        (c1, s1), (c2, s2), (twc, tws) = _factored_mats(m, False)
-    else:
-        c1, s1 = np.ones((1, 1), np.float32), np.zeros((1, 1), np.float32)
-        c2, s2 = dft_matrices(m, False)
-        twc, tws = np.ones((1, m), np.float32), np.zeros((1, m), np.float32)
-    parts = [a.ravel() for a in (c1, s1, c2, s2, twc, tws)]
-    parts.append(_twiddle_np(m).view(np.float32))
-    return torch.from_numpy(np.concatenate(parts)).to(device)
-
-
-def _k2_b_stride(m1: int, m2: int) -> int:
-    base = m1 * (m2 + 1)
-    return base + (2 - base % 16) % 16
+    return torch.from_numpy(k2_tables_np(m)).to(device)
 
 
 # --- K1: unpack + polyphase arms ---------------------------------------------
@@ -297,17 +353,15 @@ def arm_dft(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
     m = cfg.channel_count
     if u.dim() != 3 or u.shape[0] != 2 or u.shape[2] != m or u.dtype != torch.complex64:
         raise ValueError(f"K2 takes complex64 stacks of shape (2, R, {m})")
-    if not u.is_contiguous():
-        raise ValueError("K2 takes a contiguous tensor")
-    m1, m2 = _k2_factors(m)
-    per_pair = 8 * 2 * (m + _k2_b_stride(m1, m2))
-    row_pairs = next((rp for rp in (4, 2, 1) if rp * per_pair <= _SMEM_LIMIT), 0)
-    if row_pairs == 0:
-        raise NotImplementedError(f"K2 stages one step pair in shared memory; M={m} is too large")
+    if not u.is_contiguous() or u.data_ptr() % 16:
+        raise ValueError("K2 takes a contiguous tensor on a 16-byte boundary")
+    if _k2_smem_bytes(m) > _SMEM_LIMIT:
+        raise NotImplementedError(f"K2 stages two steps in shared memory; M={m} is too large")
     r_steps = u.shape[1]
     out = torch.empty((m, 2 * r_steps), dtype=torch.complex64, device=u.device)
-    tables = _k2_tables(m, u.device)
-    launch("K2_arm_dft", u.device, u, tables, out, m1, m2, r_steps, row_pairs)
+    m1, m2, k1p, n1s, k2p, n2s = _k2_layout(m)
+    launch("K2_arm_dft", u.device, u, _k2_tables(m, u.device), out, m1, m2, r_steps,
+           k1p, n1s, k2p, n2s)
     return out
 
 

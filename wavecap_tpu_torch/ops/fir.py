@@ -126,16 +126,24 @@ def strided_fir_plain(x: torch.Tensor, taps: torch.Tensor, stride: int,
         phase1 = _next_phase(phase0, n, dphi)
     x = x.expand(lead + (n,))
     v = torch.cat([head.to(x.dtype), x], dim=-1) if head is not None else x
-    y = _conv_rows(v, taps, stride)
     t = taps.shape[-1]
-    tail = v[..., v.shape[-1] - (t - 1):] if t > 1 else v[..., :0]
+    if v.shape[-1] < t:  # fewer samples than taps: no output, the tail carries them
+        cplx = v.is_complex() or taps.is_complex()
+        y = torch.empty(lead + (0,), dtype=torch.complex64 if cplx else torch.float32,
+                        device=v.device)
+    else:
+        y = _conv_rows(v, taps, stride)
+    tail = v[..., max(v.shape[-1] - (t - 1), 0):] if t > 1 else v[..., :0]
     return y, tail, phase1
 
 
 def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
                 head: torch.Tensor | None = None, nco: tuple | None = None):
     """K7: see :func:`strided_fir_plain`.  Only a CPU tensor takes the
-    plain version."""
+    plain version.  With fewer head and input samples than taps there is
+    no output: without an NCO the tail is copied and nothing launches,
+    with one K7 runs with no output tiles and writes the mixed tail and
+    the next phase."""
     if x.device.type == "cpu":
         return strided_fir_plain(x, taps, stride, head, nco)
     dev = x.device
@@ -155,7 +163,7 @@ def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
             raise ValueError(f"K7's per-row taps {tuple(taps.shape)} do not match rows {lead}")
         taps_stride = taps.shape[-1]
     n = x.shape[-1]
-    x2 = x.reshape(-1, n).contiguous()
+    x2 = x.reshape(int(np.prod(x.shape[:-1])), n).contiguous()
     if x2.shape[0] not in (1, rows):
         raise ValueError(f"K7 input has {x2.shape[0]} rows for {rows} output rows")
     t = taps.shape[-1]
@@ -164,9 +172,13 @@ def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
     if head is not None:
         h_len = head.shape[-1]
         head2 = head.to(x.dtype).reshape(rows, h_len).contiguous()
-    n_out = (h_len + n - t) // stride + 1
-    if n_out <= 0:
-        raise ValueError(f"K7 needs at least {t} samples of head and input, not {h_len + n}")
+    total = h_len + n
+    n_out = max((total - t) // stride + 1, 0)
+    tail_len = min(total, t - 1)  # fewer samples than taps: the tail holds all of them
+    if n_out == 0 and nco is None:  # nothing to filter or mix: the tail is a copy
+        v = torch.cat([head2, x2.expand(rows, n)], -1) if head2 is not None else x2.expand(rows, n)
+        return (x.new_empty(lead + (0,)), v[:, total - tail_len:].reshape(lead + (tail_len,)),
+                None)
     item = 8 if cplx else 4
     span = (_K7_TILE - 1) * stride + t
     if span * item + t * taps.element_size() > _SMEM_LIMIT:
@@ -179,14 +191,14 @@ def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
             raise ValueError("K7's NCO words and phases are uint32")
         phase1 = torch.empty(rows, dtype=torch.uint32, device=dev)
     y = torch.empty((rows, n_out), dtype=x.dtype, device=dev)
-    tail = torch.empty((rows, t - 1), dtype=x.dtype, device=dev)
+    tail = torch.empty((rows, tail_len), dtype=x.dtype, device=dev)
     launch(
         "K7_strided_fir", dev, x2, x2.shape[0], head2, h_len, taps.contiguous(), t, taps_stride,
-        int(taps_cplx), stride, dphi, phase0, y, tail if t > 1 else None, phase1, rows, n, n_out,
-        int(cplx),
+        int(taps_cplx), stride, dphi, phase0, y, tail if tail_len else None, phase1, rows, n,
+        n_out, int(cplx),
     )
     phase1 = None if phase1 is None else phase1.reshape(lead)
-    return y.reshape(lead + (n_out,)), tail.reshape(lead + (t - 1,)), phase1
+    return y.reshape(lead + (n_out,)), tail.reshape(lead + (tail_len,)), phase1
 
 
 def _conv_valid_direct(x: torch.Tensor, taps: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -386,8 +398,10 @@ def resample_poly_stream(x: torch.Tensor, in_rate: int, out_rate: int, tail: tor
     as the reference does.  Returns ``(y, new_tail)``."""
     if int(in_rate) == int(out_rate):
         return x, tail
-    up, down, taps_np = _resample_plan(in_rate, out_rate)
     n = x.shape[-1]
+    if n == 0:  # empty block: state passes through unchanged
+        return x[..., :0], tail
+    up, down, taps_np = _resample_plan(in_rate, out_rate)
     if n % down != 0:
         return resample_poly(x, in_rate, out_rate), tail
     if up == 1:

@@ -8,9 +8,11 @@ for a one-pole.
 The plain versions keep the reference's formulation: each sample is an
 affine map of the state (scalar for a one-pole, 2x2 for a biquad), and
 the maps are prefix-composed, here by a log-step doubling scan in f32.
-On the card, kernel K9 (``kernels/csrc/iir_cascade.cu``) walks the
-samples in order instead, through all sections of a cascade in
-registers (scipy ``sosfilt``'s DF2T form); the two orders round
+On the card, kernel K9 (``kernels/csrc/iir_cascade.cu``) runs a chunked
+scan instead: every chunk of a row walks its samples in order through
+all sections of a cascade in registers (scipy ``sosfilt``'s DF2T form),
+and the chunks' states are joined by a scan with powers of the
+recurrence's matrix, built here in float64; the two orders round
 differently, which the tests bound against float64 scipy.
 """
 
@@ -92,17 +94,101 @@ def _k9_coeffs(values: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
+# --- K9's chunked scan: the host-side tables ------------------------------------
+#
+# Each mode is a linear recurrence in its state, s[n] = A s[n-1] + B u[n],
+# with coefficients fixed for a launch.  K9 cuts a row into chunks of L
+# samples, one thread each: pass 1 runs every chunk from a zero state
+# (the first from the row's carry), pass 2 scans the chunks' end states
+# with the powers A^(L 2^j) (a Kogge-Stone scan over the threads), pass 3
+# reruns every chunk from its true start state and writes y.
+
+K9_THREADS = 256  # chunks per segment, one thread each (kernels/csrc/iir_cascade.cu)
+K9_SEGMENT = 12_288  # samples of a row staged in shared memory at once
+
+
+def k9_state_size(mode: int, n_sec: int) -> int:
+    """The dimension of K9's state vector in ``mode``."""
+    return 2 * n_sec if mode == _K9_SOS else (1 if mode == _K9_ONEPOLE else 2)
+
+
+def k9_step(s: np.ndarray, v, coeffs: tuple, mode: int, n_sec: int):
+    """One sample of K9's recurrence in float64, in the kernel's order:
+    ``(s', y)`` for the state ``s`` (``(..., D)``) and the input ``v``.
+    The state is ``(z1, z2)`` per section for a cascade, the last output
+    for a one-pole and ``(attack, release)`` for the envelope."""
+    s = np.array(s, dtype=np.float64)
+    v = np.asarray(v, dtype=np.float64)
+    c = coeffs
+    if mode == _K9_SOS:
+        for i in range(n_sec):
+            b0, b1, b2, a1, a2 = c[5 * i : 5 * i + 5]
+            z1, z2 = s[..., 2 * i].copy(), s[..., 2 * i + 1].copy()
+            out = b0 * v + z1
+            s[..., 2 * i] = -a1 * out + (b1 * v + z2)
+            s[..., 2 * i + 1] = -a2 * out + b2 * v
+            v = out
+        return s, v
+    if mode == _K9_ONEPOLE:
+        s[..., 0] = c[1] * s[..., 0] + c[0] * v
+        return s, s[..., 0]
+    s[..., 0] = c[1] * s[..., 0] + c[0] * np.abs(v)
+    s[..., 1] = c[3] * s[..., 1] + c[2] * s[..., 0]
+    return s, np.maximum(s[..., 0], s[..., 1])
+
+
+@lru_cache(maxsize=256)
+def k9_state_matrix(coeffs: tuple, mode: int, n_sec: int) -> np.ndarray:
+    """``A`` of K9's recurrence in float64: the step applied to each basis
+    state with a zero input (the input term and the output's ``|x|`` and
+    ``max`` leave it alone)."""
+    d = k9_state_size(mode, n_sec)
+    return np.stack([k9_step(e, 0.0, coeffs, mode, n_sec)[0] for e in np.eye(d)], axis=1)
+
+
+def k9_scan_matrices(coeffs: tuple, mode: int, n_sec: int, chunk: int, levels: int) -> np.ndarray:
+    """``(levels, D, D)`` float64: ``A^(chunk 2^j)`` for the scan's steps,
+    by repeated squaring of ``A^chunk``."""
+    a = k9_state_matrix(coeffs, mode, n_sec)
+    p = np.linalg.matrix_power(a, chunk)
+    out = []
+    for _ in range(levels):
+        out.append(p)
+        p = p @ p
+    return np.stack(out) if out else np.zeros((0,) + a.shape)
+
+
+def k9_plan(n: int) -> tuple[int, int]:
+    """``(chunk, segment)`` of K9 for rows of ``n`` samples: a row runs in
+    segments of at most ``K9_SEGMENT`` samples, each cut into at most
+    ``K9_THREADS`` chunks of an odd length (a thread's reads of shared
+    memory then fall in distinct banks)."""
+    n_seg = -(-n // K9_SEGMENT)
+    segment = -(-n // n_seg)
+    return -(-segment // K9_THREADS) | 1, segment
+
+
+@lru_cache(maxsize=256)
+def _k9_scan_tables(coeffs: tuple, mode: int, n_sec: int, chunk: int, levels: int,
+                    device: torch.device) -> torch.Tensor:
+    mats = k9_scan_matrices(coeffs, mode, n_sec, chunk, levels).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(mats)).to(device)
+
+
 def _k9(x: torch.Tensor, coeffs: tuple, state: torch.Tensor, mode: int, n_sec: int):
     """Launch K9 over the rows of ``x``; ``state`` is the per-row carry in
     K9's layout (already broadcast to the rows).  Returns ``(y, state)``."""
     _check_k9_input(x)
     rows, n = _rows(x)
+    chunk, segment = k9_plan(n)
+    levels = (-(-segment // chunk) - 1).bit_length()
     xc = x.contiguous()
     z0 = state.to(torch.float32).contiguous()
     y = torch.empty_like(xc)
     z1 = torch.empty_like(z0)
-    launch("K9_iir_cascade", x.device, xc, y, _k9_coeffs(coeffs, x.device), z0, z1,
-           rows, n, n_sec, mode)
+    tables = _k9_scan_tables(coeffs, mode, n_sec, chunk, levels, x.device)
+    launch("K9_iir_cascade", x.device, xc, y, _k9_coeffs(coeffs, x.device), z0, z1, tables,
+           rows, n, n_sec, mode, chunk, segment, levels)
     return y, z1
 
 
