@@ -50,7 +50,9 @@ Phases:
    the wrapper's wall time between CUDA events; then K1 on complex input
    and K2 at M = 80 and M = 38 (unfactorable) against their plain versions;
    K11a, K11b and K1 on the adaptive i8 and i4 words at program D's
-   shapes; K6 (the spectrum on cuFFT) and K8 (``pack_wire``) timed;
+   shapes; K5 and K10 also at D's and E's bank rows (160, 100), K5 beside
+   one ``conv_transpose1d``, K10's own sin, cos (2 ulp) and atan (3 ulp)
+   against float64; K6 (the spectrum on cuFFT) and K8 (``pack_wire``) timed;
    last, K12s and K13s at programs A, B and C's shapes (dead air, and
    positions past both ends of the reference's clamp), with their
    serial-chain estimates;
@@ -106,17 +108,19 @@ Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 It imports nothing of JAX.
 
-To time K2 and K9 against another checkout of the port on the same card::
+To time K2, K5, K9 and K10 against another checkout of the port on the
+same card::
 
     python3 chip_smoke.py --phase2-turns OTHER_CHECKOUT [--out FILE]
 
-runs phase 2's K2 and K9 checks of OTHER_CHECKOUT's ``chip_smoke.py``
-and of this one in turns (other, this, this, other), each in its own
-process with its own kernels built from its own sources, and prints one
-JSON line a turn: the K2 records of ``kernel_checks`` (M = 800, with the
-``torch.fft`` route), K2 at M = 400 through that checkout's
-``device_ms``, K9 at 100 rows (a mesh shard's) the same way, and the
-K9 records of ``mixed_kernel_checks``.
+runs phase 2's K2, K5, K9 and K10 checks of OTHER_CHECKOUT's
+``chip_smoke.py`` and of this one in turns (other, this, this, other),
+each in its own process with its own kernels built from its own sources,
+and prints one JSON line a turn: the K2 records of ``kernel_checks`` (M =
+800, with the ``torch.fft`` route), K2 at M = 400 through that checkout's
+``device_ms``, K9 at 100 rows (a mesh shard's), K5 (narrow one-shot and
+streaming) at 160 and 100 rows and K10 (PLL and Costas) at 100 rows the
+same way, and the K5, K9 and K10 records of ``mixed_kernel_checks``.
 """
 
 from __future__ import annotations
@@ -142,6 +146,14 @@ SQUELCH_DB = -45.0  # between the noise floor (~-86 dBFS) and a station (-20 dBF
 FMA_CYCLES = 4  # latency of a dependent f32 multiply-add on Hopper, in SM cycles
 K2_KERNELS = ("arm_dft_kernel",)  # K2's CUDA kernels (one launch a call), for device_ms
 K9_KERNELS = ("iir_scan_kernel",)  # K9's CUDA kernels (one launch a call), for device_ms
+K5_KERNELS = ("resample_poly_kernel", "resample_poly_row_kernel")  # K5's two variants
+K10_KERNELS = ("pll_kernel",)
+# K10's step: the dependent path from one phase to the next, counted in the
+# SASS of kernels/csrc/pll.cu's unrolled loop (scripts/k10_variants.py dumps
+# it): PLL 33 instructions (sin/cos 11, the mix 2, the detector 13 with one
+# MUFU.RCP, the loop 4, the wrap 3), Costas 29 (the detector 8, the loop 5,
+# the wrap 3), at a multiply-add's latency each
+K10_CHAIN_CYCLES = {0: 33 * FMA_CYCLES, 1: 29 * FMA_CYCLES}
 
 # --- the mixed-analog capture (phase 4) ---
 MIXED_MODES = ("am", "lsb", "nbfm", "sam", "usb")  # engine._narrow_modes(), sorted
@@ -757,27 +769,60 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
     n_if = n // wide.decim
     # K5: narrow one-shot 48/25 at (800, S), wide one-shot at (2, n_if),
     # streaming 24/25 at (96, 10000) over 3 blocks (the engine's default
-    # 2.4 Msps / 25 kHz geometry)
-    for case, rows, n_in, rate_in in (("narrow one-shot", m, s, int(ch.channel_rate)),
-                                      ("wide one-shot", 2, n_if, if_rate)):
-        x = dev(rng.standard_normal((rows, n_in)).astype(np.float32))
-        y_k = host(fir.resample_poly(x, rate_in, ar))
-        y_p = host(plain_call(lambda: fir.resample_poly(x, rate_in, ar))())
+    # 2.4 Msps / 25 kHz geometry); the narrow and streaming cases also at
+    # program D's and E's bank rows (160, 100).  The yardstick is one
+    # conv_transpose1d (zero-stuff by up and filter) sliced at off::down,
+    # held against the plain version first
+    def k5_yardstick(x, head, up, down, off, n_out, ph_len):
+        h = fir._resample_taps(up, down, device).reshape(1, 1, -1)
+        v = (x if head is None else torch.cat([head, x], -1)).unsqueeze(1)
+        start = off if head is None else (ph_len - 1) * up
+
+        def call():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return F.conv_transpose1d(v, h, stride=up)[:, 0, start::down][:, :n_out]
+        return call
+
+    def k5_case(case, x, head, up, down, off, n_out, call, plain, lib):
+        y_k, y_p = host(call()), host(plain())
         err = rel_l2(y_p, y_k)
         check(err <= 1e-5, f"K5 {case} rel L2 {err:.3g} > 1e-5")
+        rows, n_in = x.shape
+        taps = fir.design_resample_poly_filter(up, down)
+        ph_len = -(-len(taps) // up)
+        used_rows = len(np.unique((off + np.arange(n_out, dtype=np.int64) * down) % up))
+        head_bytes = 0 if head is None else 2 * rows * (ph_len - 1) * 4  # the head in, the tail out
+        b, f = bound(rows * n_in * 4 + rows * n_out * 4 + head_bytes + used_rows * ph_len * 4,
+                     2.0 * rows * n_out * ph_len)
+        extra = dict(library_note="no single PyTorch call computes a rational resample with up > 1")
+        lib_ms = None
+        if lib is not None:
+            lib_err = rel_l2(y_p, host(lib()))
+            check(lib_err <= 1e-5, f"K5 {case}: the conv_transpose1d yardstick rel L2 {lib_err:.3g} > 1e-5")
+            lib_ms = timer(lib)
+            extra = dict(library_call="F.conv_transpose1d(v, h, stride=up)[..., off::down][:n_out], TF32 off",
+                         library_rel_l2=lib_err)
+        plan = fir.k5_plan(up, down, ph_len)
+        record("K5_resample_poly", f"{case} {up}/{down} ({rows}, {n_in}) -> ({rows}, {n_out})",
+               k5_src, k5_rep, lib_ms, max_abs_err=max_abs(y_p, y_k), rel_l2=err,
+               ms=timer(call, K5_KERNELS), wrapper_ms=wall_timer(call), plain_ms=timer(plain),
+               bound_ms=b, bound_by=f, tile=plan.tile,
+               variant=("table", "warp")[plan.variant], **extra)
+
+    rate_n = int(ch.channel_rate)
+    xs = {"narrow": dev(rng.standard_normal((m, s)).astype(np.float32)),
+          "wide": dev(rng.standard_normal((2, n_if)).astype(np.float32))}
+    for case, x, rate_in in (("narrow one-shot", xs["narrow"], rate_n), ("wide one-shot", xs["wide"], if_rate),
+                             ("narrow one-shot", xs["narrow"][:160], rate_n),
+                             ("narrow one-shot", xs["narrow"][:100], rate_n)):
         up, down, taps = fir._resample_plan(rate_in, ar)
         ph_len = -(-len(taps) // up)
-        n_out = y_k.shape[-1]
-        used_rows = len(np.unique(((len(taps) - 1) // 2 + np.arange(n_out, dtype=np.int64) * down) % up))
-        b, f = bound(rows * n_in * 4 + rows * n_out * 4 + used_rows * ph_len * 4,
-                     2.0 * rows * n_out * ph_len)
-        record("K5_resample_poly", f"{case} {up}/{down} ({rows}, {n_in}) -> ({rows}, {n_out})",
-               k5_src, k5_rep, None, max_abs_err=max_abs(y_p, y_k), rel_l2=err,
-               ms=timer(lambda: fir.resample_poly(x, rate_in, ar), "resample_poly_kernel"),
-               wrapper_ms=wall_timer(lambda: fir.resample_poly(x, rate_in, ar)),
-               plain_ms=timer(plain_call(lambda: fir.resample_poly(x, rate_in, ar))),
-               bound_ms=b, bound_by=f,
-               library_note="no single PyTorch call computes a rational resample with up > 1")
+        n_out = -(-x.shape[-1] * up // down)
+        off = (len(taps) - 1) // 2
+        lib = k5_yardstick(x, None, up, down, off, n_out, ph_len) if case.startswith("narrow") else None
+        k5_case(case, x, None, up, down, off, n_out,
+                lambda x=x, rate_in=rate_in: fir.resample_poly(x, rate_in, ar),
+                plain_call(lambda x=x, rate_in=rate_in: fir.resample_poly(x, rate_in, ar)), lib)
     x3 = dev(rng.standard_normal((3, 96, 10_000)).astype(np.float32))
     tail_k = tail_p = fir.resample_stream_init(50_000, 48_000, device=device).expand(96, -1)
     errs = []
@@ -791,16 +836,15 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
     up, down, taps = fir._resample_plan(50_000, 48_000)
     ph_len = -(-len(taps) // up)
     n_out = 10_000 * up // down
-    b, f = bound(96 * (10_000 + 2 * (ph_len - 1) + n_out) * 4 + up * ph_len * 4,
-                 2.0 * 96 * n_out * ph_len)
-
-    def k5_stream():
-        return fir.resample_poly_stream(x3[0], 50_000, 48_000, tail_k)
-
-    cases.append(dict(name="K5_resample_poly", case="streaming 24/25 (96, 10000) x 3 blocks",
-                      rel_l2=max(errs), bound_ms=b, bound_by=f,
-                      ms=timer(k5_stream, "resample_poly_kernel"), wrapper_ms=wall_timer(k5_stream),
-                      plain_ms=timer(plain_call(k5_stream)), library_ms=None))
+    x_st = dev(rng.standard_normal((160, 10_000)).astype(np.float32))
+    tail_st = dev(rng.standard_normal((160, ph_len - 1)).astype(np.float32))
+    for case, x, tail in (("streaming, after 3 blocks", x3[0], tail_k),
+                          ("streaming", x_st, tail_st), ("streaming", x_st[:100], tail_st[:100])):
+        k5_case(case, x, tail, up, down, 0, n_out,
+                lambda x=x, tail=tail: fir.resample_poly_stream(x, 50_000, 48_000, tail)[0],
+                plain_call(lambda x=x, tail=tail: fir.resample_poly_stream(x, 50_000, 48_000, tail)[0]),
+                k5_yardstick(x, tail, up, down, 0, n_out, ph_len))
+    cases[-3]["rel_l2_3_blocks"] = max(errs)
 
     # K7: the wide slots' shift and decimate; resample_poly_stream's up == 1
     k7_src, k7_rep = ("wavecap_tpu_torch/kernels/csrc/strided_fir.cu",
@@ -999,7 +1043,8 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
                       plain_ms=timer(lambda: agc.envelope_plain(xa, ca, cr, st)),
                       library_ms=None, chain_ms=chain_ms(2 * iir.k9_plan(n_audio)[0], FMA_CYCLES, clock_hz)))
 
-    # K10: SAM's carrier PLL and the Costas loop at (160, S)
+    # K10: SAM's carrier PLL and the Costas loop at (160, S), and at a mesh
+    # shard's 100 rows
     k10_src, k10_rep = ("wavecap_tpu_torch/kernels/csrc/pll.cu",
                         "wavecap_tpu/ops/pll.py:36 carrier_recovery_pll, :70 costas_loop_qpsk")
     ts = np.arange(s) / ch.channel_rate
@@ -1009,11 +1054,16 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
     qpsk = np.exp(1j * (np.pi / 4 + np.pi / 2 * sym + 2 * np.pi * f_off * ts))
     st0 = pll.PllState(dev(rng.uniform(-3, 3, c).astype(np.float32)), dev(np.zeros(c, np.float32)))
     alpha, beta = pll.pll_coeffs(50.0, ch.channel_rate)
-    for case, sig, fn in (
-        ("SAM carrier PLL", am, lambda z: pll.carrier_recovery_pll(z, ch.channel_rate, st0)),
-        ("Costas QPSK", qpsk, lambda z: pll.costas_loop_qpsk(z, st0, alpha, beta)),
-    ):
-        z = dev((sig + 1e-3 * (rng.standard_normal((c, s)) + 1j * rng.standard_normal((c, s))))
+    for (case, sig, det), rows in ((k, r) for r in (c, min(100, c)) for k in (
+            ("SAM carrier PLL", am, 0), ("Costas QPSK", qpsk, 1))):
+        st_r = pll.PllState(st0.phase[:rows], st0.freq[:rows])
+        if det == 0:
+            def fn(z, st_r=st_r):
+                return pll.carrier_recovery_pll(z, ch.channel_rate, st_r)
+        else:
+            def fn(z, st_r=st_r):
+                return pll.costas_loop_qpsk(z, st_r, alpha, beta)
+        z = dev((sig[:rows] + 1e-3 * (rng.standard_normal((rows, s)) + 1j * rng.standard_normal((rows, s))))
                 .astype(np.complex64))
         o_k, st_k = fn(z)
         with plain_kernels():
@@ -1024,17 +1074,61 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
         check(err >= 50.0, f"K10 {case}: coherent output {err:.1f} dB < 50")
         check(d_ph <= 1e-3, f"K10 {case}: final phase differs by {d_ph:.3g} rad")
         # per sample: cos, sin, the mix (6), the detector (~4), the loop (6)
-        b, f = bound(2 * c * s * 8 + 4 * c * 4, 18.0 * c * s)
-        record("K10_pll", f"{case} ({c}, {s})", k10_src, k10_rep, None,
+        b, f = bound(2 * rows * s * 8 + 4 * rows * 4, 18.0 * rows * s)
+        record("K10_pll", f"{case} ({rows}, {s})", k10_src, k10_rep, None,
                max_abs_err=float(np.max(np.abs(o_k - o_p))), coherent_snr_db=err,
                final_phase_max_abs_rad=d_ph, bound_ms=b, bound_by=f,
-               # ~60 dependent f32 operations a step: cosf and sinf (range
-               # reduction + polynomial) then the mix, atan2f, the loop
-               chain_ms=chain_ms(s * 60, FMA_CYCLES, clock_hz),
-               ms=timer(lambda: fn(z), "pll_kernel"), wrapper_ms=wall_timer(lambda: fn(z)),
+               # the step's dependent path, counted from the kernel's SASS
+               chain_ms=chain_ms(s, K10_CHAIN_CYCLES[det], clock_hz),
+               ms=timer(lambda: fn(z), K10_KERNELS), wrapper_ms=wall_timer(lambda: fn(z)),
                plain_ms=timer(plain_call(lambda: fn(z)), reps=1, warm=1),
                library_note="no torch op runs a phase-locked loop")
+    cases.append(k10_function_checks(device))
+
     return [lines[k] for k in ("K5_resample_poly", "K7_strided_fir", "K9_iir_cascade", "K10_pll")], cases
+
+
+def ulps(ref64: np.ndarray, got: np.ndarray) -> np.ndarray:
+    """|got - ref| in float32 ulps of the float64 reference."""
+    spacing = np.spacing(np.abs(ref64).astype(np.float32)).astype(np.float64)
+    return np.abs(got.astype(np.float64) - ref64) / spacing
+
+
+def k10_function_checks(device, points: int = 1 << 20) -> dict:
+    """K10's own sin, cos and atan on the card against float64, through
+    the kernel itself: rows of one sample each.  With a = b = 0 and z = 1
+    the output is (cos, sin) of the row's -phase; with phase 0, a = 1, b =
+    0 the final phase is the detector atan2(Im z, |Re z| + 1e-10).  Floors:
+    2 ulp (sin, cos) over [-pi - 0.1, pi + 0.1], 3 ulp (atan) over a dense
+    grid of the detector's range (the quotient and the polynomial each add
+    their rounding)."""
+    import torch
+
+    from wavecap_tpu_torch.ops import pll
+
+    x = np.linspace(-np.pi - 0.1, np.pi + 0.1, points).astype(np.float32)
+    ones = torch.ones((points, 1), dtype=torch.complex64, device=device)
+    zero = torch.zeros(points, device=device)
+    out, _ = pll._loop(ones, pll.PllState(torch.from_numpy(x).to(device), zero), 0.0, 0.0, 0)
+    out = host(out)[:, 0]
+    u_cos = float(ulps(np.cos(-x.astype(np.float64)), out.real).max())
+    u_sin = float(ulps(np.sin(-x.astype(np.float64)), out.imag).max())
+    check(u_cos <= 2.0 and u_sin <= 2.0, f"K10 sin/cos: {u_sin:.2f} / {u_cos:.2f} ulp > 2")
+    rng = np.random.default_rng(SEED + 10)
+    mag = 10.0 ** rng.uniform(-6, 1, (2, points))
+    re = (rng.standard_normal(points) * mag[0]).astype(np.float32)
+    im = (rng.standard_normal(points) * mag[1]).astype(np.float32)
+    # and a dense sweep of |y| / x through 1, where the two branches meet
+    ratio = np.linspace(0.5, 2.0, points // 4)
+    re[: points // 4] = np.float32(0.3)
+    im[: points // 4] = (0.3 * ratio * np.where(np.arange(points // 4) % 2, 1, -1)).astype(np.float32)
+    z = torch.from_numpy((re + 1j * im).astype(np.complex64)).to(device).reshape(points, 1)
+    _, st = pll._loop(z, pll.PllState(zero, zero), 1.0, 0.0, 0)
+    xpos = (np.abs(re) + np.float32(1e-10)).astype(np.float32)
+    u_atan = float(ulps(np.arctan2(im.astype(np.float64), xpos.astype(np.float64)), host(st.phase)).max())
+    check(u_atan <= 3.0, f"K10 atan: {u_atan:.2f} ulp > 3")
+    return dict(name="K10_pll", case=f"sin, cos, atan on the card, {points} points each",
+                sin_max_ulp=u_sin, cos_max_ulp=u_cos, atan_max_ulp=u_atan)
 
 
 # --- phase 4: the mixed-analog capture at full width --------------------------------
@@ -1199,9 +1293,10 @@ def run_mixed(cfg, device, sync=None) -> dict:
 def profile_blocks(one_pass, blocks: int, sync) -> dict:
     """One warm pass under torch.profiler, per block: traced wall ms, the
     card's busy ms (kernels and copies, CUPTI), its idle share, the host's
-    CPU ms, the ops with the most device time, and K2's and K9's device
-    time and launches summed over all their kernels' instances (each
-    template instance is an op of its own, and may miss the top list)."""
+    CPU ms, the ops with the most device time, and K2's, K5's, K9's and
+    K10's device time and launches summed over all their kernels' instances
+    (each template instance or variant is an op of its own, and may miss
+    the top list)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1227,7 +1322,8 @@ def profile_blocks(one_pass, blocks: int, sync) -> dict:
                                  for e in top if dev_ms(e) > 0],
         kernel_totals_per_block={
             name: dict(ms=sum(dev_ms(e) for e in hits), launches=sum(e.count for e in hits) / blocks)
-            for name, kernels in (("K2_arm_dft", K2_KERNELS), ("K9_iir_cascade", K9_KERNELS))
+            for name, kernels in (("K2_arm_dft", K2_KERNELS), ("K5_resample_poly", K5_KERNELS),
+                                  ("K9_iir_cascade", K9_KERNELS), ("K10_pll", K10_KERNELS))
             for hits in [[e for e in on_card if any(k in e.key for k in kernels)]]},
     )
 
@@ -3009,9 +3105,31 @@ hp = iir.butter_sos("high", (300.0,), 5, 48_000)
 z = torch.zeros((100, hp.shape[0], 2), device=dev)
 k9 = [dict(name="K9_iir_cascade", case="high-pass, 3 sections, (100, 9447)",
            ms=cs.device_ms(lambda: iir.sos_filter(x, hp, z), ("iir_cascade_kernel", "iir_scan_kernel")))]
+# K5 and K10 at program D's and E's bank rows through this checkout's wrappers
+from wavecap_tpu_torch.ops import fir, pll
+k5_kernels = ("resample_poly_kernel", "resample_poly_row_kernel")
+xn = torch.from_numpy(rng.standard_normal((160, 4920)).astype(np.float32)).to(dev)
+xs = torch.from_numpy(rng.standard_normal((160, 10000)).astype(np.float32)).to(dev)
+ts = torch.from_numpy(rng.standard_normal((160, 20)).astype(np.float32)).to(dev)
+k5 = []
+for rows in (160, 100):
+    k5.append(dict(name="K5_resample_poly", case=f"narrow one-shot 48/25 ({rows}, 4920)",
+                   ms=cs.device_ms(lambda: fir.resample_poly(xn[:rows], 25_000, 48_000), k5_kernels)))
+    k5.append(dict(name="K5_resample_poly", case=f"streaming 24/25 ({rows}, 10000)",
+                   ms=cs.device_ms(lambda: fir.resample_poly_stream(xs[:rows], 50_000, 48_000, ts[:rows]),
+                                   k5_kernels)))
+z = torch.from_numpy((0.3 * np.exp(1j * rng.uniform(-np.pi, np.pi, (100, 4920)))).astype(np.complex64)).to(dev)
+st = pll.PllState(torch.from_numpy(rng.uniform(-3, 3, 100).astype(np.float32)).to(dev), torch.zeros(100, device=dev))
+al, be = pll.pll_coeffs(50.0, 25_000.0)
+k10 = [dict(name="K10_pll", case="SAM carrier PLL (100, 4920)",
+            ms=cs.device_ms(lambda: pll.carrier_recovery_pll(z, 25_000.0, st), ("pll_kernel",))),
+       dict(name="K10_pll", case="Costas QPSK (100, 4920)",
+            ms=cs.device_ms(lambda: pll.costas_loop_qpsk(z, st, al, be), ("pll_kernel",)))]
 lines, cases = cs.mixed_kernel_checks(cs.mixed_config(), dev)
 k9 += [k for k in lines + cases if k["name"] == "K9_iir_cascade"]
-print(json.dumps(dict(checkout=sys.argv[1], K2=k2, K9=k9), default=float))
+k5 += [k for k in cases if k["name"] == "K5_resample_poly"]
+k10 += [k for k in cases if k["name"] == "K10_pll"]
+print(json.dumps(dict(checkout=sys.argv[1], K2=k2, K9=k9, K5=k5, K10=k10), default=float))
 """
 
 
@@ -3049,7 +3167,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
     ap.add_argument("--phase2-turns", metavar="OTHER_CHECKOUT",
-                    help="time K2 and K9 of this checkout and OTHER_CHECKOUT in turns")
+                    help="time K2, K5, K9 and K10 of this checkout and OTHER_CHECKOUT in turns")
     ap.add_argument("--out", help="with --phase2-turns: also write its JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

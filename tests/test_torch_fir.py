@@ -151,3 +151,115 @@ def test_strided_fir_with_nco_matches_shift_then_decimate(rng):
         assert rel_l2(ref, y[i].numpy()) <= 1e-5
         assert rel_l2(ref_tail, tail[i].numpy()) <= 1e-6
         assert int(p1[i]) == int(ref_p1)
+
+
+# --- K5's block plan (kernels/csrc/resample_poly.cu), emulated in numpy --------------
+
+CPU = torch.device("cpu")
+# (in rate, n, streaming): 48/25 one-shot at 10 Msps / 800 channels' 4,920
+# samples, 24/25 streaming at the engine's 2.4 Msps geometry, the wide IF's
+# 24000/121951 one-shot at n_if = 1,968,000 / 41
+K5_CASES = [(25_000, 4920, False), (50_000, 10_000, True), (243_902, 48_000, False)]
+
+
+def k5_emulate(x, head, up, down, off, n_out):
+    """K5's output by its plan: the block base in int64, the offsets within
+    a block in int32 (asserted), the staged span covering every tap of
+    every output of a full tile (asserted); float64 sums."""
+    taps = tfir.design_resample_poly_filter(up, down)
+    ph_len = -(-len(taps) // up)
+    lead = ph_len - 1
+    plan = tfir.k5_plan(up, down, ph_len)
+    rows, n = x.shape
+    hd = np.zeros((rows, lead), np.float32) if head is None else head
+    vv = np.concatenate([hd, x, np.zeros((rows, 1), np.float32)], -1).astype(np.float64)
+
+    def v_at(j):  # v = head ++ x ++ zeros
+        return vv[:, np.where((j >= 0) & (j < lead + n), j, lead + n)]
+
+    y = np.zeros((rows, n_out))
+    k = np.arange(ph_len)
+    if plan.variant == 0:
+        table_t = tfir._phase_table_t(up, down, CPU).numpy().astype(np.float64)
+        t_, r_ = np.arange(plan.threads), np.arange(plan.per)
+        i = ((t_ // up) * up * plan.per + t_ % up)[:, None] + up * r_[None, :]  # (threads, per)
+        assert np.array_equal(np.sort(i.ravel()), np.arange(plan.tile))  # every output once
+        for blk in range(-(-n_out // plan.tile)):
+            m0 = blk * plan.tile
+            a0 = np.int64(off) + np.int64(m0) * down
+            p0, j0 = int(a0 % up), a0 // up
+            v32 = p0 + i[:, :1].astype(np.int64) * down  # each thread's one 32-bit divide
+            assert (p0 + i.astype(np.int64) * down).max() < 2**31
+            p, s = v32 % up, lead + v32 // up + down * r_[None, :]
+            assert np.array_equal(s, lead + (p0 + i.astype(np.int64) * down) // up)
+            idx = s[..., None] - k  # (threads, per, ph_len) span reads
+            assert idx.min() >= 0 and idx.max() < plan.span
+            span = v_at(j0 + np.arange(plan.span))
+            vals = (span[:, idx] * table_t[k[None, None, :], p[:, :, None]]).sum(-1)
+            m = m0 + i
+            y[:, m[m < n_out]] = vals[:, m < n_out]
+    else:
+        phases = tfir._phase_table(up, down, CPU).numpy().astype(np.float64)
+        m = np.arange(n_out, dtype=np.int64)
+        a0 = off + (m // plan.tile) * plan.tile * down
+        v32 = a0 % up + (m % plan.tile) * down
+        assert v32.max() < 2**31
+        p, s = v32 % up, lead + v32 // up  # tap 0's index in the block's span
+        assert (s - (ph_len - 1)).min() >= 0 and s.max() < plan.span
+        q = a0 // up + s
+        for row in range(rows):
+            y[row] = (phases[p[:, None], k[None, :]] * v_at(q[:, None] - k[None, :])[row]).sum(-1)
+    return y
+
+
+@pytest.mark.parametrize("in_rate,n,streaming", K5_CASES)
+def test_k5_block_plan_reproduces_the_plain_version(rng, in_rate, n, streaming):
+    up, down, taps = tfir._resample_plan(in_rate, 48_000)
+    ph_len = -(-len(taps) // up)
+    rows = 1 if up > 1000 else 3
+    x = noise(rng, (rows, n))
+    if streaming:
+        head, off, n_out = noise(rng, (rows, ph_len - 1)), 0, n * up // down
+    else:
+        head, off, n_out = None, (len(taps) - 1) // 2, -(-n * up // down)
+    want = tfir.polyphase_resample_plain(t(x), up, down, off, None if head is None else t(head), n_out).numpy()
+    got = k5_emulate(x, head, up, down, off, n_out)
+    # the same f32 products summed in float64 against torch's f32 sum
+    assert rel_l2(want, got) <= 1e-6
+    assert tfir.k5_plan(up, down, ph_len).variant == (1 if up > 1000 else 0)
+
+
+@pytest.mark.parametrize("in_rate", [25_000, 50_000, 243_902])
+def test_k5_transposed_table(in_rate):
+    up, down, taps = tfir._resample_plan(in_rate, 48_000)
+    ph_len = -(-len(taps) // up)
+    table_t = tfir._phase_table_t(up, down, CPU)
+    assert table_t.shape == (ph_len, up) and table_t.is_contiguous()
+    assert torch.equal(table_t, tfir._phase_table(up, down, CPU).T)
+    padded = np.zeros(ph_len * up, np.float32)
+    padded[: len(taps)] = taps
+    k, p = np.meshgrid(np.arange(ph_len), np.arange(up), indexing="ij")
+    assert np.array_equal(table_t.numpy(), padded[p + k * up])  # phases[p, k] = h[p + k up]
+
+
+@pytest.mark.parametrize("in_rate,out_rate", [(25_000, 48_000), (50_000, 48_000), (243_902, 48_000),
+                                              (12_500, 48_000), (24_000, 48_000), (10_000, 48_000),
+                                              (44_100, 48_000), (48_000, 44_100), (2_400_000 // 41, 48_000)])
+def test_k5_plan_fits(in_rate, out_rate):
+    """The table variant's shared memory and int32 offsets for every ratio
+    it takes, and the span its worst block needs; the warp variant where
+    the table does not fit."""
+    up, down, taps = tfir._resample_plan(in_rate, out_rate)
+    if up == 1:
+        return  # up == 1 streams through K7
+    ph_len = -(-len(taps) // up)
+    plan = tfir.k5_plan(up, down, ph_len)
+    if plan.variant == 0:
+        assert plan.threads % up == 0 and plan.threads <= 1024 and plan.tile == plan.threads * plan.per
+        assert plan.smem == 4 * (ph_len * up + plan.span) <= 200 * 1024
+        assert up - 1 + (plan.tile - 1) * down < 2**31
+        assert plan.span == ph_len - 1 + (up - 1 + (plan.tile - 1) * down) // up + 1
+    else:
+        assert 4 * ph_len * up > 200 * 1024 or up > 1024
+        assert up - 1 + (plan.tile - 1) * down < 2**31 and plan.smem == 4 * plan.span <= 200 * 1024
+        assert plan.span == ph_len - 1 + (up - 1 + (plan.tile - 1) * down) // up + 1

@@ -32,6 +32,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 
+
+class K10Coeffs(ctypes.Structure):
+    """``K10Coeffs`` of ``csrc/pll_math.cuh``, passed by value; the values
+    are ``ops/pll.py``'s ``K10_*`` constants."""
+
+    _fields_ = [("two_over_pi", _F), ("pio2", _F * 3), ("sin", _F * 3), ("cos", _F * 3),
+                ("atan", _F * 8), ("atan_pio2", _F), ("fast_max", _F)]
+
+
 # kernel name -> (source stem, C symbol, argtypes); the last argument of
 # every entry is the CUDA stream
 KERNELS: dict[str, tuple[str, str, tuple]] = {
@@ -49,7 +58,7 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     ),
     "K5_resample_poly": (
         "resample_poly", "k5_resample_poly",
-        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _P),
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _P),
     ),
     "K7_strided_fir": (
         "strided_fir", "k7_strided_fir",
@@ -58,7 +67,7 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     "K9_iir_cascade": (
         "iir_cascade", "k9_iir_cascade", (_P,) * 6 + (_I,) * 7 + (_P,),
     ),
-    "K10_pll": ("pll", "k10_pll", (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P)),
+    "K10_pll": ("pll", "k10_pll", (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, K10Coeffs, _P)),
     "K11a_noise_blanker": (
         "noise_blanker", "k11a_noise_blanker", (_P, _P, _I, _I, _I, _F, _I, _P),
     ),

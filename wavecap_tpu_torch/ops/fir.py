@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from functools import lru_cache
 from math import gcd
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,7 +42,9 @@ from ..utils.torchenv import DeviceLike, resolve_device
 from .nco import _next_phase, nco_phases
 
 _K7_TILE = 128  # outputs per K7 block (kernels/csrc/strided_fir.cu)
-_K5_TILE = 256  # outputs per K5 block (kernels/csrc/resample_poly.cu)
+_K5_PER = 8  # outputs a thread of K5's table variant (kernels/csrc/resample_poly.cu)
+_K5_THREADS = 256  # threads a block of the table variant, at most (rounded down to a multiple of up)
+_K5_ROW_TILE = 256  # outputs (threads) a block of the row variant
 _SMEM_LIMIT = 200 * 1024  # bytes of shared memory a kernel asks for, at most
 
 
@@ -316,6 +319,44 @@ def _phase_table(up: int, down: int, device: torch.device) -> torch.Tensor:
 
 
 @lru_cache(maxsize=32)
+def _phase_table_t(up: int, down: int, device: torch.device) -> torch.Tensor:
+    """K5's table variant's copy of :func:`_phase_table`, transposed:
+    ``(ph_len, up)``, so that a warp's consecutive phases read one row."""
+    return _phase_table(up, down, device).T.contiguous()
+
+
+class K5Plan(NamedTuple):
+    """How K5 runs a ratio: ``variant`` 0 (the table variant: ``threads`` a
+    block, each ``per`` outputs ``up`` apart, ``tile`` outputs a block,
+    ``span`` staged inputs, ``smem`` bytes) or 1 (the row variant: a thread
+    an output, ``tile`` outputs and ``span`` staged inputs a block, each
+    thread reading its phase row from device memory)."""
+
+    variant: int
+    threads: int
+    per: int
+    tile: int
+    span: int
+    smem: int
+
+
+def k5_plan(up: int, down: int, ph_len: int) -> K5Plan:
+    """The table variant where its table and span fit in shared memory and
+    its in-block offsets ``p0 + i down`` fit in int32; else the row
+    variant.  ``span`` covers every tap of every output of a full tile:
+    the last output's span index is ``L + (p0 + (tile - 1) down) div up``."""
+    if up <= _K5_THREADS * 4:
+        threads = up * max(1, _K5_THREADS // up)
+        tile = threads * _K5_PER
+        span = ph_len - 1 + (up - 1 + (tile - 1) * down) // up + 1
+        smem = 4 * (ph_len * up + span)
+        if smem <= _SMEM_LIMIT and up - 1 + (tile - 1) * down < 2**31:
+            return K5Plan(0, threads, _K5_PER, tile, span, smem)
+    span = ph_len - 1 + (up - 1 + (_K5_ROW_TILE - 1) * down) // up + 1
+    return K5Plan(1, _K5_ROW_TILE, 1, _K5_ROW_TILE, span, 4 * span)
+
+
+@lru_cache(maxsize=32)
 def _resample_gather(up: int, down: int, off: int, n_out: int, device: torch.device):
     """The plain version's per-output windows and coefficients:
     ``(idx, coeffs)``, both ``(n_out, ph_len)``, for ``p_m = (off + m
@@ -368,13 +409,12 @@ def polyphase_resample(x: torch.Tensor, up: int, down: int, off: int,
     if head is not None:
         head2 = head.to(torch.float32).expand(lead + (ph_len - 1,)).reshape(rows, ph_len - 1)
         head2 = head2.contiguous()
-    span = ((_K5_TILE - 1) * down) // up + ph_len + 2
-    if span * 4 > _SMEM_LIMIT:
-        raise NotImplementedError(f"K5 stages {span} input samples per block: too many")
+    plan = k5_plan(up, down, ph_len)
+    table = _phase_table_t(up, down, dev) if plan.variant == 0 else phases
     y = torch.empty((rows, n_out), dtype=torch.float32, device=dev)
     if rows and n_out:
-        launch("K5_resample_poly", dev, x2, head2, phases, y, rows, n, ph_len - 1, up, down,
-               ph_len, int(off), n_out)
+        launch("K5_resample_poly", dev, x2, head2, table, y, rows, n, ph_len - 1, up, down,
+               ph_len, int(off), n_out, plan.variant, plan.threads, plan.span)
     return y.reshape(lead + (n_out,))
 
 
