@@ -50,7 +50,11 @@ Phases:
    the wrapper's wall time between CUDA events; then K1 on complex input
    and K2 at M = 80 and M = 38 (unfactorable) against their plain versions;
    K11a, K11b and K1 on the adaptive i8 and i4 words at program D's
-   shapes; K5 and K10 also at D's and E's bank rows (160, 100), K5 beside
+   shapes, K11a and K11b also at E's (100 rows), K11a on adversarial rows
+   (ties at the median, all equal, all zero, n = 1 and 2, a 400,000-sample
+   row on the long-row path) and K11b at 92 frames (its staged gain),
+   each beside its part's yardstick (``torch.quantile``); K5 and K10 also
+   at D's and E's bank rows (160, 100), K5 beside
    one ``conv_transpose1d``, K10's own sin, cos (2 ulp) and atan (3 ulp)
    against float64; K6 (the spectrum on cuFFT) and K8 (``pack_wire``) timed;
    last, K12s and K13s at programs A, B and C's shapes (dead air, and
@@ -108,19 +112,21 @@ Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 It imports nothing of JAX.
 
-To time K2, K5, K9 and K10 against another checkout of the port on the
-same card::
+To time K2, K5, K9, K10, K11a and K11b against another checkout of the
+port on the same card::
 
     python3 chip_smoke.py --phase2-turns OTHER_CHECKOUT [--out FILE]
 
-runs phase 2's K2, K5, K9 and K10 checks of OTHER_CHECKOUT's
+runs phase 2's K2, K5, K9, K10, K11a and K11b checks of OTHER_CHECKOUT's
 ``chip_smoke.py`` and of this one in turns (other, this, this, other),
 each in its own process with its own kernels built from its own sources,
 and prints one JSON line a turn: the K2 records of ``kernel_checks`` (M =
 800, with the ``torch.fft`` route), K2 at M = 400 through that checkout's
 ``device_ms``, K9 at 100 rows (a mesh shard's), K5 (narrow one-shot and
 streaming) at 160 and 100 rows and K10 (PLL and Costas) at 100 rows the
-same way, and the K5, K9 and K10 records of ``mixed_kernel_checks``.
+same way, the K5, K9 and K10 records of ``mixed_kernel_checks``, and the
+K11a and K11b records of ``engine_kernel_checks`` at 160 and 100 rows
+(the wide rows too).
 """
 
 from __future__ import annotations
@@ -147,6 +153,10 @@ FMA_CYCLES = 4  # latency of a dependent f32 multiply-add on Hopper, in SM cycle
 K2_KERNELS = ("arm_dft_kernel",)  # K2's CUDA kernels (one launch a call), for device_ms
 K9_KERNELS = ("iir_scan_kernel",)  # K9's CUDA kernels (one launch a call), for device_ms
 K5_KERNELS = ("resample_poly_kernel", "resample_poly_row_kernel")  # K5's two variants
+K11A_KERNELS = ("noise_blanker_kernel",)  # every template instance (staged, long row; 10 or 12 items)
+K11B_KERNELS = ("nr_frames_kernel", "nr_gain_kernel", "nr_overlap_add_kernel")  # both gain variants
+K11A_LONG_ROW = 400_000  # complex samples: past a cluster's shared memory, the long-row path
+K11B_MANY_FRAMES = 48_000  # audio samples: 92 frames of 1,024 at hop 512, the staged gain
 K10_KERNELS = ("pll_kernel",)
 # K10's step: the dependent path from one phase to the next, counted in the
 # SASS of kernels/csrc/pll.cu's unrolled loop (scripts/k10_variants.py dumps
@@ -1293,10 +1303,10 @@ def run_mixed(cfg, device, sync=None) -> dict:
 def profile_blocks(one_pass, blocks: int, sync) -> dict:
     """One warm pass under torch.profiler, per block: traced wall ms, the
     card's busy ms (kernels and copies, CUPTI), its idle share, the host's
-    CPU ms, the ops with the most device time, and K2's, K5's, K9's and
-    K10's device time and launches summed over all their kernels' instances
-    (each template instance or variant is an op of its own, and may miss
-    the top list)."""
+    CPU ms, the ops with the most device time, and K2's, K5's, K9's, K10's,
+    K11a's and K11b's (its three launches) device time and launches summed
+    over all their kernels' instances (each template instance or variant
+    is an op of its own, and may miss the top list)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1323,7 +1333,8 @@ def profile_blocks(one_pass, blocks: int, sync) -> dict:
         kernel_totals_per_block={
             name: dict(ms=sum(dev_ms(e) for e in hits), launches=sum(e.count for e in hits) / blocks)
             for name, kernels in (("K2_arm_dft", K2_KERNELS), ("K5_resample_poly", K5_KERNELS),
-                                  ("K9_iir_cascade", K9_KERNELS), ("K10_pll", K10_KERNELS))
+                                  ("K9_iir_cascade", K9_KERNELS), ("K10_pll", K10_KERNELS),
+                                  ("K11a_noise_blanker", K11A_KERNELS), ("K11b_noise_reduction", K11B_KERNELS))
             for hits in [[e for e in on_card if any(k in e.key for k in kernels)]]},
     )
 
@@ -2126,9 +2137,10 @@ def host_syncs(fn) -> tuple[int, list]:
 
 
 def engine_kernel_checks(device, c: int = 160, n_block: int = 1_968_000, m: int = 800,
-                         timer=device_ms):
+                         timer=device_ms, e_rows: int = 100):
     """K11a, K11b and K1's i8 and i4 words against their plain versions on
-    the card at program D's shapes.  Returns ``(lines, cases)``."""
+    the card at program D's shapes (and K11a's and K11b's at a mesh shard's
+    ``e_rows``, and their adversarial cases).  Returns ``(lines, cases)``."""
     import torch
 
     from wavecap_tpu_torch.ops import channelizer as chz
@@ -2150,20 +2162,41 @@ def engine_kernel_checks(device, c: int = 160, n_block: int = 1_968_000, m: int 
         lines.setdefault(name, k)
 
     # K11a: complex rows (NBFM, the wide IF) and real rows (the AM envelope)
-    for case, rows, n, cplx in (("nbfm IQ rows", c, s, True), ("wide IF rows", 2, n_wide, True),
-                                ("am/ssb/sam detector rows", c, s, False)):
+    # at program D's bank rows and a mesh shard's (E); then the adversarial
+    # rows: ties at the median, all equal, all zero, n = 1 and 2, and a row
+    # past a cluster's shared memory (the long-row path)
+    src_a, rep_a = "wavecap_tpu_torch/kernels/csrc/noise_blanker.cu", "wavecap_tpu/ops/noise.py:17 noise_blanker"
+    k11a_cases = [("nbfm IQ rows", c, s, True, None), ("wide IF rows", 2, n_wide, True, None),
+                  ("am/ssb/sam detector rows", c, s, False, None)]
+    if e_rows and e_rows != c:
+        k11a_cases += [("nbfm IQ rows", e_rows, s, True, None), ("am/ssb/sam detector rows", e_rows, s, False, None)]
+    k11a_cases += [("ties at the median", 8, s, True, "ties"), ("ties at the median", 2, n_wide, False, "ties"),
+                   ("all equal", 4, s, True, "equal"), ("all zero", 4, s, False, "zero"), ("n = 1", 4, 1, True, None),
+                   ("n = 2", 4, 2, False, None), ("long row", 1, K11A_LONG_ROW, True, None)]
+    for case, rows, n, cplx, kind in k11a_cases:
         x = 0.05 * rng.standard_normal((rows, n)) + 0.2
         if cplx:
             x = x + 1j * 0.05 * rng.standard_normal((rows, n))
         hits = rng.random((rows, n)) < 1.0 / 400
-        x = np.where(hits, x * 40.0, x).astype(np.complex64 if cplx else np.float32)
+        x = np.where(hits, x * 40.0, x)
+        if kind == "ties":  # magnitudes on a 1/64 grid: many equal to the median
+            x = np.round(x.real * 64) / 64 + (1j * np.round(x.imag * 64) / 64 if cplx else 0)
+        elif kind == "equal":
+            x = np.full((rows, n), 0.3 + 0.1j if cplx else -0.3)
+        elif kind == "zero":
+            x = np.zeros((rows, n))
+        x = x.astype(np.complex64 if cplx else np.float32)
+        plan = noise.k11a_plan(n, cplx)
+        check(plan.staged == (case != "long row"), f"K11a ({case}) plan {plan}: staged only below a cluster's memory")
         xd = dev(x)
         y_k = host(noise.noise_blanker(xd))
         y_p = host(noise.noise_blanker_plain(xd))
         mag = noise._magnitude(xd)
         srt = torch.sort(mag, dim=-1).values
-        thr = host((srt[:, (n - 1) // 2] + srt[:, n // 2]) * 0.5)[:, None] * np.float32(10.0 ** 0.5)
+        med = (srt[:, (n - 1) // 2] + srt[:, n // 2]) * 0.5
+        thr = host(med)[:, None] * np.float32(10.0 ** 0.5)
         near = np.abs(host(mag) - thr) <= 2 * np.spacing(np.abs(thr))
+        near &= host(med)[:, None] >= 1e-10  # a degenerate row passes whatever its threshold
         wide = near.copy()
         for d in range(1, 4):
             wide[:, d:] |= near[:, :-d]
@@ -2171,46 +2204,84 @@ def engine_kernel_checks(device, c: int = 160, n_block: int = 1_968_000, m: int 
         differ = y_k != y_p
         check(not (differ & ~wide).any(), f"K11a ({case}) differs from the plain version away from the threshold")
         check(near.mean() <= 1e-3, f"K11a ({case}): {near.mean():.3g} of samples near the threshold")
+        if kind in ("equal", "zero"):
+            check(np.array_equal(y_k, x), f"K11a ({case}) changed a row it must pass")
         itemsize = 8 if cplx else 4
         b, f = bound(2 * rows * n * itemsize, 12.0 * rows * n)
-        record("K11a_noise_blanker", f"{case} ({rows}, {n})", "wavecap_tpu_torch/kernels/csrc/noise_blanker.cu",
-               "wavecap_tpu/ops/noise.py:17 noise_blanker", near_threshold=int(near.sum()),
-               differing=int(differ.sum()), blanked=int((y_k == 0).sum()), max_abs_err=float(np.max(np.abs(y_k - y_p))),
-               ms=timer(lambda: noise.noise_blanker(xd), "noise_blanker_kernel"),
+        extra = {}
+        if kind is None and n > 2 and case != "long row":
+            # the median alone through one PyTorch call, held to the plain
+            # version's first: quantile's midpoint may round the sum apart (1 ulp)
+            q = torch.quantile(mag, 0.5, dim=-1, interpolation="midpoint")
+            check(bool(torch.allclose(q, med, rtol=2.0**-23, atol=0.0)),
+                  f"K11a ({case}): torch.quantile's median is not the plain version's")
+            extra = dict(part_library_ms=timer(lambda: torch.quantile(noise._magnitude(xd), 0.5, dim=-1,
+                                                                      interpolation="midpoint")),
+                         part_library_note="torch.quantile(|x|, 0.5, dim=-1): the median alone, "
+                                           "not the same function (no threshold, mask or dilation)")
+        record("K11a_noise_blanker", f"{case} ({rows}, {n})", src_a, rep_a, plan=plan._asdict(),
+               near_threshold=int(near.sum()), differing=int(differ.sum()), blanked=int((y_k == 0).sum()),
+               max_abs_err=float(np.max(np.abs(y_k - y_p))),
+               ms=timer(lambda: noise.noise_blanker(xd), K11A_KERNELS),
                plain_ms=timer(lambda: noise.noise_blanker_plain(xd)), bound_ms=b, bound_by=f,
-               library_note="no single PyTorch call blanks on a median threshold")
+               library_note="no single PyTorch call blanks on a median threshold", **extra)
 
-    # K11b: (c, n_audio) NBFM audio and (2, n_audio) wide audio
+    # K11b: (c, n_audio) NBFM audio, a mesh shard's (e_rows, n_audio), (2,
+    # n_audio) wide audio (17 frames: the register gain), and (2, 48,000),
+    # 92 frames: the staged gain
     src, rep = ("wavecap_tpu_torch/kernels/csrc/noise_reduction.cu",
                 "wavecap_tpu/ops/noise.py:44 spectral_noise_reduction")
-    for case, rows in (("nbfm audio", c), ("wide audio", 2)):
-        tt = np.arange(n_audio) / 48_000.0
+    k11b_cases = [("nbfm audio", c, n_audio)] + ([("nbfm audio", e_rows, n_audio)] if e_rows and e_rows != c else [])
+    k11b_cases += [("wide audio", 2, n_audio), ("wide audio, 92 frames", 2, K11B_MANY_FRAMES)]
+    for case, rows, n_a in k11b_cases:
+        tt = np.arange(n_a) / 48_000.0
         x = (0.3 * np.sin(2 * np.pi * rng.uniform(300, 3000, (rows, 1)) * tt)
-             * ((tt % 0.08) < 0.05) + 0.05 * rng.standard_normal((rows, n_audio))).astype(np.float32)
+             * ((tt % 0.08) < 0.05) + 0.05 * rng.standard_normal((rows, n_a))).astype(np.float32)
         xd = dev(x)
         y_k = host(noise.spectral_noise_reduction(xd))
         y_p = host(noise.spectral_noise_reduction_plain(xd))
         err = min(snr_db(y_p[i], y_k[i]) for i in range(rows))
         check(err >= 90.0, f"K11b ({case}) {err:.1f} dB < 90 against the plain version")
-        hop, frames, out_len = noise._nr_plan(n_audio, 1024, 0.5)
+        hop, frames, out_len = noise._nr_plan(n_a, 1024, 0.5)
+        plan = noise.k11b_plan(frames)
+        check((plan.bucket > 0) == (frames <= 32), f"K11b ({case}): {frames} frames took the gain plan {plan}")
         bins = 513
         spec_b = rows * frames * bins * 8
         frames_b = rows * frames * 1024 * 4
         plain = timer(lambda: noise.spectral_noise_reduction_plain(xd))
         framed = torch.empty((rows, frames, 1024), dtype=torch.float32, device=device)
         cufft = timer(lambda: torch.fft.irfft(torch.fft.rfft(framed, dim=-1), 1024, dim=-1))
-        parts = (("K11b_nr_frames", "nr_frames_kernel", bound(rows * n_audio * 4 + frames_b, 1.0 * frames_b / 4)),
+        # the per-bin floor alone through one PyTorch call, held to the plain
+        # version's first (quantile interpolates as lo + (hi - lo) h with q in
+        # float64: a few ulp from lo (1 - h) + hi h at q = f32(0.1))
+        idx = (torch.arange(frames, device=device)[:, None] * hop + torch.arange(1024, device=device)[None, :])
+        win, _ = noise._nr_tables(n_a, 1024, 0.5, device)
+        spec_mag = noise._magnitude(torch.fft.rfft(xd[..., idx] * win, dim=-1))
+        pos = noise._percentile_pos(frames)
+        lo_r, hi_r = int(np.floor(pos)), int(np.ceil(pos))
+        hw = np.float32(np.float32(pos) - np.float32(lo_r))
+        srt = torch.sort(spec_mag, dim=-2).values
+        floor_p = srt[..., lo_r, :] * float(np.float32(1.0) - hw) + srt[..., hi_r, :] * float(hw)
+        q = torch.quantile(spec_mag, 0.1, dim=-2)
+        check(bool(torch.allclose(q, floor_p, rtol=1e-6, atol=1e-12)),
+              f"K11b ({case}): torch.quantile's floor is not the plain version's")
+        part = timer(lambda: torch.quantile(spec_mag, 0.1, dim=-2))
+        parts = (("K11b_nr_frames", "nr_frames_kernel", bound(rows * n_a * 4 + frames_b, 1.0 * frames_b / 4), {}),
                  ("K11b_nr_gain", "nr_gain_kernel",
-                  bound(2 * spec_b, rows * frames * bins * (10.0 + 4 * np.log2(max(frames, 2))))),
+                  bound(2 * spec_b, rows * frames * bins * (10.0 + 4 * np.log2(max(frames, 2)))),
+                  dict(gain_plan=plan._asdict(), part_library_ms=part,
+                       part_library_note="torch.quantile(|X|, 0.1, dim=-2) of the frames' spectra: the "
+                                         "floor alone, not the same function (no gain, no rewrite)")),
                  ("K11b_nr_overlap_add", "nr_overlap_add_kernel",
-                  bound(frames_b + rows * n_audio * 8, 4.0 * rows * out_len)))
-        for name, kname, (b, f) in parts:
-            record(name, f"{case} ({rows}, {n_audio}): {frames} frames", src, rep, snr_vs_plain_db=err,
+                  bound(frames_b + rows * n_a * 8, 4.0 * rows * out_len), {}))
+        for name, kname, (b, f), extra in parts:
+            record(name, f"{case} ({rows}, {n_a}): {frames} frames", src, rep, snr_vs_plain_db=err,
                    max_abs_err=float(np.max(np.abs(y_k - y_p))),
                    ms=timer(lambda: noise.spectral_noise_reduction(xd), kname), plain_ms=plain,
                    plain_note="the whole plain function (framing, rFFT, sort, gain, irFFT, overlap-add)",
                    cufft_ms=cufft, bound_ms=b, bound_by=f,
-                   library_note="no single PyTorch call does spectral subtraction; cufft_ms is the rFFT + irFFT between the launches")
+                   library_note="no single PyTorch call does spectral subtraction; cufft_ms is the rFFT + irFFT between the launches",
+                   **extra)
 
     # K1 on the adaptive words: the unpacked block bit-equal, the arms within 1e-6
     ch = chz.ChannelizerConfig(sample_rate=float(m * 12_500), channel_bandwidth=12_500.0)
@@ -3129,7 +3200,13 @@ lines, cases = cs.mixed_kernel_checks(cs.mixed_config(), dev)
 k9 += [k for k in lines + cases if k["name"] == "K9_iir_cascade"]
 k5 += [k for k in cases if k["name"] == "K5_resample_poly"]
 k10 += [k for k in cases if k["name"] == "K10_pll"]
-print(json.dumps(dict(checkout=sys.argv[1], K2=k2, K9=k9, K5=k5, K10=k10), default=float))
+# K11a and K11b at program D's 160 bank rows and a mesh shard's 100, and
+# the wide rows, through this checkout's own checks and device_ms
+k11 = []
+for rows in (160, 100):
+    _, cases = cs.engine_kernel_checks(dev, c=rows)
+    k11 += [dict(k, call_rows=rows) for k in cases if k["name"].startswith("K11")]
+print(json.dumps(dict(checkout=sys.argv[1], K2=k2, K9=k9, K5=k5, K10=k10, K11=k11), default=float))
 """
 
 
@@ -3167,7 +3244,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
     ap.add_argument("--phase2-turns", metavar="OTHER_CHECKOUT",
-                    help="time K2, K5, K9 and K10 of this checkout and OTHER_CHECKOUT in turns")
+                    help="time K2, K5, K9, K10, K11a and K11b of this checkout and OTHER_CHECKOUT in turns")
     ap.add_argument("--out", help="with --phase2-turns: also write its JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -69,12 +69,12 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     ),
     "K10_pll": ("pll", "k10_pll", (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, K10Coeffs, _P)),
     "K11a_noise_blanker": (
-        "noise_blanker", "k11a_noise_blanker", (_P, _P, _I, _I, _I, _F, _I, _P),
+        "noise_blanker", "k11a_noise_blanker", (_P, _P, _P, _I, _I, _I, _F) + (_I,) * 10 + (_P,),
     ),
     "K11b_nr_frames": (
         "noise_reduction", "k11b_nr_frames", (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
-    "K11b_nr_gain": ("noise_reduction", "k11b_nr_gain", (_P, _I, _I, _I, _F, _F, _P)),
+    "K11b_nr_gain": ("noise_reduction", "k11b_nr_gain", (_P, _I, _I, _I, _F, _F, _I, _I, _I, _P)),
     "K11b_nr_overlap_add": (
         "noise_reduction", "k11b_nr_overlap_add", (_P,) * 5 + (_I,) * 6 + (_P,),
     ),

@@ -7,20 +7,22 @@ is carried from one block to the next.
 
 Two kernels carry them on the card, each with its plain version here:
 
-* K11a ``noise_blanker`` (``kernels/csrc/noise_blanker.cu``): one CTA per
-  row finds the exact midpoint median of ``|x|`` by a radix select, then
-  zeroes every sample within ``blanking_width`` of one above the
-  threshold;
+* K11a ``noise_blanker`` (``kernels/csrc/noise_blanker.cu``): a cluster
+  of CTAs a row (:func:`k11a_plan`) computes ``|x|`` once, finds the
+  exact midpoint median by a three-digit radix select, then zeroes every
+  sample within ``blanking_width`` of one above the threshold, the mask
+  dilated on 32-bit words;
 * K11b ``spectral_noise_reduction`` (``kernels/csrc/noise_reduction.cu``):
   the framing and Hann window, the per-bin 10th percentile and Wiener
-  gain, and the overlap-add are hand-written launches around cuFFT's
-  rFFT and irFFT (``torch.fft``), as the reference stands on XLA's
-  library FFT.
+  gain (:func:`k11b_plan`), and the overlap-add are hand-written launches
+  around cuFFT's rFFT and irFFT (``torch.fft``), as the reference stands
+  on XLA's library FFT.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,6 +70,50 @@ def noise_blanker_plain(
     return torch.where(keep, x, torch.zeros_like(x))
 
 
+SMEM_LIMIT = 200 * 1024  # bytes of shared memory a plan asks for, at most
+K11A_DIGITS = (11, 11, 10)  # the radix select's digits, bits from the top
+K11A_THREADS = 512
+K11A_ITEMS = (10, 12)  # samples a thread holds at once (template instances)
+K11A_SLICE = 6144  # samples a CTA takes before a row is split over a cluster
+K11A_MAX_CTAS = 8  # the portable cluster size
+
+
+class K11aPlan(NamedTuple):
+    """How K11a runs rows of ``n`` samples: ``ctas`` CTAs a row (one
+    cluster), ``threads`` each holding ``items`` samples at a time (a
+    slice of one such chunk keeps them in registers), ``slice`` samples a
+    CTA (a multiple of 32; CTA r takes ``[r slice, (r + 1) slice)``), the
+    select's ``digits``, ``staged`` (|x| and the mask words kept on chip;
+    else |x| recomputed from device memory each pass and the words in a
+    scratch row) and ``smem`` bytes of dynamic shared memory."""
+
+    ctas: int
+    threads: int
+    items: int
+    slice: int
+    digits: tuple
+    staged: bool
+    smem: int
+
+
+def k11a_plan(n: int, cplx: bool) -> K11aPlan:
+    """One CTA a row up to :data:`K11A_SLICE` samples, else the fewest
+    CTAs (at most 8) that bring a slice down to it; staged where the
+    histograms (two, and a cluster's sums), the slice's mask words (plain
+    and dilated) and its magnitudes fit in :data:`SMEM_LIMIT`, with the
+    fewest :data:`K11A_ITEMS` that hold the slice in one chunk."""
+    if n < 1 or n * (2 if cplx else 1) >= 2**31:
+        raise ValueError(f"K11a takes rows of 1 to 2**31 floats, not {n} samples")
+    ctas = min(K11A_MAX_CTAS, -(-n // K11A_SLICE))
+    slice_ = -(-(-(-n // ctas)) // 32) * 32
+    hists = 4 * (3 if ctas > 1 else 2) * (1 << max(K11A_DIGITS))
+    staged = hists + 4 * (2 * (slice_ // 32) + slice_)
+    if staged <= SMEM_LIMIT:
+        items = min((i for i in K11A_ITEMS if slice_ <= i * K11A_THREADS), default=K11A_ITEMS[-1])
+        return K11aPlan(ctas, K11A_THREADS, items, slice_, K11A_DIGITS, True, staged)
+    return K11aPlan(ctas, K11A_THREADS, K11A_ITEMS[-1], slice_, K11A_DIGITS, False, hists)
+
+
 def noise_blanker(
     x: torch.Tensor, threshold_db: float = 10.0, blanking_width: int = 3
 ) -> torch.Tensor:
@@ -83,9 +129,13 @@ def noise_blanker(
     if blanking_width < 0:
         raise ValueError("blanking_width must be >= 0")
     x2 = x.reshape(-1, n).contiguous()
+    rows = x2.shape[0]
     out = torch.empty_like(x2)
-    launch("K11a_noise_blanker", x.device, x2, out, x2.shape[0], n, int(x.is_complex()),
-           _threshold_factor(threshold_db), int(blanking_width))
+    plan = k11a_plan(n, x.is_complex())
+    words = None if plan.staged else torch.empty((rows, 2 * -(-n // 32)), dtype=torch.int32, device=x.device)
+    launch("K11a_noise_blanker", x.device, x2, out, words, rows, n, int(x.is_complex()),
+           _threshold_factor(threshold_db), int(blanking_width), plan.ctas, plan.threads, plan.items,
+           plan.slice, int(plan.staged), *plan.digits, plan.smem)
     return out.reshape(x.shape)
 
 
@@ -118,6 +168,39 @@ def _nr_tables(n: int, fft_size: int, overlap: float, device: torch.device):
     for f in range(frames):
         wsum[f * hop : f * hop + fft_size] += w2
     return torch.from_numpy(win).to(device), torch.from_numpy(wsum).to(device)
+
+
+K11B_BUCKETS = (8, 16, 24, 32)  # the register gain's frame buckets (template instances)
+K11B_TILE = 32  # bins a block of the staged gain, at most
+
+
+class K11bPlan(NamedTuple):
+    """How K11b's gain runs F frames: ``bucket`` > 0, the register variant
+    (F padded to ``bucket``, the ``least`` smallest magnitudes kept), or
+    0, the staged variant (``tile`` bins a block, ``smem`` bytes)."""
+
+    bucket: int
+    least: int
+    tile: int
+    smem: int
+
+
+def k11b_plan(frames: int) -> K11bPlan:
+    """The register variant for F <= 32; above, the staged variant with the
+    widest tile of bins (32, 16, ..., 1) whose magnitudes and gains fit in
+    :data:`SMEM_LIMIT`."""
+    if frames < 1:
+        raise ValueError(f"K11b needs a frame, not {frames}")
+    for bucket in K11B_BUCKETS:
+        if frames <= bucket:
+            return K11bPlan(bucket, -(-(bucket - 1) // 10) + 1, 0, 0)
+    tile = K11B_TILE
+    while tile > 1 and 4 * (frames * tile + tile) > SMEM_LIMIT:
+        tile //= 2
+    smem = 4 * (frames * tile + tile)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K11b's staged gain takes at most {SMEM_LIMIT // 4 - 1} frames, not {frames}")
+    return K11bPlan(0, 0, tile, smem)
 
 
 def spectral_noise_reduction_plain(
@@ -187,13 +270,14 @@ def spectral_noise_reduction(
     win, wsum = _nr_tables(n, fft_size, overlap, dev)
     x2 = x.reshape(-1, n).contiguous()
     rows = x2.shape[0]
+    plan = k11b_plan(frames)
     framed = torch.empty((rows, frames, fft_size), dtype=torch.float32, device=dev)
     launch("K11b_nr_frames", dev, x2, win, framed, rows, n, frames, fft_size, hop)
     spec = torch.fft.rfft(framed, dim=-1).contiguous()
     bins = spec.shape[-1]
     pos = _percentile_pos(frames)
     k = float(np.float32(10.0 ** (reduction_db / 20.0)))
-    launch("K11b_nr_gain", dev, spec, rows, frames, bins, pos, k)
+    launch("K11b_nr_gain", dev, spec, rows, frames, bins, pos, k, plan.bucket, plan.tile, plan.smem)
     clean = torch.fft.irfft(spec, fft_size, dim=-1).contiguous()
     y = torch.empty_like(x2)
     launch("K11b_nr_overlap_add", dev, clean, x2, win, wsum, y, rows, n, frames, fft_size, hop,
