@@ -59,17 +59,20 @@ Phases:
    against float64; K6 (the spectrum on cuFFT) and K8 (``pack_wire``) timed;
    last, K12s and K13s at programs A, B and C's shapes (dead air, and
    positions past both ends of the reference's clamp), with their
-   serial-chain estimates;
+   serial-chain estimates; K7 also at a mesh shard's wide slots (program
+   E) and program F's two per-shard P25 filters, K14 also on a
+   60,000-sample row in both modes;
 3. the first slice: a fake 10 Msps receiver with NBFM stations on known
    bins, 6 consecutive blocks through ``pack_i16_words`` -> upload ->
    ``capture_multi`` (800 active slots) -> ``unpack_wire``: each station's
    1 kHz tone, the squelch of empty slots, one launch of each of K1-K4
    per block, and the first block against the plain path on the card;
+   warm ms per block and a traced profile;
 4. the mixed-analog capture: two stations per narrow mode and one WBFM
    station, 6 blocks the same way: every station's 1 kHz tone, the
    squelch of empty slots, the launch count of each kernel that the
    configuration implies, the first two blocks against the plain path on
-   the card, the wire within 1 LSB; warm ms per block;
+   the card, the wire within 1 LSB; warm ms per block and a traced profile;
 5. program A: six looped C4FM stations (one 2 kHz off its bin centre) and
    three NBFM stations, 6 blocks: every station's hard decisions against
    its transmitted dibits from block 3 on (>= 99.5 %), the NBFM tones,
@@ -79,7 +82,7 @@ Phases:
 6. programs B and C the same way: LSM stations (one at +600 Hz CFO, one
    behind a 70 us echo that the equalizer must take, clean ones that keep
    identity taps) and Phase 2's control channel and 6000-baud stations;
-   B on the adaptive i8 words;
+   B on the adaptive i8 words; warm ms per block and a traced profile;
 7. the engine (program D): ``CaptureManager`` over the fake driver at 10
    Msps, ``create_channel`` for every slot of five banks of 160 (``nbfm``;
    ``nbfm`` with the noise blanker and noise reduction; ``am``, ``usb``
@@ -112,21 +115,24 @@ Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 It imports nothing of JAX.
 
-To time K2, K5, K9, K10, K11a and K11b against another checkout of the
-port on the same card::
+To time K2, K5, K7, K9, K10, K11a, K11b and K14 against another checkout
+of the port on the same card::
 
     python3 chip_smoke.py --phase2-turns OTHER_CHECKOUT [--out FILE]
 
-runs phase 2's K2, K5, K9, K10, K11a and K11b checks of OTHER_CHECKOUT's
-``chip_smoke.py`` and of this one in turns (other, this, this, other),
-each in its own process with its own kernels built from its own sources,
-and prints one JSON line a turn: the K2 records of ``kernel_checks`` (M =
-800, with the ``torch.fft`` route), K2 at M = 400 through that checkout's
-``device_ms``, K9 at 100 rows (a mesh shard's), K5 (narrow one-shot and
-streaming) at 160 and 100 rows and K10 (PLL and Costas) at 100 rows the
-same way, the K5, K9 and K10 records of ``mixed_kernel_checks``, and the
-K11a and K11b records of ``engine_kernel_checks`` at 160 and 100 rows
-(the wide rows too).
+runs phase 2's K2, K5, K7, K9, K10, K11a, K11b and K14 checks of
+OTHER_CHECKOUT's ``chip_smoke.py`` and of this one in turns (other, this,
+this, other), each in its own process with its own kernels built from its
+own sources, and prints one JSON line a turn: the K2 records of
+``kernel_checks`` (M = 800, with the ``torch.fft`` route), K2 at M = 400
+through that checkout's ``device_ms``, K9 at 100 rows (a mesh shard's),
+K5 (narrow one-shot and streaming) at 160 and 100 rows and K10 (PLL and
+Costas) at 100 rows the same way, the K5, K7, K9 and K10 records of
+``mixed_kernel_checks``, the K11a and K11b records of
+``engine_kernel_checks`` at 160 and 100 rows (the wide rows too), the K7
+and K14 records of ``p25_kernel_checks``, and K7 at a mesh shard's wide
+slots and program F's per-shard filters and K14 on a 60,000-sample row
+through that checkout's wrappers (the first K14 refuses the row).
 """
 
 from __future__ import annotations
@@ -158,6 +164,18 @@ K11B_KERNELS = ("nr_frames_kernel", "nr_gain_kernel", "nr_overlap_add_kernel")  
 K11A_LONG_ROW = 400_000  # complex samples: past a cluster's shared memory, the long-row path
 K11B_MANY_FRAMES = 48_000  # audio samples: 92 frames of 1,024 at hop 512, the staged gain
 K10_KERNELS = ("pll_kernel",)
+K14_KERNELS = ("acf_kernel", "residual_kernel", "epilogue_kernel")
+# every kernel's CUDA functions as CUPTI names them (each template instance
+# and variant is an op of its own), for the traced totals a block
+KERNEL_FUNCTIONS = {
+    "K1_unpack_arms": ("unpack_arms_kernel",), "K2_arm_dft": K2_KERNELS,
+    "K3_slot_frontend": ("slot_frontend_kernel",), "K4_voice_fir": ("voice_fir_kernel",),
+    "K5_resample_poly": K5_KERNELS, "K7_strided_fir": ("strided_fir_kernel",), "K9_iir_cascade": K9_KERNELS,
+    "K10_pll": K10_KERNELS, "K11a_noise_blanker": K11A_KERNELS, "K11b_noise_reduction": K11B_KERNELS,
+    "K12_c4fm_timing": ("timing_kernel<float, false>",), "K12s_c4fm_scan": ("::scan_kernel<float, false>",),
+    "K13_cqpsk_timing": ("timing_kernel<float2, true>",), "K13s_cqpsk_scan": ("::scan_kernel<float2, true>",),
+    "K13_cfo_lines": ("cfo_lines_kernel",), "K14_echo_fit": K14_KERNELS,
+}
 # K10's step: the dependent path from one phase to the next, counted in the
 # SASS of kernels/csrc/pll.cu's unrolled loop (scripts/k10_variants.py dumps
 # it): PLL 33 instructions (sin/cos 11, the mix 2, the detector 13 with one
@@ -668,6 +686,7 @@ def run_slice(cfg, device, sync=None) -> dict:
         phase="slice", blocks=N_BLOCKS, block_size=cfg.block_size, channels=m,
         slots=cfg.narrow_capacity, launches=counts, first_run_s=first_s,
         warm_ms_per_block=ms_block, msps=cfg.block_size / ms_block / 1e3,
+        profile=profile_blocks(one_pass, N_BLOCKS, sync),
         tone_margin_db={str(k): v for k, v in margins.items()},
         station_rssi_dbfs=[float(rssi[0, b]) for b in station_bins],
         empty_rssi_max_dbfs=float(rssi[:, empty].max()),
@@ -896,6 +915,64 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
            ms=timer(k7_wide, "strided_fir_kernel"), wrapper_ms=wall_timer(k7_wide),
            plain_ms=timer(lambda: fir.strided_fir_plain(xw, taps, wide.decim, head, (dphi, p0))),
            bound_ms=b, bound_by=f)
+    # K7 at a mesh shard's wide slots (program E, 8 time shards): the shard's
+    # samples behind the history's T - 1, one shared row, no head
+    n_sh = n // MESH_SHARDS + t_len - 1
+    xs = xw[:n_sh]
+
+    def k7_shard():
+        return fir.strided_fir(xs, taps, wide.decim, nco=(dphi, p0))
+
+    out_k = [host(v) for v in k7_shard()]
+    out_p = [host(v) for v in fir.strided_fir_plain(xs, taps, wide.decim, None, (dphi, p0))]
+    err = rel_l2(out_p[0], out_k[0])
+    check(err <= 1e-5 and rel_l2(out_p[1], out_k[1]) <= 1e-6 and np.array_equal(out_p[2], out_k[2]),
+          f"K7 at a mesh shard's wide slots: rel L2 {err:.3g} > 1e-5, or its tail or phases differ")
+    n_out_sh = out_k[0].shape[-1]
+    b, f = bound(n_sh * 8 + t_len * 4 + 2 * n_out_sh * 8 + 2 * (t_len - 1) * 8,
+                 2.0 * n_sh * 11 + 2.0 * n_out_sh * t_len * 4)
+    planes_sh = planes[:, t_len - 1:t_len - 1 + n_sh].contiguous()
+    cases.append(dict(
+        name="K7_strided_fir", case=f"a mesh shard's wide slots (program E): NCO + decimate by {wide.decim}, "
+        f"{t_len} taps, 2 x {n_sh} complex -> {n_out_sh}", rel_l2=err, max_abs_err=max_abs(out_p[0], out_k[0]),
+        bound_ms=b, bound_by=f, ms=timer(k7_shard, "strided_fir_kernel"), wrapper_ms=wall_timer(k7_shard),
+        plain_ms=timer(lambda: fir.strided_fir_plain(xs, taps, wide.decim, None, (dphi, p0))),
+        library_ms=timer(lambda: F.conv1d(planes_sh.unsqueeze(1), kern, stride=wide.decim))))
+    # K7 at the wide slots of 20 and 25 Msps captures (0.2 s blocks): spans
+    # too long for the big tiles, so the plan takes a phase set a phase
+    from wavecap_tpu_torch.capture.pipeline import WideSlotConfig
+
+    for rate in (20_000_000, 25_000_000):
+        wide_r = WideSlotConfig(sample_rate=rate, capacity=2)
+        taps_r = _wide_taps_on(wide_r, device)
+        t_r, n_r = taps_r.shape[0], rate // 5
+        x_r = dev((rng.standard_normal(n_r) + 1j * rng.standard_normal(n_r)).astype(np.complex64) * 0.1)
+        head_r = dev((rng.standard_normal((2, t_r - 1)) + 1j * rng.standard_normal((2, t_r - 1)))
+                     .astype(np.complex64) * 0.1)
+        dphi_r = tuning_word(-dev(np.array(WIDE_OFFSETS, np.float32)), rate)
+
+        def k7_rate(x_r=x_r, taps_r=taps_r, d_r=wide_r.decim, head_r=head_r, dphi_r=dphi_r):
+            return fir.strided_fir(x_r, taps_r, d_r, head=head_r, nco=(dphi_r, p0))
+
+        def k7_rate_plain(x_r=x_r, taps_r=taps_r, d_r=wide_r.decim, head_r=head_r, dphi_r=dphi_r):
+            return fir.strided_fir_plain(x_r, taps_r, d_r, head_r, (dphi_r, p0))
+
+        out_k = [host(v) for v in k7_rate()]
+        out_p = [host(v) for v in k7_rate_plain()]
+        err = rel_l2(out_p[0], out_k[0])
+        check(err <= 1e-5 and rel_l2(out_p[1], out_k[1]) <= 1e-6 and np.array_equal(out_p[2], out_k[2]),
+              f"K7 at {rate / 1e6:g} Msps wide slots: rel L2 {err:.3g} > 1e-5, or its tail or phases differ")
+        n_out_r = out_k[0].shape[-1]
+        plan_r = fir.k7_plan(t_r, wide_r.decim, 2, n_out_r, True, False)
+        b, f = bound(n_r * 8 + 2 * (t_r - 1) * 8 * 2 + t_r * 4 + 2 * n_out_r * 8,
+                     2.0 * n_r * 11 + 2.0 * n_out_r * t_r * 4)
+        cases.append(dict(
+            name="K7_strided_fir", case=f"wide slots at {rate / 1e6:g} Msps: NCO + decimate by {wide_r.decim}, "
+            f"{t_r} taps, 2 x {n_r} complex -> {n_out_r}", rel_l2=err, max_abs_err=max_abs(out_p[0], out_k[0]),
+            plan=dict(groups=plan_r.groups, phase_sets=plan_r.phase_sets, splits=plan_r.splits,
+                      direct=plan_r.direct, smem=plan_r.smem),
+            bound_ms=b, bound_by=f, ms=timer(k7_rate, "strided_fir_kernel"), wrapper_ms=wall_timer(k7_rate),
+            plain_ms=timer(k7_rate_plain), library_ms=None))
     x5 = dev(rng.standard_normal((2, 48_000)).astype(np.float32))
     tail5 = dev(rng.standard_normal((2, 100)).astype(np.float32))
     y_k, t_k = fir.resample_poly_stream(x5, 240_000, 48_000, tail5)
@@ -1303,10 +1380,10 @@ def run_mixed(cfg, device, sync=None) -> dict:
 def profile_blocks(one_pass, blocks: int, sync) -> dict:
     """One warm pass under torch.profiler, per block: traced wall ms, the
     card's busy ms (kernels and copies, CUPTI), its idle share, the host's
-    CPU ms, the ops with the most device time, and K2's, K5's, K9's, K10's,
-    K11a's and K11b's (its three launches) device time and launches summed
-    over all their kernels' instances (each template instance or variant
-    is an op of its own, and may miss the top list)."""
+    CPU ms, the ops with the most device time, and every kernel's (K1-K14,
+    K12s, K13s; K11b's three launches as one) device time and launches
+    summed over all its functions' instances (each template instance or
+    variant is an op of its own, and may miss the top list)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1332,9 +1409,7 @@ def profile_blocks(one_pass, blocks: int, sync) -> dict:
                                  for e in top if dev_ms(e) > 0],
         kernel_totals_per_block={
             name: dict(ms=sum(dev_ms(e) for e in hits), launches=sum(e.count for e in hits) / blocks)
-            for name, kernels in (("K2_arm_dft", K2_KERNELS), ("K5_resample_poly", K5_KERNELS),
-                                  ("K9_iir_cascade", K9_KERNELS), ("K10_pll", K10_KERNELS),
-                                  ("K11a_noise_blanker", K11A_KERNELS), ("K11b_noise_reduction", K11B_KERNELS))
+            for name, kernels in KERNEL_FUNCTIONS.items()
             for hits in [[e for e in on_card if any(k in e.key for k in kernels)]]},
     )
 
@@ -1364,7 +1439,6 @@ C_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 2, "K7_s
               "K13_cfo_lines": 2, "K13_cqpsk_timing": 2}
 # a serial pass of K12/K13: ~40 SM cycles per element a thread walks, ~300 per block reduction
 PASS_CYCLES, REDUCE_CYCLES = 40, 300
-K14_KERNELS = ("acf_kernel", "residual_kernel", "epilogue_kernel")
 
 
 def p25_configs() -> dict:
@@ -1691,6 +1765,45 @@ def p25_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_h
                       wrapper_ms=wall_timer(lambda: eqz.echo_score(x3, grid)),
                       plain_ms=timer(lambda: eqz.echo_score_plain(x3, grid)), library_ms=None))
 
+    # K14 on one 60,000-sample row (the first design staged a row in shared
+    # memory and refused rows past 25,000 samples), fit and score modes
+    n_long = 60_000
+    xl_np = cqpsk_rows(rng, 1, n_long, cfg_b.sample_rate, 4800.0, 0.2, cfo=np.zeros(1))
+    xl_np = xl_np + (0.8 * np.exp(2.98j)) * np.roll(xl_np, 4, axis=-1)
+    xl = dev(xl_np.astype(np.complex64))
+    acc_l = torch.zeros((1, grid.n_tau + 1), dtype=torch.complex64, device=device)
+    on_l = torch.ones(1, dtype=torch.bool, device=device)
+
+    def fit_long():
+        return eqz.echo_fit(xl, acc_l, on_l, grid, 41, 0.01, 0.35, 0.6, 0.5)
+
+    def fit_long_plain():
+        return eqz.echo_fit_plain(xl, acc_l, on_l, grid, 41, 0.01, 0.35, 0.6, 0.5)
+
+    t_k, a_k, s_k, j_k = (host(v) for v in fit_long())
+    t_p, a_p, s_p, j_p = (host(v) for v in fit_long_plain())
+    err_t, err_a = rel_l2(t_p, t_k), rel_l2(a_p, a_k)
+    check(np.array_equal(j_k, j_p) and np.array_equal(s_k, s_p) and bool(s_k[0]),
+          f"K14 on a {n_long}-sample row: candidate {j_k} / {j_p}, significance {s_k} / {s_p}")
+    check(err_t <= 1e-5 and err_a <= 1e-6,
+          f"K14 on a {n_long}-sample row: taps rel L2 {err_t:.3g} (<= 1e-5), acf {err_a:.3g} (<= 1e-6)")
+    b, f = bound(n_long * 8 + n_c * lags * 8 + n_c * 12 + 2 * lags * 8 + 41 * 8 + 5,
+                 lags * n_long * 8.0 + n_c * lags * 7.0 + 41 * 512 * 8.0)
+    cases.append(dict(name="K14_echo_fit", case=f"fit, one {n_long}-sample row", taps_rel_l2=err_t,
+                      acf_rel_l2=err_a, max_abs_err=max_abs(t_p, t_k), bound_ms=b, bound_by=f,
+                      ms=timer(fit_long, K14_KERNELS), wrapper_ms=wall_timer(fit_long),
+                      plain_ms=timer(fit_long_plain), library_ms=None))
+    xl3 = torch.cat([xl, xl * dev(np.exp(2j * np.pi * 1200.0 * np.arange(n_long) / cfg_b.sample_rate)
+                                  .astype(np.complex64)), torch.flip(xl, [1])])
+    sc_k, sc_p = host(eqz.echo_score(xl3, grid)), host(eqz.echo_score_plain(xl3, grid))
+    err = rel_l2(sc_p, sc_k)
+    check(err <= 1e-5, f"K14 score mode on {n_long}-sample rows: rel L2 {err:.3g} > 1e-5")
+    b, f = bound(3 * n_long * 8 + n_c * lags * 8 + 3 * 4, 3 * (lags * n_long * 8.0 + n_c * lags * 7.0))
+    cases.append(dict(name="K14_echo_fit", case=f"alias score, 3 rows of {n_long}", rel_l2=err, bound_ms=b,
+                      bound_by=f, ms=timer(lambda: eqz.echo_score(xl3, grid), K14_KERNELS),
+                      wrapper_ms=wall_timer(lambda: eqz.echo_score(xl3, grid)),
+                      plain_ms=timer(lambda: eqz.echo_score_plain(xl3, grid)), library_ms=None))
+
     # K7: the equaliser's per-row complex taps in one launch, against conv1d in full f32
     taps = dev((rng.standard_normal((rows_b, 41)) + 1j * rng.standard_normal((rows_b, 41))).astype(np.complex64) * 0.2)
     xin = torch.cat([dev((rng.standard_normal((rows_b, 40)) + 1j * rng.standard_normal((rows_b, 40)))
@@ -1708,6 +1821,36 @@ def p25_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_h
                       plain_ms=timer(lambda: fir.strided_fir_plain(xin, taps, 1)),
                       # yardstick: one complex grouped conv1d
                       library_ms=timer(lambda: F.conv1d(xin.unsqueeze(0), kern, groups=rows_b))))
+
+    # K7 at program F's per-shard P25 filters (8 time shards of program A's
+    # 0.24 s blocks: 50 rows of 1,500 channel samples behind their carried
+    # T - 1): the C4FM low-pass on complex rows, the RRC on real rows
+    lpf, rrc = c4fm._filters_on(float(ca.sample_rate), ca.rrc_alpha, device)
+    rows_f = cfgs["A"].p25_capacity
+    n_f = 2 * F_BLOCK // MESH_SHARDS // cfgs["A"].channelizer().channel_count
+    for taps_f, cplx_f, what in ((lpf, True, "C4FM low-pass, complex rows"), (rrc, False, "C4FM RRC, real rows")):
+        t_f = taps_f.shape[0]
+        xf_np = rng.standard_normal((rows_f, n_f + t_f - 1))
+        if cplx_f:
+            xf_np = xf_np + 1j * rng.standard_normal((rows_f, n_f + t_f - 1))
+        xf = dev((0.3 * xf_np).astype(np.complex64 if cplx_f else np.float32))
+        y_k = host(fir.strided_fir(xf, taps_f, 1)[0])
+        y_p = host(fir.strided_fir_plain(xf, taps_f, 1)[0])
+        err = rel_l2(y_p, y_k)
+        check(err <= 1e-5, f"K7 at program F's {what}: rel L2 {err:.3g} > 1e-5")
+        item = 8 if cplx_f else 4
+        b, f = bound(rows_f * (n_f + t_f - 1) * item + t_f * 4 + rows_f * n_f * item,
+                     rows_f * n_f * t_f * (4.0 if cplx_f else 2.0))
+        planes_f = torch.view_as_real(xf).movedim(-1, 1).reshape(-1, 1, n_f + t_f - 1) if cplx_f else xf.unsqueeze(1)
+        kern_f = taps_f.flip(0).reshape(1, 1, -1)
+        cases.append(dict(name="K7_strided_fir", case=f"program F's per-shard {what}: {t_f} taps, "
+                          f"({rows_f}, {n_f + t_f - 1})", rel_l2=err, max_abs_err=max_abs(y_p, y_k),
+                          bound_ms=b, bound_by=f,
+                          ms=timer(lambda: fir.strided_fir(xf, taps_f, 1), "strided_fir_kernel"),
+                          wrapper_ms=wall_timer(lambda: fir.strided_fir(xf, taps_f, 1)),
+                          plain_ms=timer(lambda: fir.strided_fir_plain(xf, taps_f, 1)),
+                          # yardstick: cuDNN's conv1d of the rows' planes (TF32 off)
+                          library_ms=timer(lambda: F.conv1d(planes_f, kern_f))))
     names = ("K12_c4fm_timing", "K13_cqpsk_timing", "K13_cfo_lines", "K14_echo_fit")
     return [lines[k] for k in names], cases
 
@@ -1961,7 +2104,8 @@ def run_program_bc(cfg, device, name: str, sync=None, launches=None, echo_first=
                    engaged_slots=[int(i) for i in np.flatnonzero(hits >= engage)])
     res.update(first_blocks_vs_plain(words, cfg, ctl, outs, device, soft_slots))
     ms_block, one_pass = warm_ms(cfg, device, words, ctl, sync)
-    res.update(warm_ms_per_block=ms_block, msps=cfg.block_size / ms_block / 1e3)
+    res.update(warm_ms_per_block=ms_block, msps=cfg.block_size / ms_block / 1e3,
+               profile=profile_blocks(one_pass, N_BLOCKS, sync))
     return res
 
 
@@ -3196,17 +3340,71 @@ k10 = [dict(name="K10_pll", case="SAM carrier PLL (100, 4920)",
             ms=cs.device_ms(lambda: pll.carrier_recovery_pll(z, 25_000.0, st), ("pll_kernel",))),
        dict(name="K10_pll", case="Costas QPSK (100, 4920)",
             ms=cs.device_ms(lambda: pll.costas_loop_qpsk(z, st, al, be), ("pll_kernel",)))]
+# the P25 checks before the mixed checks' plain scans (see device_ms)
+_, p_cases = cs.p25_kernel_checks(cs.p25_configs(), dev)
 lines, cases = cs.mixed_kernel_checks(cs.mixed_config(), dev)
 k9 += [k for k in lines + cases if k["name"] == "K9_iir_cascade"]
 k5 += [k for k in cases if k["name"] == "K5_resample_poly"]
 k10 += [k for k in cases if k["name"] == "K10_pll"]
+k7 = [k for k in lines + cases if k["name"] == "K7_strided_fir"]
 # K11a and K11b at program D's 160 bank rows and a mesh shard's 100, and
 # the wide rows, through this checkout's own checks and device_ms
 k11 = []
 for rows in (160, 100):
     _, cases = cs.engine_kernel_checks(dev, c=rows)
     k11 += [dict(k, call_rows=rows) for k in cases if k["name"].startswith("K11")]
-print(json.dumps(dict(checkout=sys.argv[1], K2=k2, K9=k9, K5=k5, K10=k10, K11=k11), default=float))
+# K7 and K14: this checkout's own phase-2 cases (K7's wide slots and up == 1
+# in mixed_kernel_checks, the equaliser and K14's fit and alias scores in
+# p25_kernel_checks, run above), then K7 at a mesh shard's shapes and K14 on a
+# 60,000-sample row through its wrappers, the same in every checkout
+from wavecap_tpu_torch.capture.pipeline import p25_cfg_for
+from wavecap_tpu_torch.models.p25 import c4fm, cqpsk, equalizer as eqz
+from wavecap_tpu_torch.ops.nco import tuning_word
+k7 += [k for k in p_cases if k["name"] == "K7_strided_fir"]
+k14 = [k for k in p_cases if k["name"] == "K14_echo_fit"]
+k7_fn = ("strided_fir_kernel",)
+tw = torch.from_numpy(fir.design_decimation_fir(41, 10_000_000.0)).to(dev)
+xs = torch.from_numpy((0.1 * (rng.standard_normal(247_030) + 1j * rng.standard_normal(247_030)))
+                      .astype(np.complex64)).to(dev)
+dphi = tuning_word(-torch.tensor([700_000.0, -1_200_000.0], device=dev), 10_000_000.0)
+p0 = torch.from_numpy(np.array([12345, 4_000_000_000], np.uint32)).to(dev)
+k7.append(dict(name="K7_strided_fir", case="turn: a mesh shard's wide slots, 2 x 247,030 -> 6,000",
+               ms=cs.device_ms(lambda: fir.strided_fir(xs, tw, 41, nco=(dphi, p0)), k7_fn)))
+from wavecap_tpu_torch.capture.pipeline import WideSlotConfig
+for rate in (20_000_000, 25_000_000):
+    d_r = WideSlotConfig(sample_rate=rate).decim
+    t_r = torch.from_numpy(fir.design_decimation_fir(d_r, float(rate))).to(dev)
+    x_r = torch.from_numpy((0.1 * (rng.standard_normal(rate // 5) + 1j * rng.standard_normal(rate // 5)))
+                           .astype(np.complex64)).to(dev)
+    h_r = torch.zeros((2, t_r.shape[0] - 1), dtype=torch.complex64, device=dev)
+    dphi_r = tuning_word(-torch.tensor([700_000.0, -1_200_000.0], device=dev), float(rate))
+    try:
+        ms = cs.device_ms(lambda: fir.strided_fir(x_r, t_r, d_r, head=h_r, nco=(dphi_r, p0)), k7_fn)
+    except NotImplementedError as e:
+        ms = f"refused: {e}"
+    k7.append(dict(name="K7_strided_fir", case=f"turn: wide slots at {rate / 1e6:g} Msps, 2 x {rate // 5} "
+                   f"-> {(rate // 5 - 1) // d_r + 1}, {t_r.shape[0]} taps", ms=ms))
+lpf, rrc = c4fm._filters_on(50_000.0, 0.2, dev)
+for taps, cplx in ((lpf, True), (rrc, False)):
+    xf = rng.standard_normal((50, 1_500 + taps.shape[0] - 1))
+    xf = xf + 1j * rng.standard_normal(xf.shape) if cplx else xf
+    xf = torch.from_numpy(xf.astype(np.complex64 if cplx else np.float32)).to(dev)
+    k7.append(dict(name="K7_strided_fir", case=f"turn: program F's per-shard {taps.shape[0]} taps, "
+                   f"{tuple(xf.shape)} {'complex' if cplx else 'real'}",
+                   ms=cs.device_ms(lambda: fir.strided_fir(xf, taps, 1), k7_fn)))
+grid = cqpsk._cfg_grid(p25_cfg_for(cs.p25_configs()["B"]), dev)
+xl = torch.from_numpy((rng.standard_normal((1, 60_000)) + 1j * rng.standard_normal((1, 60_000)))
+                      .astype(np.complex64)).to(dev)
+acc = torch.zeros((1, grid.n_tau + 1), dtype=torch.complex64, device=dev)
+on = torch.ones(1, dtype=torch.bool, device=dev)
+try:
+    ms = cs.device_ms(lambda: eqz.echo_fit(xl, acc, on, grid, 41, 0.01, 0.35, 0.6, 0.5),
+                      ("acf_kernel", "residual_kernel", "epilogue_kernel"))
+except NotImplementedError as e:
+    ms = f"refused: {e}"
+k14.append(dict(name="K14_echo_fit", case="turn: fit, one 60,000-sample row", ms=ms))
+print(json.dumps(dict(checkout=sys.argv[1], K2=k2, K9=k9, K5=k5, K10=k10, K11=k11, K7=k7, K14=k14),
+                 default=float))
 """
 
 
@@ -3244,7 +3442,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
     ap.add_argument("--phase2-turns", metavar="OTHER_CHECKOUT",
-                    help="time K2, K5, K9, K10, K11a and K11b of this checkout and OTHER_CHECKOUT in turns")
+                    help="time K2, K5, K7, K9, K10, K11a, K11b and K14 of this checkout and OTHER_CHECKOUT "
+                         "in turns")
     ap.add_argument("--out", help="with --phase2-turns: also write its JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -62,7 +62,7 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     ),
     "K7_strided_fir": (
         "strided_fir", "k7_strided_fir",
-        (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     ),
     "K9_iir_cascade": (
         "iir_cascade", "k9_iir_cascade", (_P,) * 6 + (_I,) * 7 + (_P,),

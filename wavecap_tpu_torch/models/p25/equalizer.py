@@ -16,7 +16,9 @@ version here: the block acf over the lags (normalised, the finiteness
 guard, the EMA and the enable guard), the residual against every
 candidate with the first argmin, the gate, and the 41 taps synthesised
 as a direct inverse DFT of ``W`` at the needed indices.  Its score mode
-(the minimum residual only) serves ``resolve_cfo_alias``.
+(the minimum residual only) serves ``resolve_cfo_alias``.  The acf
+streams each row through a cluster of CTAs (:func:`k14_plan`), so a
+row may have any length.
 """
 
 from __future__ import annotations
@@ -32,8 +34,6 @@ from ...ops import fir as fir_ops
 from ...utils.torchenv import DeviceLike, resolve_device
 
 EQ_NFFT = 512
-_MAX_ROW = 25_000  # samples of a row that K14 stages in shared memory
-_SMEM_LIMIT = 200 * 1024
 _W_GRID = (2.0 * np.pi * np.arange(EQ_NFFT) / EQ_NFFT).astype(np.float32)
 
 
@@ -155,6 +155,36 @@ def _mmse_taps(a: torch.Tensor, theta: torch.Tensor, d: torch.Tensor, n_taps: in
 # --- K14: echo fit --------------------------------------------------------------
 
 
+class K14Plan(NamedTuple):
+    """How K14's acf pass splits a row of ``n`` samples: ``ctas`` CTAs (one
+    thread-block cluster) a row, ``threads`` a CTA, each taking ``per``
+    consecutive samples of a pass of ``chunk`` samples and reading their
+    ``lookback`` (the lags less one) from the staged chunk; CTA ``c`` of a
+    row takes the passes ``c, c + ctas, ...``.  Each thread sums its
+    samples' products lag by lag, each CTA its threads' sums (four chains
+    over the threads, each thread's sums in order), and the CTAs of a row
+    their sums in rank order.  ``kernels/csrc/echo_fit.cu`` computes the
+    same plan (``acf_ctas``) from its constants."""
+
+    ctas: int
+    threads: int
+    per: int
+    chunk: int
+    lookback: int
+
+
+K14_THREADS = 128  # echo_fit.cu: kAcfThreads
+K14_PER = 8  # kPer
+K14_MAX_CTAS = 8  # kMaxCtas
+
+
+def k14_plan(n: int, lags: int) -> K14Plan:
+    """The acf pass's launch plan for rows of ``n`` samples and ``lags`` lags."""
+    chunk = K14_THREADS * K14_PER
+    ctas = min(max(-(-int(n) // chunk), 1), K14_MAX_CTAS)
+    return K14Plan(ctas, K14_THREADS, K14_PER, chunk, int(lags) - 1)
+
+
 def echo_fit_plain(x, acf_acc, enable, grid: EchoGrid, n_taps: int, lam: float,
                    a_floor: float, gate_ratio: float, acf_ema: float):
     """Plain version of K14's fit: ``(taps, acf, significant, j)`` per row."""
@@ -186,10 +216,8 @@ def _k14(x, grid: EchoGrid, acf_acc=None, enable=None, n_taps=0, lam=0.0, a_floo
         raise ValueError("K14 takes complex64 rows of shape (R, n)")
     rows, n = x.shape
     lags = grid.n_tau + 1
-    if not 0 < n <= _MAX_ROW:
-        raise NotImplementedError(f"K14 stages rows of 1..{_MAX_ROW} samples, not {n}")
-    if rows * lags * 8 > _SMEM_LIMIT:
-        raise NotImplementedError(f"K14 stages the acf of {rows} rows: too many")
+    if lags > 32:
+        raise NotImplementedError(f"K14 fits at most 32 lags, not {lags}")
     if grid.preds.device != dev or grid.preds.dtype != torch.complex64:
         raise ValueError("K14's candidate table must be complex64 on the input's device")
     x = x.contiguous()

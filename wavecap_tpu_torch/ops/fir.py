@@ -41,7 +41,15 @@ from ..kernels import launch
 from ..utils.torchenv import DeviceLike, resolve_device
 from .nco import _next_phase, nco_phases
 
-_K7_TILE = 128  # outputs per K7 block (kernels/csrc/strided_fir.cu)
+_K7_R = 8  # outputs a thread of K7 (kernels/csrc/strided_fir.cu: kR)
+_K7_SMALL_OUTPUTS = 400_000  # a launch of at most this many outputs ...
+_K7_SHORT_TAPS = 128  # ... and taps takes the direct variant
+_K7_DIRECT_TILE = 128  # the direct variant's outputs (threads) a block (kDirectTile)
+_K7_MAX_THREADS = 512  # threads a K7 block, at most (kMaxThreads)
+_K7_FILL_CTAS = 100  # fewer blocks than this: smaller tiles
+_K7_BIG_ITEMS = 2 * 132  # tiles of 32 groups for two rounds of the SMs: big tiles
+_K7_FILL_THREADS = 132 * 1024  # fewer threads than this: split the taps
+_K7_SMEM_MAX = 232_448  # the H100's 227 KB a block (kSmemMax)
 _K5_PER = 8  # outputs a thread of K5's table variant (kernels/csrc/resample_poly.cu)
 _K5_THREADS = 256  # threads a block of the table variant, at most (rounded down to a multiple of up)
 _K5_ROW_TILE = 256  # outputs (threads) a block of the row variant
@@ -66,6 +74,113 @@ def _conv_valid_fft(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 
 
 # --- K7: strided valid FIR, optional head and NCO ------------------------------
+
+
+class K7Plan(NamedTuple):
+    """How K7 runs: blocks of ``threads = phase_sets x groups x splits``
+    threads, each block a ``tile`` of ``groups x r`` outputs of one row.
+    A thread owns ``r`` consecutive outputs, a phase set ``ps`` (the
+    phases ``p = ps, ps + phase_sets, ... < stride``) and of each phase the
+    run of ``q_split`` taps ``q`` of its split (tap ``p + q stride``), its
+    sums carried from phase to phase; the ``phase_sets x splits`` partial
+    sums of an output are added set by set, split by split.  ``span`` input
+    samples are staged a block, ``smem`` bytes in all.  ``group_fast``: the
+    lanes of a warp take consecutive groups (else consecutive phase sets).
+    K7's entry takes ``groups``, ``phase_sets``, ``splits`` and ``direct``
+    and derives the rest as here."""
+
+    groups: int
+    phase_sets: int
+    splits: int
+    r: int
+    tile: int
+    threads: int
+    q_split: int
+    span: int
+    smem: int
+    group_fast: bool
+    direct: bool
+
+
+def _plane(n: int) -> int:
+    """Floats of a staged plane of ``n`` samples: one of padding every 32."""
+    return n + (n >> 5) + 1
+
+
+def _k7_direct(t: int, d: int, cplx: bool, taps_cplx: bool) -> K7Plan:
+    """The direct variant: an output a thread, 128 a block, every tap in
+    one thread, the block's span and the taps staged."""
+    span = (_K7_DIRECT_TILE - 1) * d + t
+    smem = 4 * ((t * (2 if taps_cplx else 1) + 3) & ~3) + (8 if cplx else 4) * span
+    return K7Plan(_K7_DIRECT_TILE, 1, 1, 1, _K7_DIRECT_TILE, _K7_DIRECT_TILE, t, span, smem, False, True)
+
+
+def _k7_layout(t: int, d: int, g: int, ps: int, s: int, cplx: bool, taps_cplx: bool) -> K7Plan:
+    """The pipelined variant's layout of ``g`` groups, ``ps`` phase sets
+    and ``s`` splits, as the kernel derives it."""
+    r = _K7_R
+    q = -(-t // d)
+    q_split = -(-(-(-q // s)) // r) * r
+    tile = g * r
+    span = (tile - 1) * d + t
+    planes = 2 if cplx else 1
+    body = planes * _plane(span)
+    if ps * s > 1:
+        body = max(body, planes * ps * s * (tile + 1))
+    taps_floats = (t * (2 if taps_cplx else 1) + 3) & ~3
+    raw_off = (taps_floats + body + 3) & ~3  # the raw span, copied in while the last tile computes
+    return K7Plan(g, ps, s, r, tile, ps * g * s, q_split, span, 4 * (raw_off + planes * span), ps < 16, False)
+
+
+@lru_cache(maxsize=256)
+def k7_plan(n_taps: int, stride: int, rows: int, n_out: int, cplx: bool, taps_cplx: bool,
+            forced: tuple | None = None) -> K7Plan | None:
+    """K7's launch plan, the one the kernel runs.  A launch of at most
+    400,000 outputs and 128 taps takes the direct variant.  Else a phase
+    set a phase; 32 groups of 8 outputs a block at stride 1, else as many
+    as 512 threads hold (at most 16), but 32 groups and 16 phase sets for
+    a stride of 16 or more whose tiles of 32 groups number 264 or more;
+    fewer groups while the launch has fewer than 100 blocks; then the taps
+    split 2, 4 or 8 ways while the launch has fewer than 132 x 1,024
+    threads and each split keeps 16 taps; a warp at least.  A plan past a
+    block's shared memory gives up its big tiles, then halves its groups;
+    where no pipelined plan fits, the direct variant, and ``None`` where
+    that does not fit either.  ``forced``: ``(groups, phase_sets, splits[,
+    direct])`` in its place."""
+    t, d, r = int(n_taps), int(stride), _K7_R
+    direct = _k7_direct(t, d, cplx, taps_cplx)
+    if forced is not None:
+        if len(forced) > 3 and forced[3]:
+            return direct
+        return _k7_layout(t, d, *forced[:3], cplx, taps_cplx)
+    if rows * n_out <= _K7_SMALL_OUTPUTS and t <= _K7_SHORT_TAPS and direct.smem <= _K7_SMEM_MAX:
+        return direct
+    q = -(-t // d)
+
+    def ctas(gg: int) -> int:
+        return rows * -(-n_out // (gg * r))
+
+    starts = [(32 if d == 1 else max(min(_K7_MAX_THREADS // d, 16), 1), d, False)]
+    if d >= 16 and ctas(32) >= _K7_BIG_ITEMS:  # long decimating rows: big tiles, fewer partial sums
+        starts.insert(0, (32, 16, True))
+    for g, ps, big in starts:
+        while g > 4 and ctas(g) < _K7_FILL_CTAS:
+            g = (g + 1) // 2
+        while True:
+            s = 1
+            while (s < 8 and ps * g * s * 2 <= _K7_MAX_THREADS and -(-q // (2 * s)) >= 2 * r
+                   and ctas(g) * ps * g * s < _K7_FILL_THREADS):
+                s *= 2
+            gw = g
+            while ps * gw * s < 32:  # a warp at least
+                gw *= 2
+            plan = _k7_layout(t, d, gw, ps, s, cplx, taps_cplx)
+            if plan.smem <= _K7_SMEM_MAX and plan.threads <= _K7_MAX_THREADS:
+                return plan
+            if big or g == 1:  # big tiles only whole
+                break
+            g //= 2
+    return direct if direct.smem <= _K7_SMEM_MAX else None
 
 
 def _conv1d_rows(xr: torch.Tensor, taps: torch.Tensor, stride: int) -> torch.Tensor:
@@ -182,10 +297,10 @@ def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
         v = torch.cat([head2, x2.expand(rows, n)], -1) if head2 is not None else x2.expand(rows, n)
         return (x.new_empty(lead + (0,)), v[:, total - tail_len:].reshape(lead + (tail_len,)),
                 None)
-    item = 8 if cplx else 4
-    span = (_K7_TILE - 1) * stride + t
-    if span * item + t * taps.element_size() > _SMEM_LIMIT:
-        raise NotImplementedError(f"K7 stages {span} samples and {t} taps per block: too many")
+    plan = k7_plan(t, stride, rows, n_out, cplx, taps_cplx)
+    if plan is None:
+        raise NotImplementedError(f"K7 at stride {stride} with {t} taps: no tile fits a block's "
+                                  "shared memory")
     dphi = phase0 = phase1 = None
     if nco is not None:
         dphi = nco[0].to(dev).reshape(rows).contiguous()
@@ -198,7 +313,7 @@ def strided_fir(x: torch.Tensor, taps: torch.Tensor, stride: int,
     launch(
         "K7_strided_fir", dev, x2, x2.shape[0], head2, h_len, taps.contiguous(), t, taps_stride,
         int(taps_cplx), stride, dphi, phase0, y, tail if tail_len else None, phase1, rows, n,
-        n_out, int(cplx),
+        n_out, int(cplx), plan.groups, plan.phase_sets, plan.splits, int(plan.direct),
     )
     phase1 = None if phase1 is None else phase1.reshape(lead)
     return y.reshape(lead + (n_out,)), tail.reshape(lead + (tail_len,)), phase1
