@@ -47,7 +47,10 @@ Phases:
    card, at the paths' shapes, with inputs from a numpy seed; the
    kernel's, the plain version's and the yardstick library call's time on
    the card (CUPTI, through torch.profiler) beside the kernel's bound, and
-   the wrapper's wall time between CUDA events; then K1 on complex input
+   the wrapper's wall time between CUDA events; K3 at every path's shape
+   (the slice, programs A, B and D, a mesh shard of E and F, and a
+   60,000-sample row in modes 0 and 1) and K1 at program D's block and E's
+   and F's shards for every word kind; then K1 on complex input
    and K2 at M = 80 and M = 38 (unfactorable) against their plain versions;
    K11a, K11b and K1 on the adaptive i8 and i4 words at program D's
    shapes, K11a and K11b also at E's (100 rows), K11a on adversarial rows
@@ -115,12 +118,14 @@ Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 It imports nothing of JAX.
 
-To time K2, K5, K7, K9, K10, K11a, K11b and K14 against another checkout
-of the port on the same card::
+To time K1, K2, K3, K5, K7, K9, K10, K11a, K11b and K14 against another
+checkout of the port on the same card::
 
     python3 chip_smoke.py --phase2-turns OTHER_CHECKOUT [--out FILE]
 
-runs phase 2's K2, K5, K7, K9, K10, K11a, K11b and K14 checks of
+runs K1 and K3 at this checkout's ``K1_PATH_SHAPES`` and
+``K3_PATH_SHAPES`` through that checkout's wrappers (the first K3 refuses
+the 60,000-sample rows), and phase 2's K2, K5, K7, K9, K10, K11a, K11b and K14 checks of
 OTHER_CHECKOUT's ``chip_smoke.py`` and of this one in turns (other, this,
 this, other), each in its own process with its own kernels built from its
 own sources, and prints one JSON line a turn: the K2 records of
@@ -399,7 +404,7 @@ def kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms) -> list[dict
     err = rel_l2(host(u_p), host(u_k))
     # 9-term f32 sums of products; the kernel fuses multiply-adds: ~1e-7
     check(err <= 1e-6, f"K1 arms rel L2 {err:.3g} > 1e-6")
-    b, f = bound(n * 4 + m * t * 12 + 2 * r_steps * m * 8 + n * 8, 2 * r_steps * m * t * 4)
+    b, f = bound(*k1_bytes_ops(m, n, "i16"))
     results.append(dict(
         name="K1_unpack_arms", route="cuda",
         source="wavecap_tpu_torch/kernels/csrc/unpack_arms.cu",
@@ -463,8 +468,7 @@ def kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms) -> list[dict
     d_rssi = float(np.max(np.abs(rssi_k - rssi_p)))
     check(d_rssi <= 1e-3, f"K3 RSSI differs by {d_rssi:.3g} dB > 1e-3")
     check(rel_l2(last_p, last_k) <= 1e-5, "K3 last sample differs")
-    # per sample: NCO 3, cos 1, sin 1, mix 6, power 3, product 6, fast atan2 ~12, scale 1
-    b, f = bound(c * s * 8 + c * 20 + c * s * 4 + c * 16, 33.0 * c * s)
+    b, f = bound(*k3_bytes_ops(c, s, 1))
     results.append(dict(
         name="K3_slot_frontend", route="cuda",
         source="wavecap_tpu_torch/kernels/csrc/slot_frontend.cu",
@@ -541,6 +545,167 @@ def other_geometry_checks(device) -> list[dict]:
         results.append(dict(phase="geometry", channels=m, factors=list(chz._k2_factors(m)),
                             k1_complex_rel_l2=err_u, k2_rel_l2=err_y))
     return results
+
+
+# K3's shapes on the paths: (what, slots, bins, row length, mode); the
+# mesh shards' banks gather an identity map over their own bins
+K3_PATH_SHAPES = (
+    ("the slice, 800 x 4,920, mode 1", 800, 800, 4_920, 1),
+    ("program D's bank, 160 x 4,920, mode 2", 160, 800, 4_920, 2),
+    ("program E's shard, 100 x 4,592, mode 2", 100, 100, 4_592, 2),
+    ("program F's shard, 50 x 12,000, mode 2", 50, 50, 12_000, 2),
+    ("program A's bank, 50 x 12,500, mode 2", 50, 400, 12_500, 2),
+    ("program B's bank, 21 x 7,500, mode 2", 21, 96, 7_500, 2),
+    ("one 60,000-sample row, mode 1", 1, 4, 60_000, 1),
+    ("one 60,000-sample row, mode 0", 1, 4, 60_000, 0),
+)
+# K1's: (what, M, words in the block)
+K1_PATH_SHAPES = (
+    ("program D's block / the slice, M = 800", 800, 1_968_000),
+    ("program E's shard, M = 800", 800, 229_600),
+    ("program F's shard, M = 400", 400, 300_000),
+)
+K1_WORDS = {"i16": (np.int32, 4), "i8": (np.int16, 2), "i4": (np.int8, 1), "complex64": (np.complex64, 8)}
+
+
+def k3_path_case(device, slots: int, bins: int, s: int, mode: int, seed: int = SEED + 10):
+    """K3's inputs at one of ``K3_PATH_SHAPES``: ``(chans, assign, phase0,
+    prev, bank)``.  NBFM tones for the discriminator (clear of its branch
+    cut), noise for the shifted rows; the slots on shuffled bins, two of
+    them out of range (the gather clamps)."""
+    import torch
+
+    from wavecap_tpu_torch.models.analog import NbfmConfig
+    from wavecap_tpu_torch.models.channel_bank import ChannelAssignment, ChannelBankConfig
+    from wavecap_tpu_torch.ops.channelizer import ChannelizerConfig
+
+    rng = np.random.default_rng(seed + slots + s + mode)
+    ch = ChannelizerConfig(sample_rate=10_000_000.0, channel_bandwidth=12_500.0)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if mode == 2:
+        rows = 0.1 * (rng.standard_normal((bins, s)) + 1j * rng.standard_normal((bins, s)))
+        bank = ChannelBankConfig(channelizer=ch, mode="shift", demod_cfg=None, capacity=slots)
+    else:
+        rows = fm_rows(rng, bins, s, ch.channel_rate)
+        bank = ChannelBankConfig(channelizer=ch, mode="nbfm", capacity=slots, demod_cfg=NbfmConfig(
+            sample_rate=int(ch.channel_rate), fast_discriminator=mode == 1))
+    index = rng.permutation(bins)[:slots].astype(np.int32) if slots < bins else np.arange(slots, dtype=np.int32)
+    if slots > 2:
+        index[:2] = (-3, bins + 5)
+    assign = ChannelAssignment(
+        channel_index=dev(index), fine_offset_hz=dev(rng.uniform(-1500.0, 1500.0, slots).astype(np.float32)),
+        active=dev(np.ones(slots, bool)), squelch_db=dev(np.full(slots, -1e9, np.float32)))
+    phase0 = dev(rng.integers(0, 2**32, slots, dtype=np.uint64).astype(np.uint32))
+    prev = dev(np.exp(1j * rng.uniform(-np.pi, np.pi, slots)).astype(np.complex64) * 0.3)
+    return dev(rows.astype(np.complex64)), assign, phase0, prev, bank
+
+
+def k1_path_case(device, m: int, n: int, kind: str, seed: int = SEED + 11):
+    """K1's inputs at one of ``K1_PATH_SHAPES``: ``(x, hist, cfg, scale)``,
+    random words of ``kind`` (or complex samples) and a random history."""
+    import torch
+
+    from wavecap_tpu_torch.ops.channelizer import ChannelizerConfig
+
+    rng = np.random.default_rng(seed + m + n)
+    cfg = ChannelizerConfig(sample_rate=m * 12_500.0, channel_bandwidth=12_500.0)
+    dtype, _ = K1_WORDS[kind]
+    if kind == "complex64":
+        x = (0.3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    else:
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max + 1, n).astype(dtype)
+    hist = (0.1 * (rng.standard_normal(m * cfg.taps_per_channel)
+                   + 1j * rng.standard_normal(m * cfg.taps_per_channel))).astype(np.complex64)
+    scale = torch.tensor([0.0123], dtype=torch.float32, device=device) if kind in ("i8", "i4") else None
+    return torch.from_numpy(x).to(device), torch.from_numpy(hist).to(device), cfg, scale
+
+
+def k3_bytes_ops(slots: int, s: int, mode: int) -> tuple[float, float]:
+    """K3's bytes (rows in, the discriminator or the shifted rows out, the
+    per-slot words) and operations a sample: NCO 3, cos 1, sin 1, mix 6,
+    power 3, then with the discriminator product 6, fast atan2 ~12, scale
+    1 (33), without it the row's store (16)."""
+    out = 4 if mode != 2 else 8
+    return slots * s * (8 + out) + slots * 36, (33.0 if mode != 2 else 16.0) * slots * s
+
+
+def k1_bytes_ops(m: int, n: int, kind: str) -> tuple[float, float]:
+    """K1's bytes (the block, the history and taps in; both stacks and, for
+    words, the unpacked block out) and operations (two stacks of 9 complex x
+    real taps)."""
+    t = 9
+    word = K1_WORDS[kind][1]
+    return n * word + m * t * 12 + 2 * n * 8 + (n * 8 if kind != "complex64" else 0), 2.0 * n * t * 4
+
+
+def k1_k3_path_checks(device, timer=device_ms) -> list[dict]:
+    """K3 at every shape of ``K3_PATH_SHAPES`` and K1 at ``K1_PATH_SHAPES``
+    for every word kind, each against its plain version on the card (K3:
+    phases bit-exact, discriminator SNR >= 80 dB or rows rel L2 <= 1e-6,
+    RSSI within 1e-3 dB, the last sample; K1: the unpacked block exact, the
+    stacks within rel L2 1e-6), timed beside its bound."""
+    import torch
+
+    from wavecap_tpu_torch.models import channel_bank as cb
+    from wavecap_tpu_torch.ops import channelizer as chz
+
+    cases = []
+    for what, slots, bins, s, mode in K3_PATH_SHAPES:
+        args = k3_path_case(device, slots, bins, s, mode)
+        k_out = [host(v) for v in cb.slot_frontend(*args)]
+        p_out = [host(v) for v in cb.slot_frontend_plain(*args)]
+        check(np.array_equal(k_out[2], p_out[2]), f"K3 ({what}) NCO phases are not bit-exact")
+        d_rssi = float(np.max(np.abs(k_out[1] - p_out[1])))
+        check(d_rssi <= 1e-3, f"K3 ({what}) RSSI differs by {d_rssi:.3g} dB > 1e-3")
+        rec = dict(name="K3_slot_frontend", case=what, plan=cb.k3_plan(slots, s, mode)._asdict(),
+                   rssi_max_abs_db=d_rssi, max_abs_err=max_abs(p_out[0], k_out[0]))
+        if mode == 2:
+            err = rel_l2(p_out[0], k_out[0])
+            check(err <= 1e-6, f"K3 ({what}) shifted rows rel L2 {err:.3g} > 1e-6")
+            rec.update(rows_rel_l2=err)
+        else:
+            err = snr_db(p_out[0], k_out[0])
+            check(err >= 80.0, f"K3 ({what}) discriminator SNR {err:.1f} dB < 80")
+            check(rel_l2(p_out[3], k_out[3]) <= 1e-5, f"K3 ({what}) last sample differs")
+            rec.update(fm_snr_db=err)
+        b, f = bound(*k3_bytes_ops(slots, s, mode))
+        rec.update(ms=timer(lambda: cb.slot_frontend(*args), "slot_frontend_kernel"), bound_ms=b, bound_by=f)
+        cases.append(rec)
+        del args
+    for what, m, n in K1_PATH_SHAPES:
+        for kind in K1_WORDS:
+            x, hist, cfg, scale = k1_path_case(device, m, n, kind)
+            x_k, u_k = chz.unpack_arms(x, hist, cfg, scale)
+            x_p, u_p = chz.unpack_arms_plain(x, hist, cfg, scale)
+            check(torch.equal(x_k, x_p), f"K1 ({what}, {kind}) unpacked block differs")
+            err = rel_l2(host(u_p), host(u_k))
+            check(err <= 1e-6, f"K1 ({what}, {kind}) arms rel L2 {err:.3g} > 1e-6")
+            b, f = bound(*k1_bytes_ops(m, n, kind))
+            cases.append(dict(
+                name="K1_unpack_arms", case=f"{what}, {n:,} {kind}", rel_l2=err,
+                plan=chz.k1_plan(m, cfg.taps_per_channel, n // m, chz._WORD_KINDS.get(x.dtype, 0))._asdict(),
+                ms=timer(lambda: chz.unpack_arms(x, hist, cfg, scale), "unpack_arms_kernel"),
+                bound_ms=b, bound_by=f))
+            del x_k, u_k, x_p, u_p
+    # K1's instance for any other taps a channel, on i16 words at M = 96
+    for taps in (5, 12):
+        cfg = chz.ChannelizerConfig(sample_rate=96 * 12_500.0, channel_bandwidth=12_500.0, taps_per_channel=taps)
+        rng = np.random.default_rng(SEED + taps)
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, 96 * 301).astype(np.int32)).to(device)
+        hist = torch.from_numpy((0.1 * (rng.standard_normal(96 * taps) + 1j * rng.standard_normal(96 * taps)))
+                                .astype(np.complex64)).to(device)
+        x_k, u_k = chz.unpack_arms(x, hist, cfg)
+        x_p, u_p = chz.unpack_arms_plain(x, hist, cfg)
+        check(torch.equal(x_k, x_p), f"K1 (T = {taps}) unpacked block differs")
+        err = rel_l2(host(u_p), host(u_k))
+        check(err <= 1e-6, f"K1 (T = {taps}) arms rel L2 {err:.3g} > 1e-6")
+        cases.append(dict(name="K1_unpack_arms", case=f"T = {taps} (the instance for any T), M = 96, 28,896 i16",
+                          rel_l2=err))
+    return cases
 
 
 # --- phase 3: the slice at full width ----------------------------------------
@@ -3315,6 +3480,30 @@ u = torch.from_numpy((rng.standard_normal((2, 3000, 400)) + 1j * rng.standard_no
                      .astype(np.complex64)).to(dev)
 k2.append(dict(name="K2_arm_dft", case="M = 400, 3,000 steps", ms=cs.device_ms(lambda: chz.arm_dft(u, ch),
                ("arm_dft_kernel",)), library_ms=cs.device_ms(lambda: chz._fft_arms(u, ch))))
+# K1 and K3 at the paths' shapes through this checkout's wrappers, the
+# inputs from the shape table and case functions of the checkout that runs the
+# turns (argv[2]), the same in every checkout
+import importlib.util
+spec = importlib.util.spec_from_file_location("turn_shapes", sys.argv[2] + "/chip_smoke.py")
+shapes = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(shapes)
+from wavecap_tpu_torch.models import channel_bank as cb
+k3 = []
+for what, slots, bins, s_len, mode in shapes.K3_PATH_SHAPES:
+    args = shapes.k3_path_case(dev, slots, bins, s_len, mode)
+    try:
+        ms = cs.device_ms(lambda: cb.slot_frontend(*args), ("slot_frontend_kernel",))
+    except NotImplementedError as e:  # the first K3 refuses rows past 27,000 samples in modes 0 and 1
+        ms = f"refused: {e}"
+    k3.append(dict(name="K3_slot_frontend", case=what, ms=ms))
+    del args
+k1 = []
+for what, m_k1, n_k1 in shapes.K1_PATH_SHAPES:
+    for kind in shapes.K1_WORDS:
+        x1, h1, c1, sc1 = shapes.k1_path_case(dev, m_k1, n_k1, kind)
+        k1.append(dict(name="K1_unpack_arms", case=f"{what}, {n_k1:,} {kind}",
+                       ms=cs.device_ms(lambda: chz.unpack_arms(x1, h1, c1, sc1), ("unpack_arms_kernel",))))
+        del x1
 x = torch.from_numpy((0.3 * rng.standard_normal((100, 9447))).astype(np.float32)).to(dev)
 hp = iir.butter_sos("high", (300.0,), 5, 48_000)
 z = torch.zeros((100, hp.shape[0], 2), device=dev)
@@ -3403,8 +3592,8 @@ try:
 except NotImplementedError as e:
     ms = f"refused: {e}"
 k14.append(dict(name="K14_echo_fit", case="turn: fit, one 60,000-sample row", ms=ms))
-print(json.dumps(dict(checkout=sys.argv[1], K2=k2, K9=k9, K5=k5, K10=k10, K11=k11, K7=k7, K14=k14),
-                 default=float))
+print(json.dumps(dict(checkout=sys.argv[1], K1=k1, K2=k2, K3=k3, K9=k9, K5=k5, K10=k10, K11=k11, K7=k7,
+                      K14=k14), default=float))
 """
 
 
@@ -3419,7 +3608,7 @@ def phase2_turns(other: str, out: str | None) -> int:
     log(card)
     lines = []
     for root in (other, here, here, other):
-        proc = subprocess.run([sys.executable, "-c", PHASE2_TURN, root], cwd=root,
+        proc = subprocess.run([sys.executable, "-c", PHASE2_TURN, root, here], cwd=root,
                               env=dict(os.environ, PYTHONPATH=root), capture_output=True, text=True,
                               timeout=900)
         if proc.returncode != 0:
@@ -3442,8 +3631,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
     ap.add_argument("--phase2-turns", metavar="OTHER_CHECKOUT",
-                    help="time K2, K5, K7, K9, K10, K11a, K11b and K14 of this checkout and OTHER_CHECKOUT "
-                         "in turns")
+                    help="time K1, K2, K3, K5, K7, K9, K10, K11a, K11b and K14 of this checkout and "
+                         "OTHER_CHECKOUT in turns")
     ap.add_argument("--out", help="with --phase2-turns: also write its JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3477,6 +3666,8 @@ def main(argv=None) -> int:
         kernels = kernel_checks(cfg, device)
         for k in kernels:
             log(dict(phase="kernel", **k))
+        for k in k1_k3_path_checks(device):
+            log(dict(phase="kernel-case", **k))
         # the P25 kernels before the mixed checks' plain scans, whose many
         # thousand launches make CUPTI drop later ones (see device_ms)
         p25_lines, cases = p25_kernel_checks(p25, device)

@@ -45,12 +45,12 @@ class K10Coeffs(ctypes.Structure):
 # every entry is the CUDA stream
 KERNELS: dict[str, tuple[str, str, tuple]] = {
     "K1_unpack_arms": (
-        "unpack_arms", "k1_unpack_arms", (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "unpack_arms", "k1_unpack_arms", (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
     "K2_arm_dft": ("arm_dft", "k2_arm_dft", (_P, _P, _P) + (_I,) * 7 + (_P,)),
     "K3_slot_frontend": (
         "slot_frontend", "k3_slot_frontend",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P),
     ),
     "K4_voice_fir": (
         "voice_fir", "k4_voice_fir",

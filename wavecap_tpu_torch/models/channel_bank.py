@@ -41,7 +41,13 @@ from .registry import get_demod
 
 _CLIP_GAIN = float(np.float32(1.0 / np.tanh(1.5)) * np.float32(0.95))  # soft_clip's
 _MIN_RMS = 1e-4  # rms_normalize's default
-_MAX_ROW = 27_000  # samples per slot row that K3 and K4 stage in shared memory
+_MAX_ROW = 27_000  # samples per slot row that K4 stages in shared memory
+_K3_V = 4  # consecutive samples a K3 thread takes a pass
+_K3_WARP_SPAN = 32 * _K3_V  # a K3 segment is a multiple of a warp's samples
+_K3_MAX_CLUSTER = 8  # CTAs (one cluster) a row
+_K3_MAX_THREADS = 512
+_K3_SMS = 132  # SMs of the H100
+_K3_TARGET_CTAS = 4 * _K3_SMS  # CTAs a launch aims at: four an SM
 
 
 @dataclass(frozen=True)
@@ -129,6 +135,43 @@ def _k3_mode(cfg: ChannelBankConfig) -> int:
     return 1 if cfg.demod_cfg.fast_discriminator else 0
 
 
+class K3Plan(NamedTuple):
+    """How K3 runs: each row cut into ``cluster`` segments of ``seg``
+    samples (a multiple of 128; the last segment may be shorter), one CTA
+    of ``threads`` threads a segment, a row's CTAs one thread-block
+    cluster; a CTA takes ``threads x 4`` consecutive samples a pass, in
+    ``passes`` passes; ``ctas`` CTAs in all."""
+
+    seg: int
+    cluster: int
+    threads: int
+    passes: int
+    ctas: int
+
+
+def k3_plan(n_slots: int, s_len: int, mode: int, forced: tuple | None = None) -> K3Plan:
+    """K3's launch plan, the one the kernel runs: as few CTAs a row (at
+    most 8) as give the launch 528 CTAs, four an SM; each segment one pass
+    of up to 512 threads, else passes of 256 threads (of 512 where the
+    launch has fewer CTAs than the card has SMs).  ``mode`` does not change
+    the plan: the same split wins for the discriminator and the rows.
+    ``forced``: ``(cluster, threads)`` in its place (the cluster is then
+    shrunk to the segments the row fills)."""
+    spans = max(-(-s_len // _K3_WARP_SPAN), 1)
+    if forced is not None:
+        cluster, threads = forced
+    else:
+        cluster = min(_K3_MAX_CLUSTER, spans, max(1, -(-_K3_TARGET_CTAS // max(n_slots, 1))))
+        threads = None
+    seg = -(-spans // cluster) * _K3_WARP_SPAN
+    cluster = max(-(-s_len // seg), 1)
+    if threads is None:  # one pass; else passes of 256 threads, of 512 for a launch of few CTAs
+        threads = seg // _K3_V
+        if threads > _K3_MAX_THREADS:
+            threads = _K3_MAX_THREADS if n_slots * cluster < _K3_SMS else _K3_MAX_THREADS // 2
+    return K3Plan(seg, cluster, threads, -(-seg // (threads * _K3_V)), n_slots * cluster)
+
+
 def slot_frontend_plain(chans, assign: ChannelAssignment, nco_phase, disc_prev,
                         cfg: ChannelBankConfig):
     """Plain version of K3: ``(out, rssi, nco_phase, disc_prev)`` per slot,
@@ -160,10 +203,11 @@ def slot_frontend(chans, assign: ChannelAssignment, nco_phase, disc_prev,
     if chans.dim() != 2 or chans.dtype != torch.complex64 or not chans.is_contiguous():
         raise ValueError("K3 takes contiguous complex64 channels of shape (M, S)")
     m, s = chans.shape
+    if s == 0:
+        raise NotImplementedError("K3 takes rows of at least 1 sample")
     mode = _k3_mode(cfg)
-    if s == 0 or (mode != 2 and s > _MAX_ROW):  # the discriminator stages its row
-        raise NotImplementedError(f"K3 stages rows of 1..{_MAX_ROW} samples, not {s}")
     c = cfg.capacity
+    plan = k3_plan(c, s, mode)
     _on(assign.channel_index, dev, torch.int32, (c,), "channel_index")
     _on(assign.fine_offset_hz, dev, torch.float32, (c,), "fine_offset_hz")
     _on(nco_phase, dev, torch.uint32, (c,), "nco_phase")
@@ -173,7 +217,7 @@ def slot_frontend(chans, assign: ChannelAssignment, nco_phase, disc_prev,
     if mode == 2:
         rows = torch.empty((c, s), dtype=torch.complex64, device=dev)
         launch("K3_slot_frontend", dev, chans, assign.channel_index, dphi, nco_phase, None,
-               rows, rssi, phase1, None, c, m, s, 0.0, mode)
+               rows, rssi, phase1, None, c, m, s, 0.0, mode, plan.seg, plan.cluster, plan.threads)
         return rows, rssi, phase1, disc_prev
     _on(disc_prev, dev, torch.complex64, (c,), "disc_prev")
     dc = cfg.demod_cfg
@@ -182,7 +226,7 @@ def slot_frontend(chans, assign: ChannelAssignment, nco_phase, disc_prev,
     scale = float(np.float32(dc.sample_rate / (2.0 * np.pi * dc.max_deviation_hz)))
     launch(
         "K3_slot_frontend", dev, chans, assign.channel_index, dphi, nco_phase, disc_prev,
-        fm, rssi, phase1, last, c, m, s, scale, mode,
+        fm, rssi, phase1, last, c, m, s, scale, mode, plan.seg, plan.cluster, plan.threads,
     )
     return fm, rssi, phase1, last
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -269,6 +270,36 @@ def _check_block(x: torch.Tensor, hist: torch.Tensor, m: int, t: int, scale) -> 
         raise ValueError("block and history lie on different devices")
 
 
+_K1_THREADS = 256  # threads a K1 CTA
+_K1_ROWS = (2, 4, 8, 16)  # rows a tile that K1 is built for
+_K1_PLAN_ROWS = 4  # the rows a tile K1 runs: the fastest at every path's shape (PERF.md)
+
+
+class K1Plan(NamedTuple):
+    """How K1 runs: one thread a (tile of ``rows`` rows, position column)
+    pair, the column fastest, ``threads`` a CTA, ``ctas`` CTAs; a thread
+    holds the ``window = rows + T`` samples of its column and its ``2 T``
+    arm taps in registers (the kernel uses no shared memory)."""
+
+    rows: int
+    threads: int
+    ctas: int
+    window: int
+
+
+def k1_plan(m: int, t: int, r_steps: int, kind: int, forced: int | None = None) -> K1Plan:
+    """K1's launch plan, the one the kernel runs: 4 rows a tile at every
+    shape and word ``kind`` (timed against 2, 8 and 16 by
+    ``scripts/k1_k3_variants.py``: larger tiles read fewer halo rows but
+    hold more registers and give the card fewer threads).  ``forced``: the
+    rows a tile in its place, one of ``_K1_ROWS``."""
+    rows = _K1_PLAN_ROWS if forced is None else forced
+    if rows not in _K1_ROWS:
+        raise ValueError(f"K1 is built for {_K1_ROWS} rows a tile, not {rows}")
+    items = m * -(-r_steps // rows)
+    return K1Plan(rows, _K1_THREADS, -(-items // _K1_THREADS), rows + t)
+
+
 def unpack_arms_plain(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig,
                       scale: torch.Tensor | None = None):
     """Plain version of K1: ``(x_complex, u)`` with ``u`` of shape
@@ -306,13 +337,16 @@ def unpack_arms(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig,
         raise ValueError("K1 takes contiguous tensors")
     n = x.shape[0]
     r_steps = n // m
+    if r_steps == 0:
+        raise NotImplementedError(f"K1 takes blocks of at least M={m} samples")
     u = torch.empty((2, r_steps, m), dtype=torch.complex64, device=x.device)
     kind = _WORD_KINDS.get(x.dtype, 0)
     x_c = torch.empty(n, dtype=torch.complex64, device=x.device) if kind else x
     arms = _arms_rev(m, t, cfg.cutoff_scale, x.device)
+    plan = k1_plan(m, t, r_steps, kind)
     launch(
         "K1_unpack_arms", x.device, x, kind, scale if kind >= 2 else None, hist, arms, u,
-        x_c if kind else None, m, t, r_steps,
+        x_c if kind else None, m, t, r_steps, plan.rows, plan.threads,
     )
     return x_c, u
 
