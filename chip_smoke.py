@@ -64,7 +64,15 @@ Phases:
    positions past both ends of the reference's clamp), with their
    serial-chain estimates; K7 also at a mesh shard's wide slots (program
    E) and program F's two per-shard P25 filters, K14 also on a
-   60,000-sample row in both modes;
+   60,000-sample row in both modes; K4 at ``K4_PATH_SHAPES`` (the slice,
+   rows of 60,000 and 150,000 samples, rows shorter than the taps) and
+   K12 / K13's timing at ``K12_PATH_SHAPES`` (programs A, B, C, F's shard,
+   2 s rows in each mode and 5 s LSM rows, whose windows do not fit in
+   shared memory), each with its plan, bound and, for the
+   timing, the redesign's chain; then a 0-sample block through the card's
+   ``channelize`` and ``bank_step`` (NBFM with IIR filters, with the voice
+   FIR, AM) and K4 at S = 0 against the plain path: the same shapes, RSSI
+   (NaN and -200) and carries, and no kernel launched;
 3. the first slice: a fake 10 Msps receiver with NBFM stations on known
    bins, 6 consecutive blocks through ``pack_i16_words`` -> upload ->
    ``capture_multi`` (800 active slots) -> ``unpack_wire``: each station's
@@ -118,14 +126,16 @@ Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 It imports nothing of JAX.
 
-To time K1, K2, K3, K5, K7, K9, K10, K11a, K11b and K14 against another
+To time K1-K5, K7, K9, K10, K11a, K11b, K12, K13 and K14 against another
 checkout of the port on the same card::
 
     python3 chip_smoke.py --phase2-turns OTHER_CHECKOUT [--out FILE]
 
-runs K1 and K3 at this checkout's ``K1_PATH_SHAPES`` and
-``K3_PATH_SHAPES`` through that checkout's wrappers (the first K3 refuses
-the 60,000-sample rows), and phase 2's K2, K5, K7, K9, K10, K11a, K11b and K14 checks of
+runs K1, K3, K4 and K12 / K13's timing at this checkout's
+``K1_PATH_SHAPES``, ``K3_PATH_SHAPES``, ``K4_PATH_SHAPES`` and
+``K12_PATH_SHAPES`` through that checkout's wrappers (the first K3 refuses
+the 60,000-sample rows, the first K4 rows past 27,000 samples, the first
+K12 / K13 the 2 s rows), and phase 2's K2, K5, K7, K9, K10, K11a, K11b and K14 checks of
 OTHER_CHECKOUT's ``chip_smoke.py`` and of this one in turns (other, this,
 this, other), each in its own process with its own kernels built from its
 own sources, and prints one JSON line a turn: the K2 records of
@@ -244,6 +254,26 @@ def max_abs(ref, got) -> float:
 
 def host(t):
     return t.detach().cpu().numpy()
+
+
+_PINNED: dict = {}
+
+
+def fetch(t):
+    """The packed wire into a pinned host buffer, as the engine fetches it:
+    a device-to-host copy at the link's rate (a pageable ``.cpu()`` stages
+    through a bounce buffer, and its time swung from run to run)."""
+    import torch
+
+    if t.device.type == "cpu":
+        return t.numpy()
+    key = (tuple(t.shape), t.dtype)
+    buf = _PINNED.get(key)
+    if buf is None:
+        buf = _PINNED[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return buf.numpy()
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -500,11 +530,13 @@ def kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms) -> list[dict
     check(np.array_equal(r_k, r_p) and np.array_equal(t_k, t_p), "K4 rssi or tail differs")
     kern = taps.flip(0).reshape(1, 1, -1)
     xin = torch.cat([tail, fm], dim=-1).unsqueeze(1).contiguous()
-    b, f = bound(2 * c * s * 4 + 2 * c * (nt - 1) * 4 + nt * 4 + c * 13, c * s * (2.0 * nt + 6))
+    nb, nf = k4_bytes_ops(c, s, nt)
+    b, f = bound(nb, nf)
     results.append(dict(
         name="K4_voice_fir", route="cuda", source="wavecap_tpu_torch/kernels/csrc/voice_fir.cu",
         replaces="wavecap_tpu/ops/fir.py:187 (+ ops/clip.py:17-38, models/channel_bank.py:109)",
         max_abs_err=float(np.max(np.abs(a_k - a_p))), worst_open_snr_db=worst,
+        bound_bytes_ms=bound(nb, 0.0)[0], bound_ops_ms=bound(0.0, nf)[0],
         ms=timer(lambda: cb.voice_fir(fm, tail, rssi, assign4, bank), "voice_fir_kernel"),
         wrapper_ms=wall_timer(lambda: cb.voice_fir(fm, tail, rssi, assign4, bank)),
         plain_ms=timer(lambda: cb.voice_fir_plain(fm, tail, rssi, assign4, bank)),
@@ -566,6 +598,14 @@ K1_PATH_SHAPES = (
     ("program F's shard, M = 400", 400, 300_000),
 )
 K1_WORDS = {"i16": (np.int32, 4), "i8": (np.int16, 2), "i4": (np.int8, 1), "complex64": (np.complex64, 8)}
+# K4's: (what, slots, audio samples a row)
+K4_PATH_SHAPES = (
+    ("the slice, 800 x 4,920", 800, 4_920),
+    ("one 60,000-sample row", 1, 60_000),
+    ("one 150,000-sample row (a second pass over its outputs)", 1, 150_000),
+    ("8 rows of 100 samples (shorter than the taps)", 8, 100),
+    ("8 rows of 1 sample", 8, 1),
+)
 
 
 def k3_path_case(device, slots: int, bins: int, s: int, mode: int, seed: int = SEED + 10):
@@ -601,6 +641,39 @@ def k3_path_case(device, slots: int, bins: int, s: int, mode: int, seed: int = S
     phase0 = dev(rng.integers(0, 2**32, slots, dtype=np.uint64).astype(np.uint32))
     prev = dev(np.exp(1j * rng.uniform(-np.pi, np.pi, slots)).astype(np.complex64) * 0.3)
     return dev(rows.astype(np.complex64)), assign, phase0, prev, bank
+
+
+def k4_path_case(device, slots: int, s: int, seed: int = SEED + 13):
+    """K4's inputs at one of ``K4_PATH_SHAPES``: ``(fm, hp_z, rssi, assign,
+    bank)``, the slice's NBFM bank at ``slots`` slots; a voice-band tone and
+    noise a row, a random carried tail; where there are several slots, a
+    quarter shut by the squelch and a tenth inactive (slot 0 open)."""
+    import dataclasses
+
+    import torch
+
+    from wavecap_tpu_torch.models.channel_bank import ChannelAssignment
+
+    rng = np.random.default_rng(seed + slots + s)
+    bank = dataclasses.replace(slice_config().bank_cfg(MODE), capacity=slots)
+    rate = bank.demod_cfg.audio_rate
+    t = np.arange(s) / rate
+    fm = (rng.uniform(0.2, 1.0, (slots, 1)) * np.sin(2 * np.pi * rng.uniform(300.0, 3000.0, (slots, 1)) * t)
+          + 0.05 * rng.standard_normal((slots, s)))
+    tail = 0.3 * rng.standard_normal((slots, 126))
+    rssi = rng.uniform(-80.0, -20.0, slots).astype(np.float32)
+    shut = rng.random(slots) < 0.25
+    active = rng.random(slots) >= 0.1
+    shut[0], active[0] = False, True
+    squelch = np.where(shut, rssi + 6.0, rssi - 6.0).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    assign = ChannelAssignment(channel_index=dev(np.arange(slots, dtype=np.int32)),
+                               fine_offset_hz=dev(np.zeros(slots, np.float32)), active=dev(active),
+                               squelch_db=dev(squelch))
+    return dev(fm.astype(np.float32)), dev(tail.astype(np.float32)), dev(rssi), assign, bank
 
 
 def k1_path_case(device, m: int, n: int, kind: str, seed: int = SEED + 11):
@@ -706,6 +779,137 @@ def k1_k3_path_checks(device, timer=device_ms) -> list[dict]:
         cases.append(dict(name="K1_unpack_arms", case=f"T = {taps} (the instance for any T), M = 96, 28,896 i16",
                           rel_l2=err))
     return cases
+
+
+def k4_bytes_ops(slots: int, s: int, taps: int = 127) -> tuple[float, float]:
+    """K4's bytes (the rows and tails in and out, the taps, the per-slot
+    words) and operations (a multiply-add a tap, the epilogue's ~6 a sample)."""
+    return (2 * slots * s * 4 + 2 * slots * (taps - 1) * 4 + taps * 4 + slots * 13,
+            slots * s * (2.0 * taps + 6))
+
+
+def k4_k12_path_checks(device, timer=device_ms, clock_hz=None) -> list[dict]:
+    """K4 at every shape of ``K4_PATH_SHAPES`` (audio >= 70 dB on open slots,
+    shut and inactive ones silent, RSSI and tails exact) and K12 / K13's
+    timing at every shape of ``K12_PATH_SHAPES`` (:func:`timing_vs_plain`),
+    each against its plain version on the card, timed beside its bound (K4
+    both ways)."""
+    from wavecap_tpu_torch.models import channel_bank as cb
+
+    clock_hz = clock_hz or sm_clock_hz()
+    cases = []
+    for what, slots, s in K4_PATH_SHAPES:
+        args = k4_path_case(device, slots, s)
+        a_k, r_k, t_k = (host(v) for v in cb.voice_fir(*args))
+        a_p, r_p, t_p = (host(v) for v in cb.voice_fir_plain(*args))
+        assign = args[3]
+        open_ = host(assign.active) & (host(args[2]) >= host(assign.squelch_db))
+        worst = min(snr_db(a_p[i], a_k[i]) for i in np.flatnonzero(open_))
+        check(worst >= 70.0, f"K4 ({what}): audio SNR {worst:.1f} dB < 70 on an open slot")
+        check(not a_k[~open_].any(), f"K4 ({what}): a shut slot is not silent")
+        check(np.array_equal(r_k, r_p) and np.array_equal(t_k, t_p), f"K4 ({what}): rssi or tail differs")
+        nb, nf = k4_bytes_ops(slots, s)
+        b, f = bound(nb, nf)
+        cases.append(dict(name="K4_voice_fir", case=what, plan=cb.k4_plan(slots, s)._asdict(),
+                          worst_open_snr_db=worst, max_abs_err=max_abs(a_p, a_k),
+                          ms=timer(lambda: cb.voice_fir(*args), "voice_fir_kernel"), bound_ms=b, bound_by=f,
+                          bound_bytes_ms=bound(nb, 0.0)[0], bound_ops_ms=bound(0.0, nf)[0]))
+        del args
+    for what, kind, rows, n in K12_PATH_SHAPES:
+        kfn, pfn, buf, st, n_sym, cfg = k12_path_case(device, kind, rows, n)
+        name = K12_NAMES[kind]
+        rec = timing_vs_plain(name, what, kfn, pfn, buf, st, n_sym, cfg, clock_hz)
+        cases.append(dict(name=name, case=what, **rec,
+                          ms=timer(lambda: kfn(buf, st, n_sym, cfg), "timing_kernel")))
+        del buf
+    return cases
+
+
+def tree_leaves(x) -> list:
+    """The tensors of a state tree (NamedTuples and tuples of tensors)."""
+    if x is None:
+        return []
+    if isinstance(x, tuple):
+        return [leaf for v in x for leaf in tree_leaves(v)]
+    return [x]
+
+
+def to_cpu(x):
+    """A state tree (NamedTuples and tuples of tensors) copied to the CPU."""
+    if isinstance(x, tuple):
+        items = [to_cpu(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x if x is None else x.cpu()
+
+
+def same_bits(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(host(x).tobytes() == host(y).tobytes() and x.shape == y.shape
+                                      for x, y in zip(la, lb))
+
+
+EMPTY_BANKS = {"nbfm, IIR filters": ("nbfm", "NbfmConfig", dict(enable_highpass=True, enable_lowpass=True)),
+               "nbfm, the voice FIR": ("nbfm", "NbfmConfig", dict(enable_highpass=True, enable_lowpass=True,
+                                                                 filter_impl="fir")),
+               "am": ("am", "AmConfig", {})}
+
+
+def empty_block_checks(device) -> dict:
+    """A 0-sample block on the card, after a block of signal: ``channelize``
+    (channels (M, 0), the history bitwise unchanged) and ``bank_step`` of
+    an NBFM bank with IIR filters, one with the voice FIR and an AM bank
+    (M = 80, 4 slots, slot 2 inactive) against the plain versions (the
+    same state copied to the CPU): audio (4, 0), RSSI equal (NaN as equal;
+    -200 on the inactive slot), every carry bitwise unchanged; K4 at S = 0
+    the same; no kernel launched."""
+    import torch
+
+    from wavecap_tpu_torch import models
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from wavecap_tpu_torch.models import channel_bank as cb
+    from wavecap_tpu_torch.ops import channelizer as chz
+
+    ch = chz.ChannelizerConfig(sample_rate=1_000_000.0, channel_bandwidth=12_500.0)
+    rng = np.random.default_rng(SEED + 14)
+    x = torch.from_numpy((0.1 * (rng.standard_normal(80 * 40) + 1j * rng.standard_normal(80 * 40)))
+                         .astype(np.complex64)).to(device)
+    empty = torch.zeros(0, dtype=torch.complex64, device=device)
+    assign = cb.ChannelAssignment(
+        torch.tensor([3, 10, 20, 30], dtype=torch.int32, device=device),
+        torch.tensor([0.0, 700.0, 0.0, -300.0], device=device),
+        torch.tensor([True, True, False, True], device=device), torch.full((4,), -45.0, device=device))
+    out = {}
+    hist = chz.channelize(x, chz.channelizer_init(ch, device=device), ch)[1]
+    reset_launch_counts()
+    chans, hist2 = chz.channelize(empty, hist, ch)
+    check(tuple(chans.shape) == (80, 0) and same_bits(hist, hist2), "channelize: an empty block changed the history")
+    check(sum(launch_counts().values()) == 0, "channelize: an empty block launched a kernel")
+    out["channelize"] = dict(channels=list(chans.shape), launches=0)
+    for what, (mode, cls, opts) in EMPTY_BANKS.items():
+        cfg = cb.ChannelBankConfig(channelizer=ch, mode=mode, capacity=4,
+                                   demod_cfg=getattr(models, cls)(sample_rate=25_000, audio_rate=25_000, **opts))
+        state = cb.bank_step(x, cb.bank_init(cfg, device=device), assign, cfg)[1]
+        reset_launch_counts()
+        o_k, s_k = cb.bank_step(empty, state, assign, cfg)
+        launched = sum(launch_counts().values())
+        on_cpu = to_cpu(state)
+        o_p, s_p = cb.bank_step(empty.cpu(), on_cpu, to_cpu(assign), cfg)  # the plain versions
+        r_k, r_p = host(o_k["rssi"]), host(o_p["rssi"])
+        check(launched == 0, f"bank_step ({what}): an empty block launched {launched} kernels")
+        check(tuple(o_k["audio"].shape) == tuple(o_p["audio"].shape) == (4, 0), f"bank_step ({what}): audio shape")
+        check(np.array_equal(r_k, r_p, equal_nan=True) and r_k[2] == -200.0 and np.isnan(r_k[[0, 1, 3]]).all(),
+              f"bank_step ({what}): RSSI {r_k} against the plain path's {r_p}")
+        check(same_bits(state, s_k) and same_bits(on_cpu, s_p), f"bank_step ({what}): a carry changed")
+        out[what] = dict(audio=list(o_k["audio"].shape), rssi=[float(v) for v in r_k], launches=launched)
+    args = k4_path_case(device, 4, 0)
+    reset_launch_counts()
+    a_k, r_k, t_k = cb.voice_fir(*args)
+    check(sum(launch_counts().values()) == 0, "K4 at S = 0 launched")
+    a_p, r_p, t_p = cb.voice_fir_plain(*args)
+    check(tuple(a_k.shape) == tuple(a_p.shape) == (4, 0) and same_bits(r_k, r_p) and same_bits(t_k, args[1])
+          and same_bits(t_p, args[1]), "K4 at S = 0 differs from its plain version")
+    out["K4 at S = 0"] = dict(audio=list(a_k.shape), launches=0)
+    return out
 
 
 # --- phase 3: the slice at full width ----------------------------------------
@@ -839,7 +1043,7 @@ def run_slice(cfg, device, sync=None) -> dict:
     # warm time per block: resident words, output fetched to the host
     def one_pass():
         o, _ = capture_multi(words, pipeline_init(cfg, device=device), ctl, cfg)
-        host(o["_packed"])
+        fetch(o["_packed"])
 
     one_pass()
     sync()
@@ -1522,7 +1726,7 @@ def run_mixed(cfg, device, sync=None) -> dict:
 
     def one_pass():
         o, _ = capture_multi(words, pipeline_init(cfg, device=device), ctl, cfg)
-        host(o["_packed"])
+        fetch(o["_packed"])
 
     one_pass()
     sync()
@@ -1544,7 +1748,9 @@ def run_mixed(cfg, device, sync=None) -> dict:
 
 def profile_blocks(one_pass, blocks: int, sync) -> dict:
     """One warm pass under torch.profiler, per block: traced wall ms, the
-    card's busy ms (kernels and copies, CUPTI), its idle share, the host's
+    card's busy ms (kernels and copies, CUPTI), its idle share, the pass's
+    device-to-host copies (the wire's fetch into pinned memory) and the
+    busy ms without them, the host's
     CPU ms, the ops with the most device time, and every kernel's (K1-K14,
     K12s, K13s; K11b's three launches as one) device time and launches
     summed over all its functions' instances (each template instance or
@@ -1564,10 +1770,12 @@ def profile_blocks(one_pass, blocks: int, sync) -> dict:
     events = prof.key_averages()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(dev_ms(e) for e in on_card)
+    fetch_ms = sum(dev_ms(e) for e in on_card if "DtoH" in e.key)
     top = sorted(on_card, key=dev_ms, reverse=True)[:14]
     return dict(
         traced_wall_ms_per_block=wall_ms, device_busy_ms_per_block=busy,
-        device_idle_share=1.0 - busy / wall_ms,
+        device_idle_share=1.0 - busy / wall_ms, fetch_copy_ms_per_block=fetch_ms,
+        busy_without_fetch_ms_per_block=busy - fetch_ms,
         host_self_cpu_ms_per_block=sum(e.self_cpu_time_total for e in events
                                        if e.device_type == DeviceType.CPU) / 1e3 / blocks,
         top_device_ms_per_block=[dict(op=e.key[:80], calls_per_block=e.count / blocks, ms=dev_ms(e))
@@ -1772,6 +1980,93 @@ def timing_state(rng, rows: int, sps_: float, cqpsk: bool) -> np.ndarray:
     return st
 
 
+# K12's and K13's block timing at every path's shape and on 2 s rows:
+# (what, modulation, rows, channel samples a block); the rows are 64 + n
+# long (the interpolation tail), at the programs' 50 kHz channel rate
+K12_PATH_SHAPES = (
+    ("program A, 50 x 12,564 f32", "c4fm", 50, 12_500),
+    ("program F's shard, 50 x 12,064 f32", "c4fm", 50, 12_000),
+    ("program B, 21 x 7,564 c64", "lsm", 21, 7_500),
+    ("program C, 20 x 7,564 c64 at 6000 baud", "p2", 20, 7_500),
+    ("2 s rows, C4FM, 4 x 100,064 f32", "c4fm", 4, 100_000),
+    ("2 s rows, LSM CQPSK, 4 x 100,064 c64", "lsm", 4, 100_000),
+    ("2 s rows, Phase 2, 4 x 100,064 c64 at 6000 baud", "p2", 4, 100_000),
+    ("5 s rows, LSM CQPSK, 2 x 250,064 c64 (windows past shared memory: the row from L2)", "lsm", 2, 250_000),
+)
+K12_NAMES = {"c4fm": "K12_c4fm_timing", "lsm": "K13_cqpsk_timing", "p2": "K13_cqpsk_timing"}
+
+
+def k12_path_case(device, kind: str, rows: int, n: int, seed: int = SEED + 12):
+    """The block timing's inputs at one of ``K12_PATH_SHAPES``: ``(kernel,
+    plain, buf, st, n_sym, cfg)``; seeded rows of the modulation (the last
+    one dead air) and carried scalars from :func:`timing_state`."""
+    import torch
+
+    from wavecap_tpu_torch.capture.pipeline import p25_cfg_for, p25p2_cfg_for
+    from wavecap_tpu_torch.models.p25 import c4fm, cqpsk
+
+    cfgs = p25_configs()
+    rng = np.random.default_rng(seed + rows + n + len(kind))
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if kind == "c4fm":
+        cfg = p25_cfg_for(cfgs["A"])
+        buf = c4fm_rows(rng, rows, 64 + n, cfg.sample_rate)
+        return (c4fm.c4fm_timing, c4fm.c4fm_timing_plain, dev(buf),
+                dev(timing_state(rng, rows, cfg.sps, cqpsk=False)), c4fm.n_symbols_per_block(cfg, n), cfg)
+    cfg = p25_cfg_for(cfgs["B"]) if kind == "lsm" else p25p2_cfg_for(cfgs["C"])
+    buf = cqpsk_rows(rng, rows, 64 + n, cfg.sample_rate, cfg.symbol_rate, cfg.rrc_alpha)
+    return (cqpsk.cqpsk_timing, cqpsk.cqpsk_timing_plain, dev(buf),
+            dev(timing_state(rng, rows, cfg.sps, cqpsk=True)), cqpsk.n_symbols_per_block(cfg, n), cfg)
+
+
+def timing_bytes_ops(rows: int, length: int, n_sym: int, item: int) -> tuple[float, float]:
+    """The block timing's bytes (the rows, the soft and dibits, the state)
+    and operations (the O&M pass ~13 a sample; three Gardner evaluations
+    and the gather ~100 a symbol)."""
+    n = length - 64
+    return rows * (length * item + n_sym * 5 + 48), rows * (13.0 * n + 100.0 * n_sym)
+
+
+def k12_chain_ms(plan, length: int, n_sym: int, clock_hz: float) -> float:
+    """The redesign's serial chain a CTA (``k12_plan``): its share of the
+    row passes (dc, the O&M line) and of the four symbol passes (g0 and g1,
+    g2, the gather, the rescale), then five cluster-wide sums."""
+    samples = -(-(length - 64) // plan.cluster)
+    passes = 2 * -(-samples // plan.threads) + 4 * -(-plan.mseg // plan.threads)
+    return (passes * PASS_CYCLES + 5 * REDUCE_CYCLES) / clock_hz * 1e3
+
+
+def timing_vs_plain(name, case, kfn, pfn, buf, st, n_sym, cfg, clock_hz) -> dict:
+    """K12 / K13's timing against its plain version on the card: dibits
+    equal, soft >= 60 dB, carried state within 1e-3, the dead-air row (the
+    last) frozen; with the bound and the redesign's chain."""
+    from wavecap_tpu_torch.models.p25.c4fm import k12_plan, timing_consts
+
+    s_k, d_k, o_k = (host(v) for v in kfn(buf, st, n_sym, cfg))
+    s_p, d_p, o_p = (host(v) for v in pfn(buf, st, n_sym, cfg))
+    rows, length = buf.shape
+    check(np.array_equal(d_k, d_p), f"{name} ({case}): dibits differ from the plain version")
+    err = snr_db(s_p, s_k)
+    check(err >= 60.0, f"{name} ({case}): soft SNR {err:.1f} dB < 60")
+    d_state = float(np.max(np.abs(o_k - o_p)))
+    check(d_state <= 1e-3, f"{name} ({case}): carried state differs by {d_state:.3g}")
+    n = length - 64
+    # the dead-air row (the last) froze its timing: no phase step
+    c = timing_consts(cfg.sps, cfg.max_clock_ppm, 0.0)
+    st_np = host(st)
+    pos = (np.float32(st_np[0, -1]) + np.float32(n_sym) * np.float32(o_p[1, -1])) - np.float32(n)
+    pos = pos + np.float32(c.sps) if pos < 4.0 else pos
+    pos = pos - np.float32(c.sps) if pos > c.recenter_hi else pos
+    check(abs(float(pos) - float(o_k[0, -1])) <= 1e-3, f"{name} ({case}): the dead-air row moved its timing")
+    b, f = bound(*timing_bytes_ops(rows, length, n_sym, buf.element_size()))
+    plan = k12_plan(rows, n_sym, timing_consts(cfg.sps, cfg.max_clock_ppm, 0.0), buf.element_size())
+    return dict(max_abs_err=max_abs(s_p, s_k), soft_snr_db=err, state_max_abs=d_state, bound_ms=b, bound_by=f,
+                plan=plan._asdict(), chain_new_ms=k12_chain_ms(plan, length, n_sym, clock_hz))
+
+
 def p25_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_hz=None):
     """K12, K13 (timing, line search), K14 and K7's per-row complex taps
     against their plain versions at the P25 programs' shapes.  Returns
@@ -1802,27 +2097,9 @@ def p25_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_h
         return (passes * PASS_CYCLES + 10 * REDUCE_CYCLES) / clock_hz * 1e3
 
     def timing_case(name, kfn, pfn, buf, st, n_sym, cfg, case, source, replaces, dtype_bytes):
-        s_k, d_k, o_k = (host(v) for v in kfn(buf, st, n_sym, cfg))
-        s_p, d_p, o_p = (host(v) for v in pfn(buf, st, n_sym, cfg))
-        rows, length = buf.shape
-        check(np.array_equal(d_k, d_p), f"{name} ({case}): dibits differ from the plain version")
-        err = snr_db(s_p, s_k)
-        check(err >= 60.0, f"{name} ({case}): soft SNR {err:.1f} dB < 60")
-        d_state = float(np.max(np.abs(o_k - o_p)))
-        check(d_state <= 1e-3, f"{name} ({case}): carried state differs by {d_state:.3g}")
-        n = length - 64
-        # the dead-air row (the last) froze its timing: no phase step
-        c = timing_consts(cfg.sps, cfg.max_clock_ppm, 0.0)
-        st_np = host(st)
-        pos = (np.float32(st_np[0, -1]) + np.float32(n_sym) * np.float32(o_p[1, -1])) - np.float32(n)
-        pos = pos + np.float32(c.sps) if pos < 4.0 else pos
-        pos = pos - np.float32(c.sps) if pos > c.recenter_hi else pos
-        check(abs(float(pos) - float(o_k[0, -1])) <= 1e-3, f"{name} ({case}): the dead-air row moved its timing")
-        # bytes: the rows, the soft and dibits, the state; operations: the O&M pass
-        # (~13 per sample), three Gardner evaluations and the gather (~100 per symbol)
-        b, f = bound(rows * (length * dtype_bytes + n_sym * 5 + 48), rows * (13.0 * n + 100.0 * n_sym))
-        record(name, case, source, replaces, None, max_abs_err=max_abs(s_p, s_k), soft_snr_db=err,
-               state_max_abs=d_state, bound_ms=b, bound_by=f, chain_ms=chain(n, n_sym),
+        rec = timing_vs_plain(name, case, kfn, pfn, buf, st, n_sym, cfg, clock_hz)
+        n = buf.shape[1] - 64
+        record(name, case, source, replaces, None, **rec, chain_ms=chain(n, n_sym),
                ms=timer(lambda: kfn(buf, st, n_sym, cfg), "timing_kernel"),
                wrapper_ms=wall_timer(lambda: kfn(buf, st, n_sym, cfg)),
                plain_ms=timer(lambda: pfn(buf, st, n_sym, cfg)),
@@ -2100,7 +2377,7 @@ def warm_ms(cfg, device, words, ctl, sync) -> tuple:
 
     def one_pass():
         o, _ = capture_multi(words, pipeline_init(cfg, device=device), ctl, cfg)
-        host(o["_packed"])
+        fetch(o["_packed"])
 
     one_pass()
     sync()
@@ -2839,7 +3116,7 @@ def run_engine(device, fs: int = 10_000_000, c: int = 160, n_blocks: int = 3 * D
 
     def one_pass():
         o, _ = capture_multi(words16, pipeline_init(pipe_cfg, device=device), ctl, pipe_cfg)
-        host(o["_packed"])
+        fetch(o["_packed"])
 
     one_pass()
     sync()
@@ -3324,7 +3601,7 @@ def run_engine_mesh(device, fs: int = 10_000_000, c: int = 160, n_blocks: int = 
 
     def one_pass():
         o, _ = step8(words16, mesh_mod.mesh_init(pipe_cfg, entry, mesh8), ctl8)
-        host(o["_packed"])
+        fetch(o["_packed"])
 
     one_pass()
     sync()
@@ -3373,6 +3650,7 @@ def run_program_f(cfgs, device, sync=None) -> dict:
     from wavecap_tpu_torch.capture import mesh as mesh_mod
     from wavecap_tpu_torch.capture.engine import pack_i16_words
     from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from wavecap_tpu_torch.models.p25 import c4fm
     from wavecap_tpu_torch.parallel import copy_counts, reset_copy_counts
     from wavecap_tpu_torch.parallel.sharded import control_from_numpy
 
@@ -3406,15 +3684,59 @@ def run_program_f(cfgs, device, sync=None) -> dict:
     squelch[0, nbfm_bins] = P25_SQUELCH_DB
     ctl = control_from_numpy(gcfg, mesh, fine, active, squelch)
     step = mesh_mod.mesh_capture_multi(cfg, mesh, "nbfm")
+    # the first run starts with no cached O&M table, so one shard's stream
+    # builds it while the others launch K12 on theirs; each shard's K12
+    # call is kept (inputs and outputs cloned on its stream) and checked
+    # afterwards: run again on the same inputs, the table now complete, it
+    # must give the same bits; against the plain version, soft >= 60 dB and
+    # dibits equal but where the plain soft value lies within 1e-3 of a
+    # decision threshold (the two sum in different f32 orders)
+    k12_calls = []
+    own_timing = c4fm.c4fm_timing
+
+    def kept_timing(buf, st, n_sym, cfg_k):
+        got = own_timing(buf, st, n_sym, cfg_k)
+        k12_calls.append((buf.clone(), st.clone(), n_sym, cfg_k, tuple(v.clone() for v in got)))
+        return got
+
+    c4fm._om_table.cache_clear()
+    c4fm.c4fm_timing = kept_timing
     reset_launch_counts()
     reset_copy_counts()
     t0 = time.perf_counter()
     words = torch.from_numpy(words_np).to(device)
-    outs, _ = step(words, mesh_mod.mesh_init(cfg, "nbfm", mesh), ctl)
-    host(outs["_packed"])
-    sync()
+    try:
+        outs, _ = step(words, mesh_mod.mesh_init(cfg, "nbfm", mesh), ctl)
+        host(outs["_packed"])
+        sync()
+    finally:
+        c4fm.c4fm_timing = own_timing
     first_s = time.perf_counter() - t0
     counts, copies = launch_counts(), copy_counts()
+    check(len(k12_calls) == N_BLOCKS * MESH_SHARDS, f"program F: {len(k12_calls)} K12 calls kept")
+    cold = dict(calls=len(k12_calls), same_bits_warm=True, min_soft_snr_db=np.inf, symbols=0,
+                dibits_differing=0, differing_max_margin=0.0, max_state_abs=0.0)
+    for buf, st, n_sym_k, cfg_k, got in k12_calls:
+        s_k, d_k, o_k = (host(v) for v in got)
+        again = [host(v) for v in own_timing(buf, st, n_sym_k, cfg_k)]
+        cold["same_bits_warm"] &= all(np.array_equal(u.view(np.uint8), v.view(np.uint8))
+                                      for u, v in zip((s_k, d_k, o_k), again))
+        s_p, d_p, o_p = (host(v) for v in c4fm.c4fm_timing_plain(buf, st, n_sym_k, cfg_k))
+        cold["min_soft_snr_db"] = min(cold["min_soft_snr_db"], snr_db(s_p, s_k))
+        cold["max_state_abs"] = max(cold["max_state_abs"], float(np.max(np.abs(o_k - o_p))))
+        cold["symbols"] += d_k.size
+        diff = d_k != d_p
+        if diff.any():  # how far the plain soft value lies from the threshold (0 or +-2) it crossed
+            margin = np.min(np.abs(np.abs(s_p[diff])[:, None] - np.array([0.0, 2.0], np.float32)), axis=1)
+            cold["dibits_differing"] += int(diff.sum())
+            cold["differing_max_margin"] = max(cold["differing_max_margin"], float(margin.max()))
+    del k12_calls
+    check(cold["same_bits_warm"], "program F: K12 with a cold O&M table differs from K12 run again warm")
+    check(cold["min_soft_snr_db"] >= 60.0,
+          f"program F, cold O&M table: K12's soft SNR {cold['min_soft_snr_db']:.1f} dB < 60")
+    check(cold["differing_max_margin"] <= 1e-3,
+          f"program F, cold O&M table: a dibit differs from the plain version "
+          f"{cold['differing_max_margin']:.3g} from a decision threshold")
     want = {k: N_BLOCKS * MESH_SHARDS * F_LAUNCHES_PER_SHARD.get(k, 0) for k in counts}
     check(counts == want, f"program F launch counts {counts} != {want}")
     want_copies = {k: N_BLOCKS * v for k, v in mesh_copies(MESH_SHARDS, False, 0, 3, 0).items() if v}
@@ -3435,7 +3757,7 @@ def run_program_f(cfgs, device, sync=None) -> dict:
 
     def one_pass():
         o, _ = step(words, mesh_mod.mesh_init(cfg, "nbfm", mesh), ctl)
-        host(o["_packed"])
+        fetch(o["_packed"])
 
     one_pass()
     sync()
@@ -3447,7 +3769,7 @@ def run_program_f(cfgs, device, sync=None) -> dict:
                 channels=m, bins_per_shard=m // MESH_SHARDS, symbols_per_block=n_sym, launches=counts,
                 copies=copies, first_run_s=first_s, warm_ms_per_block=ms_block,
                 msps=F_BLOCK / ms_block / 1e3, profile=profile_blocks(one_pass, N_BLOCKS, sync),
-                decisions_right={str(k): v for k, v in agree.items()},
+                decisions_right={str(k): v for k, v in agree.items()}, cold_k12_vs_plain=cold,
                 nbfm_tone_margin_db={str(nbfm_bins[k]): v for k, v in margins.items()})
 
 
@@ -3504,6 +3826,25 @@ for what, m_k1, n_k1 in shapes.K1_PATH_SHAPES:
         k1.append(dict(name="K1_unpack_arms", case=f"{what}, {n_k1:,} {kind}",
                        ms=cs.device_ms(lambda: chz.unpack_arms(x1, h1, c1, sc1), ("unpack_arms_kernel",))))
         del x1
+# K4 and K12 / K13's timing the same way (the first designs refuse the long rows)
+k4 = []
+for what, slots, s_len in shapes.K4_PATH_SHAPES:
+    a4 = shapes.k4_path_case(dev, slots, s_len)
+    try:
+        ms = cs.device_ms(lambda: cb.voice_fir(*a4), ("voice_fir_kernel",))
+    except NotImplementedError as e:  # the first K4 refuses rows past 27,000 samples
+        ms = f"refused: {e}"
+    k4.append(dict(name="K4_voice_fir", case=what, ms=ms))
+    del a4
+k12 = []
+for what, kind, rows, n_k12 in shapes.K12_PATH_SHAPES:
+    kfn, pfn, buf, st, n_sym, cfg = shapes.k12_path_case(dev, kind, rows, n_k12)
+    try:
+        ms = cs.device_ms(lambda: kfn(buf, st, n_sym, cfg), ("timing_kernel",))
+    except NotImplementedError as e:  # the first K12 / K13 refuses rows it cannot stage
+        ms = f"refused: {e}"
+    k12.append(dict(name=shapes.K12_NAMES[kind], case=what, ms=ms))
+    del buf
 x = torch.from_numpy((0.3 * rng.standard_normal((100, 9447))).astype(np.float32)).to(dev)
 hp = iir.butter_sos("high", (300.0,), 5, 48_000)
 z = torch.zeros((100, hp.shape[0], 2), device=dev)
@@ -3592,8 +3933,8 @@ try:
 except NotImplementedError as e:
     ms = f"refused: {e}"
 k14.append(dict(name="K14_echo_fit", case="turn: fit, one 60,000-sample row", ms=ms))
-print(json.dumps(dict(checkout=sys.argv[1], K1=k1, K2=k2, K3=k3, K9=k9, K5=k5, K10=k10, K11=k11, K7=k7,
-                      K14=k14), default=float))
+print(json.dumps(dict(checkout=sys.argv[1], K1=k1, K2=k2, K3=k3, K4=k4, K12=k12, K9=k9, K5=k5, K10=k10,
+                      K11=k11, K7=k7, K14=k14), default=float))
 """
 
 
@@ -3631,8 +3972,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
     ap.add_argument("--phase2-turns", metavar="OTHER_CHECKOUT",
-                    help="time K1, K2, K3, K5, K7, K9, K10, K11a, K11b and K14 of this checkout and "
-                         "OTHER_CHECKOUT in turns")
+                    help="time K1-K5, K7, K9-K14 of this checkout and OTHER_CHECKOUT in turns")
     ap.add_argument("--out", help="with --phase2-turns: also write its JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3668,6 +4008,9 @@ def main(argv=None) -> int:
             log(dict(phase="kernel", **k))
         for k in k1_k3_path_checks(device):
             log(dict(phase="kernel-case", **k))
+        for k in k4_k12_path_checks(device):
+            log(dict(phase="kernel-case", **k))
+        log(dict(phase="empty blocks", **empty_block_checks(device)))
         # the P25 kernels before the mixed checks' plain scans, whose many
         # thousand launches make CUPTI drop later ones (see device_ms)
         p25_lines, cases = p25_kernel_checks(p25, device)
@@ -3716,7 +4059,7 @@ def main(argv=None) -> int:
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("chain_ms", "bytes_per_block", "copies_per_block")
+    extra = ("bytes_per_block", "copies_per_block")
     # each kernel's launches on its own path: K4 on the first slice's, K12
     # on program A's, K13 and K14 on program B's, K11 on the engine's
     # (program D), the others on the mixed capture's

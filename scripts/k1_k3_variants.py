@@ -5,16 +5,19 @@ end (``kernels/csrc/slot_frontend.cu``) beside the current ones, with the
 current ones' plans forced, every design instrumented by stage, all timed
 in one process on the card.
 
-Run from the repository root on a machine with one NVIDIA card::
+Run from the repository root on a machine with one NVIDIA card, with the
+commit before the redesign unpacked into a directory
+(``git archive aa9bb67 | tar -x -C checkout_proof/k1_k3_parent``)::
 
-    python3 scripts/k1_k3_variants.py [--out FILE]
+    python3 scripts/k1_k3_variants.py --parent checkout_proof/k1_k3_parent [--out FILE]
 
-* ``OLD_K1`` and ``OLD_K3``, the designs before their redesign: K1 one
-  thread a (parity, column) walking runs of 8 rows, each output loading
-  and unpacking its 9 samples and its 9 taps; K3 one CTA of 256 threads a
-  slot row, the mixed row staged in shared memory for the discriminator
-  (rows of at most ~27,000 samples in modes 0 and 1).  Built as they were
-  and with ``OLD_CLOCKS=1`` (clock64 in thread 0 of each CTA: K1 [0]
+* the designs before their redesign, that checkout's ``unpack_arms.cu``
+  and ``slot_frontend.cu``: K1 one thread a (parity, column) walking runs
+  of 8 rows, each output loading and unpacking its 9 samples and its 9
+  taps; K3 one CTA of 256 threads a slot row, the mixed row staged in
+  shared memory for the discriminator (rows of at most ~27,000 samples in
+  modes 0 and 1).  Built as they are and, with ``OLD_STAMPS`` applied to a
+  copy, with ``OLD_CLOCKS=1`` (clock64 in thread 0 of each CTA: K1 [0]
   start, [1] rows done; K3 [0] start, [1] row mixed, [2] power summed, [3]
   discriminator done).
 * the current kernels through their wrappers, built with ``K1_CLOCKS=1``
@@ -53,321 +56,43 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# K3's design before its redesign, stamped as the docstring says
-OLD_K3 = r"""
-// K3: the per-slot front end of the channel bank.
-//
-// Replaces the per_slot function of
-// wavecap_tpu/models/channel_bank.py:bank_demod_step up to the demod's
-// audio filter: the gather of the slot's channelizer row,
-// wavecap_tpu/ops/nco.py:freq_shift (exact uint32 NCO), ops/clip.py:rssi_dbfs
-// and ops/demod.py:quadrature_demod (mode 1: fast_atan2; mode 0: atan2f).
-// Mode 2 writes the shifted rows themselves (complex) and skips the
-// discriminator: the AM, SSB and SAM banks detect from them.
-// Per slot s, over its row x of S samples:
-//
-//   acc[n]   = phase0 + n * dphi                   (uint32, wraps mod 2^32)
-//   y[n]     = x[n] * (cos, sin)(float(acc[n]) * 2 pi / 2^32)
-//   rssi     = 10 log10(max(mean |y|^2, 1e-20))
-//   fm[n]    = atan2(Im(y[n] y*[n-1]), Re(...)) * fs / (2 pi dev),  y[-1] = prev
-//   phase1   = phase0 + S * dphi,  last = y[S-1]   (modes 0 and 1)
-//   rows[n]  = y[n]                               (mode 2)
-//
-// The tuning word dphi is computed per slot on the host side in torch
-// (the reference's hi/lo f32 split), so accumulators match bit for bit.
-//
-// Bound on the H100: bytes.  At 800 slots x 4,920 samples it reads 31.5 MB
-// of channel rows and writes 15.7 MB of discriminator output (~14 us at
-// 3.35 TB/s); the arithmetic (~32 flops a sample with cosf and sinf counted
-// once each) is a few microseconds.  Mode 2 writes 31.5 MB instead.
-// Design: one block per slot; the mixed row is kept in shared memory
-// (39 KB) so the discriminator reads its neighbour there, and the power is
-// a block reduction.
-#include "common.cuh"
 
-namespace {
+def after(anchor: str, text: str) -> tuple:
+    return anchor, anchor + text
 
-#ifndef OLD_CLOCKS
-#define OLD_CLOCKS 0
-#endif
-#if OLD_CLOCKS
-__device__ long long g_old_clocks[4096][4];
-#define STAMP(k) do { const unsigned b_ = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \
-    if (threadIdx.x == 0 && b_ < 4096) g_old_clocks[b_][k] = clock64(); } while (0)
-#else
-#define STAMP(k) do {} while (0)
-#endif
 
-__device__ __forceinline__ float fast_atan2(float y, float x) {
-    const float ax = fabsf(x), ay = fabsf(y);
-    const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
-    const float a = lo / fmaxf(hi, 1e-30f);
-    const float s = a * a;
-    float r = ((-0.0464964749f * s + 0.15931422f) * s - 0.327622764f) * s * a + a;
-    if (ay > ax) r = static_cast<float>(3.141592653589793 / 2) - r;
-    if (x < 0.f) r = static_cast<float>(3.141592653589793) - r;
-    return y < 0.f ? -r : r;
+# the designs before their redesign are the parent checkout's sources
+# (commit aa9bb67); ``OLD_STAMPS`` adds the stamps the docstring
+# lists to a copy (built with OLD_CLOCKS=1)
+OLD_STAMPS = {
+    "slot_frontend.cu": [
+        after('namespace {\n\n',
+              '#ifndef OLD_CLOCKS\n#define OLD_CLOCKS 0\n#endif\n#if OLD_CLOCKS\n__device__ long long g_old_clocks[4096][4];\n#define STAMP(k) do { const unsigned b_ = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \\\n    if (threadIdx.x == 0 && b_ < 4096) g_old_clocks[b_][k] = clock64(); } while (0)\n#else\n#define STAMP(k) do {} while (0)\n#endif\n\n'),
+        after('    __shared__ float scratch[32];\n',
+              '    STAMP(0);\n'),
+        after('        power += w.x * w.x + w.y * w.y;\n    }\n',
+              '    STAMP(1);\n'),
+        after('    power = block_sum(power, scratch);  // its barrier also publishes y\n',
+              '    STAMP(2);\n'),
+        after('            phase1[slot] = p0 + static_cast<unsigned>(s_len) * d;\n        }\n',
+              '        STAMP(3);\n'),
+        after('        last[slot] = s_len > 0 ? y[s_len - 1] : before;\n    }\n',
+              '    STAMP(3);\n'),
+        after('}  // namespace\n',
+              '\n#if OLD_CLOCKS\nWAVECAP_EXPORT int old_clocks(void* host) {\n    return static_cast<int>(cudaMemcpyFromSymbol(host, g_old_clocks, sizeof(g_old_clocks)));\n}\n#endif\n'),
+    ],
+    "unpack_arms.cu": [
+        after('namespace {\n',
+              '\n#ifndef OLD_CLOCKS\n#define OLD_CLOCKS 0\n#endif\n#if OLD_CLOCKS\n__device__ long long g_old_clocks[4096][4];\n#define STAMP(k) do { const unsigned b_ = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \\\n    if (threadIdx.x == 0 && b_ < 4096) g_old_clocks[b_][k] = clock64(); } while (0)\n#else\n#define STAMP(k) do {} while (0)\n#endif\n'),
+        after('                                   int m, int t, int r_steps, int rows_per_block) {\n',
+              '    STAMP(0);\n'),
+        after('        }\n    }\n',
+              '    STAMP(1);\n'),
+        after('}  // namespace\n',
+              '\n#if OLD_CLOCKS\nWAVECAP_EXPORT int old_clocks(void* host) {\n    return static_cast<int>(cudaMemcpyFromSymbol(host, g_old_clocks, sizeof(g_old_clocks)));\n}\n#endif\n'),
+    ],
 }
 
-__global__ void slot_frontend_kernel(const float2* __restrict__ chans,
-                                     const int* __restrict__ index,
-                                     const unsigned* __restrict__ dphi,
-                                     const unsigned* __restrict__ phase0,
-                                     const float2* __restrict__ prev, float* __restrict__ fm,
-                                     float* __restrict__ rssi, unsigned* __restrict__ phase1,
-                                     float2* __restrict__ last, int m, int s_len, float scale,
-                                     int mode) {
-    extern __shared__ float2 y[];
-    __shared__ float scratch[32];
-    STAMP(0);
-    const int slot = blockIdx.x;
-    // out-of-range bins clamp, as the reference's gather does
-    const int row = min(max(index[slot], 0), m - 1);
-    const float2* x = chans + static_cast<long>(row) * s_len;
-    const unsigned d = dphi[slot], p0 = phase0[slot];
-    const float rad_per_count = static_cast<float>(6.283185307179586 / 4294967296.0);
-
-    float power = 0.f;
-    for (int n = threadIdx.x; n < s_len; n += blockDim.x) {
-        const unsigned acc = p0 + static_cast<unsigned>(n) * d;
-        const float ph = __uint2float_rn(acc) * rad_per_count;
-        const float c = cosf(ph), s = sinf(ph);
-        const float2 v = x[n];
-        const float2 w = make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
-        if (mode == 2) {
-            reinterpret_cast<float2*>(fm)[static_cast<long>(slot) * s_len + n] = w;
-        } else {
-            y[n] = w;
-        }
-        power += w.x * w.x + w.y * w.y;
-    }
-    STAMP(1);
-    power = block_sum(power, scratch);  // its barrier also publishes y
-    STAMP(2);
-    if (mode == 2) {
-        if (threadIdx.x == 0) {
-            rssi[slot] = 10.f * log10f(fmaxf(power / static_cast<float>(s_len), 1e-20f));
-            phase1[slot] = p0 + static_cast<unsigned>(s_len) * d;
-        }
-        STAMP(3);
-        return;
-    }
-
-    float* out = fm + static_cast<long>(slot) * s_len;
-    const float2 before = prev[slot];
-    for (int n = threadIdx.x; n < s_len; n += blockDim.x) {
-        const float2 a = y[n];
-        const float2 b = n > 0 ? y[n - 1] : before;
-        const float re = a.x * b.x + a.y * b.y;
-        const float im = a.y * b.x - a.x * b.y;
-        out[n] = (mode == 1 ? fast_atan2(im, re) : atan2f(im, re)) * scale;
-    }
-    if (threadIdx.x == 0) {
-        rssi[slot] = 10.f * log10f(fmaxf(power / static_cast<float>(s_len), 1e-20f));
-        phase1[slot] = p0 + static_cast<unsigned>(s_len) * d;
-        last[slot] = s_len > 0 ? y[s_len - 1] : before;
-    }
-    STAMP(3);
-}
-
-}  // namespace
-
-#if OLD_CLOCKS
-WAVECAP_EXPORT int old_clocks(void* host) {
-    return static_cast<int>(cudaMemcpyFromSymbol(host, g_old_clocks, sizeof(g_old_clocks)));
-}
-#endif
-
-WAVECAP_EXPORT int k3_slot_frontend(const void* chans, const void* index, const void* dphi,
-                                    const void* phase0, const void* prev, void* fm,
-                                    void* rssi, void* phase1, void* last, int n_slots, int m,
-                                    int s_len, float scale, int mode, void* stream) {
-    if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = mode == 2 ? 0 : sizeof(float2) * static_cast<size_t>(s_len);
-    cudaError_t err = cudaFuncSetAttribute(
-        slot_frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    slot_frontend_kernel<<<n_slots, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float2*>(chans), static_cast<const int*>(index),
-        static_cast<const unsigned*>(dphi), static_cast<const unsigned*>(phase0),
-        static_cast<const float2*>(prev), static_cast<float*>(fm), static_cast<float*>(rssi),
-        static_cast<unsigned*>(phase1), static_cast<float2*>(last), m, s_len, scale, mode);
-    return static_cast<int>(cudaGetLastError());
-}
-"""
-
-# K1's design before its redesign, stamped as the docstring says
-OLD_K1 = r"""
-// K1: packed-word unpack fused with the channelizer's polyphase arms.
-//
-// Replaces wavecap_tpu/capture/pipeline.py:_to_complex (its three word
-// branches: int32 words of i16 pairs scaled 1/32768; int16 words of i8
-// pairs and int8 words of i4 nibble pairs, each times the block's f32
-// scale, which the kernel reads from device memory) fused with the
-// parity_stack inner function of wavecap_tpu/ops/channelizer.py:channelize.  With x_ext = [history || x]
-// (history = the last M*T samples of the stream), it writes both parity
-// stacks of the NMDPFB:
-//
-//   u[p, r, c] = sum_{k<T} arms_rev[k, c] * x_ext[off_p + (r + T-1-k)*M + c],
-//   off_0 = 1, off_1 = 1 + M/2,
-//
-// summed in the reference's tap order, and (for word input) the unpacked
-// complex block, which the spectrum, the whole-block RSSI and the next
-// history read.  Complex input (a caller that already holds complex64
-// samples) takes the same kernel without the unpack and without x_out.
-//
-// Bound on the H100: bytes.  At the slice's shapes (N = 1,968,000 words,
-// M = 800, T = 9) it reads 7.9 MB of words and writes 31.5 MB of arms and
-// 15.7 MB of samples, against ~0.14 GFLOP.  Design: one thread per
-// (parity, channel column), walking a run of rows, so a warp reads and
-// writes consecutive columns (coalesced); the T-fold reuse of each sample
-// across rows is served from L1/L2, not from device memory.
-#include "common.cuh"
-
-namespace {
-
-#ifndef OLD_CLOCKS
-#define OLD_CLOCKS 0
-#endif
-#if OLD_CLOCKS
-__device__ long long g_old_clocks[4096][4];
-#define STAMP(k) do { const unsigned b_ = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \
-    if (threadIdx.x == 0 && b_ < 4096) g_old_clocks[b_][k] = clock64(); } while (0)
-#else
-#define STAMP(k) do {} while (0)
-#endif
-
-struct WordSource {
-    const int32_t* w;
-    __device__ __forceinline__ float2 operator()(long i) const {
-        const int32_t v = w[i];
-        // low half sign-extended by masking, high half by arithmetic shift
-        const float re = static_cast<float>(((v & 0xFFFF) ^ 0x8000) - 0x8000);
-        const float im = static_cast<float>(v >> 16);
-        return make_float2(re * (1.0f / 32768.0f), im * (1.0f / 32768.0f));
-    }
-};
-
-// adaptive i8: low byte I, high byte Q (little-endian), times the scale
-struct I8Source {
-    const int16_t* w;
-    const float* scale;
-    __device__ __forceinline__ float2 operator()(long i) const {
-        const int v = w[i];
-        const float s = *scale;
-        const float re = static_cast<float>(((v & 0xFF) ^ 0x80) - 0x80);
-        const float im = static_cast<float>(v >> 8);
-        return make_float2(re * s, im * s);
-    }
-};
-
-// adaptive i4: low nibble I, high nibble Q, times the scale
-struct I4Source {
-    const int8_t* w;
-    const float* scale;
-    __device__ __forceinline__ float2 operator()(long i) const {
-        const int v = w[i];
-        const float s = *scale;
-        const float re = static_cast<float>(((v & 0xF) ^ 0x8) - 0x8);
-        const float im = static_cast<float>(v >> 4);
-        return make_float2(re * s, im * s);
-    }
-};
-
-struct ComplexSource {
-    const float2* x;
-    __device__ __forceinline__ float2 operator()(long i) const { return x[i]; }
-};
-
-template <class Source>
-__global__ void unpack_arms_kernel(Source src, const float2* __restrict__ hist,
-                                   const float* __restrict__ arms_rev,
-                                   float2* __restrict__ u, float2* __restrict__ x_out,
-                                   int m, int t, int r_steps, int rows_per_block) {
-    STAMP(0);
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= m) return;
-    const int p = blockIdx.z;
-    const long h = static_cast<long>(m) * t;
-    const long off = 1 + (p ? m / 2 : 0);
-    const int r0 = blockIdx.y * rows_per_block;
-    const int r1 = min(r0 + rows_per_block, r_steps);
-    for (int r = r0; r < r1; ++r) {
-        float2 acc = make_float2(0.f, 0.f);
-        for (int k = 0; k < t; ++k) {
-            const long i = off + static_cast<long>(r + t - 1 - k) * m + c;
-            const float2 s = i < h ? hist[i] : src(i - h);
-            const float a = arms_rev[k * m + c];
-            acc.x += s.x * a;
-            acc.y += s.y * a;
-        }
-        u[(static_cast<long>(p) * r_steps + r) * m + c] = acc;
-        if (x_out != nullptr && p == 0) {
-            const long j = static_cast<long>(r) * m + c;
-            x_out[j] = src(j);
-        }
-    }
-    STAMP(1);
-}
-
-// Threads per block along the channel axis: a multiple of 32 that tiles
-// ceil(m/32) warps evenly where it can (160 for m = 800), at most 256.
-int column_threads(int m) {
-    const int warps = (m + 31) / 32;
-    for (int d = 8; d > 1; --d)
-        if (warps % d == 0) return 32 * d;
-    return 32 * (warps < 8 ? warps : 8);
-}
-
-}  // namespace
-
-#if OLD_CLOCKS
-WAVECAP_EXPORT int old_clocks(void* host) {
-    return static_cast<int>(cudaMemcpyFromSymbol(host, g_old_clocks, sizeof(g_old_clocks)));
-}
-#endif
-
-template <class Source>
-void launch_arms(Source src, const void* hist, const void* arms_rev, void* u, void* x_out, int m,
-                 int t, int r_steps, cudaStream_t s) {
-    const int rows_per_block = 8;
-    const int threads = column_threads(m);
-    const dim3 grid((m + threads - 1) / threads, (r_steps + rows_per_block - 1) / rows_per_block, 2);
-    unpack_arms_kernel<<<grid, threads, 0, s>>>(
-        src, static_cast<const float2*>(hist), static_cast<const float*>(arms_rev),
-        static_cast<float2*>(u), static_cast<float2*>(x_out), m, t, r_steps, rows_per_block);
-}
-
-// kind: 0 complex64 samples (no x_out), 1 int32 i16-pair words, 2 int16
-// i8-pair words, 3 int8 i4-nibble words (2 and 3 read ``scale``)
-WAVECAP_EXPORT int k1_unpack_arms(const void* src, int kind, const void* scale, const void* hist,
-                                  const void* arms_rev, void* u, void* x_out, int m, int t,
-                                  int r_steps, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* sc = static_cast<const float*>(scale);
-    switch (kind) {
-        case 0:
-            launch_arms(ComplexSource{static_cast<const float2*>(src)}, hist, arms_rev, u, nullptr,
-                        m, t, r_steps, s);
-            break;
-        case 1:
-            launch_arms(WordSource{static_cast<const int32_t*>(src)}, hist, arms_rev, u, x_out, m,
-                        t, r_steps, s);
-            break;
-        case 2:
-            launch_arms(I8Source{static_cast<const int16_t*>(src), sc}, hist, arms_rev, u, x_out, m,
-                        t, r_steps, s);
-            break;
-        case 3:
-            launch_arms(I4Source{static_cast<const int8_t*>(src), sc}, hist, arms_rev, u, x_out, m,
-                        t, r_steps, s);
-            break;
-        default:
-            return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
-}
-"""
 
 # the trials that lost: variant -> (source, [(text, its replacement)]); each
 # text must occur once in the current source
@@ -456,18 +181,31 @@ def patched(csrc: Path, vdir: Path, name: str) -> Path:
     return out
 
 
-def build(vdir: Path, build_mod) -> dict:
+
+def stamped_source(old: Path, vdir: Path, stem: str) -> Path:
+    """The parent checkout's ``stem`` with ``OLD_STAMPS`` applied, written
+    beside the builds."""
+    text = (old / stem).read_text()
+    for anchor, new in OLD_STAMPS[stem]:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"{stem}: {anchor.strip()[:60]!r} does not occur once in {old / stem}")
+        text = text.replace(anchor, new)
+    out = vdir / f"stamped_{stem}"
+    out.write_text(text)
+    return out
+
+
+def build(vdir: Path, build_mod, parent: Path) -> dict:
     """Every variant's library, compiled in parallel: name -> (CDLL, ptxas lines)."""
     vdir.mkdir(parents=True, exist_ok=True)
-    (vdir / "old_k3.cu").write_text(OLD_K3)
-    (vdir / "old_k1.cu").write_text(OLD_K1)
     csrc = build_mod.CSRC
+    old = parent / "wavecap_tpu_torch" / "kernels" / "csrc"
     jobs = {
-        "K3 before": (vdir / "old_k3.cu", {}),
-        "K3 before, instrumented": (vdir / "old_k3.cu", {"OLD_CLOCKS": 1}),
+        "K3 before": (old / "slot_frontend.cu", {}),
+        "K3 before, instrumented": (stamped_source(old, vdir, "slot_frontend.cu"), {"OLD_CLOCKS": 1}),
         "K3 current, instrumented": (csrc / "slot_frontend.cu", {"K3_CLOCKS": 1}),
-        "K1 before": (vdir / "old_k1.cu", {}),
-        "K1 before, instrumented": (vdir / "old_k1.cu", {"OLD_CLOCKS": 1}),
+        "K1 before": (old / "unpack_arms.cu", {}),
+        "K1 before, instrumented": (stamped_source(old, vdir, "unpack_arms.cu"), {"OLD_CLOCKS": 1}),
         "K1 current, instrumented": (csrc / "unpack_arms.cu", {"K1_CLOCKS": 1}),
     }
     jobs.update({name: (patched(csrc, vdir, name), {}) for name in PATCHES})
@@ -476,7 +214,8 @@ def build(vdir: Path, build_mod) -> dict:
     for i, (name, (src, macros)) in enumerate(jobs.items()):
         lib = vdir / f"libvariant{i}.so"
         cmd = build_mod.nvcc_command(src, lib, nvcc)
-        cmd[1:1] = [f"-I{csrc}"] + [f"-D{k}={v}" for k, v in macros.items()]
+        include = old if "before" in name else csrc
+        cmd[1:1] = [f"-I{include}"] + [f"-D{k}={v}" for k, v in macros.items()]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -544,13 +283,15 @@ def main() -> int:
     from wavecap_tpu_torch.ops import channelizer as chz
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, type=Path,
+                    help="a checkout of the commit before the redesign (its kernel sources are built)")
     ap.add_argument("--out", help="also write the JSON lines here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k1_k3_variants: no CUDA device", file=sys.stderr)
         return 2
     build_mod.build_all()
-    libs = build(build_mod.BUILD_DIR / "k1_k3_variants", build_mod)
+    libs = build(build_mod.BUILD_DIR / "k1_k3_variants", build_mod, args.parent.resolve())
     card = cs.card_line()
     dev = torch.device("cuda")
     lines = []

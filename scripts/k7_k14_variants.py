@@ -5,17 +5,20 @@ fit (``kernels/csrc/echo_fit.cu``) and the strided FIR
 current ones' plans forced, and every design instrumented by stage, all
 timed in one process on the card.
 
-Run from the repository root on a machine with one NVIDIA card::
+Run from the repository root on a machine with one NVIDIA card, with the
+commit before the redesign unpacked into a directory
+(``git archive 1e99d42 | tar -x -C checkout_proof/k7_k14_parent``)::
 
-    python3 scripts/k7_k14_variants.py [--out FILE]
+    python3 scripts/k7_k14_variants.py --parent checkout_proof/k7_k14_parent [--out FILE]
 
-* ``OLD_K14`` and ``OLD_K7``, the first designs, as they were before
-  their redesign: K14's acf one CTA a row (the row staged in shared
+* the first designs, that checkout's ``echo_fit.cu`` and
+  ``strided_fir.cu``, as they were before their redesign: K14's acf one CTA a row (the row staged in shared
   memory, 29 lags one after another, two block sums each), its residuals
   one thread a candidate walking every row, its taps one thread a tap
   summing 512 double terms with a ``sincospi`` each; K7 one thread an
-  output walking every tap, 128-output tiles.  Built as they were and with
-  ``OLD_CLOCKS=1`` (clock64 at each stage's end in thread 0 of each CTA).
+  output walking every tap, 128-output tiles.  Built as they are and,
+  with ``OLD_STAMPS`` applied to a copy, with ``OLD_CLOCKS=1`` (clock64 at
+  each stage's end in thread 0 of each CTA).
 * the current kernels through their wrappers; built with ``K14_CLOCKS=1``
   / ``K7_CLOCKS=1`` (the same stamps); and the trials that did not win,
   each the current source with one change (``PATCHES``, applied to a copy
@@ -57,411 +60,57 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# K14's first design, stamped: acf [0] start, [1] row staged, [2] lags summed,
-# [3] finished; residuals [0], [1] staged, [2] rows done; epilogue [0],
-# [1] gated, [2] W evaluated, [3] taps summed
-OLD_K14 = r"""
-#include "common.cuh"
 
-namespace {
-#ifndef OLD_CLOCKS
-#define OLD_CLOCKS 0
-#endif
-#if OLD_CLOCKS
-__device__ long long g_old_clocks[3][1024][4];  // K14: acf / residual / epilogue; K7: [0]
-#define STAMP(which, k) do { if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < 1024) \
-    g_old_clocks[which][blockIdx.y * gridDim.x + blockIdx.x][k] = clock64(); } while (0)
-#else
-#define STAMP(which, k) do {} while (0)
-#endif
+def after(anchor: str, text: str) -> tuple:
+    return anchor, anchor + text
 
-constexpr int kMaxLags = 32;  // n_tau + 1 = max_delay + 13 = 29 by default
-constexpr int kNfft = 512;    // EQ_NFFT
-constexpr int kThreads = 256;
 
-__device__ __forceinline__ float sq_abs(float2 d) {
-    const float m = hypotf(d.x, d.y);  // jnp.abs(.) ** 2
-    return __fmul_rn(m, m);
+# the designs before their redesign are the parent checkout's sources
+# (commit 1e99d42); ``OLD_STAMPS`` adds the stamps the docstring
+# lists to a copy (built with OLD_CLOCKS=1)
+OLD_STAMPS = {
+    "echo_fit.cu": [
+        after('namespace {\n',
+              '#ifndef OLD_CLOCKS\n#define OLD_CLOCKS 0\n#endif\n#if OLD_CLOCKS\n__device__ long long g_old_clocks[3][1024][4];  // K14: acf / residual / epilogue; K7: [0]\n#define STAMP(which, k) do { if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < 1024) \\\n    g_old_clocks[which][blockIdx.y * gridDim.x + blockIdx.x][k] = clock64(); } while (0)\n#else\n#define STAMP(which, k) do {} while (0)\n#endif\n'),
+        after('    const float2* row = x + static_cast<long long>(r) * n;\n',
+              '    STAMP(0, 0);\n'),
+        after('    for (int i = threadIdx.x; i < n; i += blockDim.x) xs[i] = row[i];\n    __syncthreads();\n',
+              '    STAMP(0, 1);\n'),
+        after('        }\n    }\n',
+              '    STAMP(0, 2);\n'),
+        after('    best[r] = ~0ull;\n',
+              '    STAMP(0, 3);\n'),
+        after('    extern __shared__ float2 as[];\n',
+              '    STAMP(1, 0);\n'),
+        after('        p[t] = (valid && t < lags) ? preds[static_cast<long long>(c) * lags + t] : make_float2(0.f, 0.f);\n    }\n',
+              '    STAMP(1, 1);\n'),
+        after('        if ((threadIdx.x & 31) == 0 && key != ~0ull) atomicMin(best + r, key);\n    }\n',
+              '    STAMP(1, 2);\n'),
+        after('    __shared__ float echo[3];  // a, theta, d\n    const int r = blockIdx.x;\n',
+              '    STAMP(2, 0);\n'),
+        after('        j_out[r] = j;\n    }\n    __syncthreads();\n',
+              '    STAMP(2, 1);\n'),
+        after('        w[k] = make_float2(__fdiv_rn(hr, den), -__fdiv_rn(hi, den));\n    }\n    __syncthreads();\n',
+              '    STAMP(2, 2);\n'),
+        after('    taps[static_cast<long long>(r) * n_taps + t] = v;\n',
+              '    STAMP(2, 3);\n'),
+        after('}  // namespace\n',
+              '\n#if OLD_CLOCKS\nWAVECAP_EXPORT int old_clocks(void* host) {\n    return static_cast<int>(cudaMemcpyFromSymbol(host, g_old_clocks, sizeof(g_old_clocks)));\n}\n#endif\n'),
+    ],
+    "strided_fir.cu": [
+        after('namespace {\n',
+              '#ifndef OLD_CLOCKS\n#define OLD_CLOCKS 0\n#endif\n#if OLD_CLOCKS\n__device__ long long g_old_clocks[3][1024][4];  // K14: acf / residual / epilogue; K7: [0]\n#define STAMP(which, k) do { if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < 1024) \\\n    g_old_clocks[which][blockIdx.y * gridDim.x + blockIdx.x][k] = clock64(); } while (0)\n#else\n#define STAMP(which, k) do {} while (0)\n#endif\n'),
+        after('    }\n\n',
+              '    STAMP(0, 0);\n'),
+        after('    __syncthreads();\n',
+              '    STAMP(0, 1);\n'),
+        after('    y[static_cast<long long>(row) * n_out + m0 + threadIdx.x] = acc.value();\n',
+              '    STAMP(0, 2);\n'),
+        after('}  // namespace\n\n',
+              '#if OLD_CLOCKS\nWAVECAP_EXPORT int old_clocks(void* host) {\n    return static_cast<int>(cudaMemcpyFromSymbol(host, g_old_clocks, sizeof(g_old_clocks)));\n}\n#endif\n\n'),
+    ],
 }
 
-__global__ void __launch_bounds__(kThreads)
-acf_kernel(const float2* __restrict__ x, int n, int n_tau, const float2* __restrict__ acc,
-           const bool* __restrict__ enable, float2* __restrict__ acf,
-           unsigned long long* __restrict__ best, float ema, int fit) {
-    extern __shared__ float2 xs[];
-    __shared__ float scratch[32];
-    __shared__ float2 lags[kMaxLags];
-    const int r = blockIdx.x;
-    const float2* row = x + static_cast<long long>(r) * n;
-    STAMP(0, 0);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) xs[i] = row[i];
-    __syncthreads();
-    STAMP(0, 1);
-    for (int t = 0; t <= n_tau; ++t) {
-        float re = 0.f, im = 0.f;
-        for (int i = t + threadIdx.x; i < n; i += blockDim.x) {
-            const float2 a = xs[i], b = xs[i - t];
-            re += __fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
-            im += __fsub_rn(__fmul_rn(a.y, b.x), __fmul_rn(a.x, b.y));
-        }
-        re = block_sum(re, scratch);
-        im = block_sum(im, scratch);
-        if (threadIdx.x == 0) {
-            const float cnt = static_cast<float>(n - t);
-            lags[t] = make_float2(__fdiv_rn(re, cnt), __fdiv_rn(im, cnt));
-        }
-    }
-    STAMP(0, 2);
-    if (threadIdx.x != 0) return;
-    const float d = fmaxf(lags[0].x, 1e-9f);
-    bool finite = true;
-    for (int t = 0; t <= n_tau; ++t) {
-        lags[t] = make_float2(__fdiv_rn(lags[t].x, d), __fdiv_rn(lags[t].y, d));
-        finite = finite && isfinite(lags[t].x) && isfinite(lags[t].y);
-    }
-    const float2* a = acc ? acc + static_cast<long long>(r) * (n_tau + 1) : nullptr;
-    float seen = 0.f;
-    if (fit) {
-        for (int t = 0; t <= n_tau; ++t) seen += hypotf(a[t].x, a[t].y);
-    }
-    const bool on = !fit || enable[r];
-    for (int t = 0; t <= n_tau; ++t) {
-        float2 v = finite ? lags[t] : make_float2(0.f, 0.f);
-        if (fit && seen > 0.f) {
-            v = make_float2(__fadd_rn(__fmul_rn(1.f - ema, a[t].x), __fmul_rn(ema, v.x)),
-                            __fadd_rn(__fmul_rn(1.f - ema, a[t].y), __fmul_rn(ema, v.y)));
-        }
-        acf[static_cast<long long>(r) * (n_tau + 1) + t] = on ? v : make_float2(0.f, 0.f);
-    }
-    best[r] = ~0ull;
-    STAMP(0, 3);
-}
-
-__global__ void __launch_bounds__(kThreads)
-residual_kernel(const float2* __restrict__ acf, int rows, int lags,
-                const float2* __restrict__ preds, int n_cand,
-                unsigned long long* __restrict__ best) {
-    extern __shared__ float2 as[];
-    STAMP(1, 0);
-    for (int i = threadIdx.x; i < rows * lags; i += blockDim.x) as[i] = acf[i];
-    __syncthreads();
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool valid = c < n_cand;
-    float2 p[kMaxLags];
-#pragma unroll
-    for (int t = 0; t < kMaxLags; ++t) {
-        p[t] = (valid && t < lags) ? preds[static_cast<long long>(c) * lags + t] : make_float2(0.f, 0.f);
-    }
-    STAMP(1, 1);
-    for (int r = 0; r < rows; ++r) {
-        const float2* a = as + r * lags;
-        float s = 0.f;
-#pragma unroll
-        for (int t = 0; t < kMaxLags; ++t) {
-            if (t < lags) s = __fadd_rn(s, sq_abs(make_float2(__fsub_rn(p[t].x, a[t].x),
-                                                              __fsub_rn(p[t].y, a[t].y))));
-        }
-        unsigned long long key =
-            valid ? (static_cast<unsigned long long>(__float_as_uint(s)) << 32) | static_cast<unsigned>(c)
-                  : ~0ull;
-        for (int o = 16; o > 0; o >>= 1) {
-            const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, o);
-            key = other < key ? other : key;
-        }
-        if ((threadIdx.x & 31) == 0 && key != ~0ull) atomicMin(best + r, key);
-    }
-    STAMP(1, 2);
-}
-
-__global__ void __launch_bounds__(kNfft)
-epilogue_kernel(const float2* __restrict__ acf, int lags, const float2* __restrict__ preds,
-                const float* __restrict__ params, int n_cand,
-                const unsigned long long* __restrict__ best, const bool* __restrict__ enable,
-                float2* __restrict__ taps, bool* __restrict__ sig_out, int* __restrict__ j_out,
-                float* __restrict__ score, int n_taps, float lam, float a_floor,
-                float gate_ratio, int fit) {
-    __shared__ float2 w[kNfft];
-    __shared__ float echo[3];  // a, theta, d
-    const int r = blockIdx.x;
-    STAMP(2, 0);
-    const unsigned long long b = best[r];
-    int j = static_cast<int>(b & 0xffffffffull);
-    const float rj = __uint_as_float(static_cast<unsigned>(b >> 32));
-    if (j >= n_cand) j = 0;  // every residual was NaN: jnp.argmin gives 0
-    if (!fit) {
-        if (threadIdx.x == 0) score[r] = rj;
-        return;
-    }
-    const bool on = enable[r];
-    if (threadIdx.x == 0) {
-        const float2* a = acf + static_cast<long long>(r) * lags;
-        float r0 = 0.f;  // the no-echo candidate's residual
-        for (int t = 0; t < lags; ++t) {
-            r0 = __fadd_rn(r0, sq_abs(make_float2(__fsub_rn(preds[t].x, a[t].x),
-                                                  __fsub_rn(preds[t].y, a[t].y))));
-        }
-        const float amp = params[3 * j + 2];
-        const bool sig = (rj < __fmul_rn(gate_ratio, r0)) && (amp >= a_floor) && on;
-        echo[0] = sig ? amp : 0.f;
-        echo[1] = params[3 * j + 1];
-        echo[2] = params[3 * j];
-        sig_out[r] = sig;
-        j_out[r] = j;
-    }
-    __syncthreads();
-    STAMP(2, 1);
-    const float amp = echo[0], theta = echo[1], d = echo[2];
-    {
-        const int k = threadIdx.x;
-        // the reference's f32 grid 2 pi k / 512 (numpy float64, rounded)
-        const float wk = static_cast<float>((6.283185307179586 * k) / 512.0);
-        const float ph = -__fmul_rn(wk, d);
-        const float er = cosf(ph), ei = sinf(ph);
-        const float ar = __fmul_rn(amp, cosf(theta)), ai = __fmul_rn(amp, sinf(theta));
-        const float hr = __fadd_rn(1.f, __fsub_rn(__fmul_rn(ar, er), __fmul_rn(ai, ei)));
-        const float hi = __fadd_rn(__fmul_rn(ar, ei), __fmul_rn(ai, er));
-        const float m = hypotf(hr, hi);
-        const float den = __fadd_rn(__fmul_rn(m, m), lam);
-        w[k] = make_float2(__fdiv_rn(hr, den), -__fdiv_rn(hi, den));
-    }
-    __syncthreads();
-    STAMP(2, 2);
-    const int t = threadIdx.x;
-    if (t >= n_taps) return;
-    const int c = n_taps / 2;
-    float2 v = make_float2(t == c ? 1.f : 0.f, 0.f);
-    if (on) {
-        const int m = (((t - c) % kNfft) + kNfft) % kNfft;
-        double sr = 0.0, si = 0.0;
-        for (int k = 0; k < kNfft; ++k) {
-            double sn, cs;
-            sincospi(static_cast<double>((k * m) & (kNfft - 1)) / (kNfft / 2), &sn, &cs);
-            sr += w[k].x * cs - w[k].y * sn;
-            si += w[k].x * sn + w[k].y * cs;
-        }
-        v = make_float2(static_cast<float>(sr / kNfft), static_cast<float>(si / kNfft));
-    }
-    taps[static_cast<long long>(r) * n_taps + t] = v;
-    STAMP(2, 3);
-}
-
-}  // namespace
-
-#if OLD_CLOCKS
-WAVECAP_EXPORT int old_clocks(void* host) {
-    return static_cast<int>(cudaMemcpyFromSymbol(host, g_old_clocks, sizeof(g_old_clocks)));
-}
-#endif
-
-WAVECAP_EXPORT int k14_echo_fit(const void* x, int rows, int n, int n_tau, const void* preds,
-                                const void* params, int n_cand, const void* acf_acc,
-                                const void* enable, void* acf, void* best, void* score,
-                                void* taps, void* sig, void* j, int n_taps, float lam,
-                                float a_floor, float gate_ratio, float acf_ema, int fit,
-                                void* stream) {
-    if (n_tau + 1 > kMaxLags || n_taps > kNfft || (fit && (!acf_acc || !enable)))
-        return static_cast<int>(cudaErrorInvalidValue);
-    if (rows <= 0) return 0;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int lags = n_tau + 1;
-    const size_t smem_row = sizeof(float2) * static_cast<size_t>(n);
-    cudaError_t err = cudaFuncSetAttribute(acf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem_row));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    acf_kernel<<<rows, kThreads, smem_row, s>>>(
-        static_cast<const float2*>(x), n, n_tau, static_cast<const float2*>(acf_acc),
-        static_cast<const bool*>(enable), static_cast<float2*>(acf),
-        static_cast<unsigned long long*>(best), acf_ema, fit);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t smem_acf = sizeof(float2) * static_cast<size_t>(rows) * lags;
-    err = cudaFuncSetAttribute(residual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_acf));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    residual_kernel<<<(n_cand + kThreads - 1) / kThreads, kThreads, smem_acf, s>>>(
-        static_cast<const float2*>(acf), rows, lags, static_cast<const float2*>(preds), n_cand,
-        static_cast<unsigned long long*>(best));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    epilogue_kernel<<<rows, kNfft, 0, s>>>(
-        static_cast<const float2*>(acf), lags, static_cast<const float2*>(preds),
-        static_cast<const float*>(params), n_cand, static_cast<const unsigned long long*>(best),
-        static_cast<const bool*>(enable), static_cast<float2*>(taps), static_cast<bool*>(sig),
-        static_cast<int*>(j), static_cast<float*>(score), n_taps, lam, a_floor, gate_ratio, fit);
-    return static_cast<int>(cudaGetLastError());
-}
-"""
-
-# K7's first design, stamped: [0] start, [1] span staged, [2] output stored
-OLD_K7 = r"""
-#include "common.cuh"
-
-namespace {
-#ifndef OLD_CLOCKS
-#define OLD_CLOCKS 0
-#endif
-#if OLD_CLOCKS
-__device__ long long g_old_clocks[3][1024][4];  // K14: acf / residual / epilogue; K7: [0]
-#define STAMP(which, k) do { if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < 1024) \
-    g_old_clocks[which][blockIdx.y * gridDim.x + blockIdx.x][k] = clock64(); } while (0)
-#else
-#define STAMP(which, k) do {} while (0)
-#endif
-
-constexpr int kTile = 128;
-
-__device__ __forceinline__ float load_x(const float* p, long long i, unsigned, unsigned, bool) {
-    return p[i];
-}
-
-__device__ __forceinline__ float2 load_x(const float2* p, long long i, unsigned d, unsigned p0,
-                                         bool mix) {
-    const float2 v = p[i];
-    if (!mix) return v;
-    const float rad_per_count = static_cast<float>(6.283185307179586 / 4294967296.0);
-    const unsigned acc = p0 + static_cast<unsigned>(i) * d;
-    const float ph = __uint2float_rn(acc) * rad_per_count;
-    const float c = cosf(ph), s = sinf(ph);
-    return make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
-}
-
-// the sums of one output: real taps keep one accumulator per component,
-// complex taps the four real sums of the reference's complex convolution
-template <typename V, typename H>
-struct Acc;
-
-template <>
-struct Acc<float, float> {
-    float s = 0.f;
-    __device__ void mac(float h, float v) { s = fmaf(h, v, s); }
-    __device__ float value() const { return s; }
-};
-
-template <>
-struct Acc<float2, float> {
-    float re = 0.f, im = 0.f;
-    __device__ void mac(float h, float2 v) {
-        re = fmaf(h, v.x, re);
-        im = fmaf(h, v.y, im);
-    }
-    __device__ float2 value() const { return make_float2(re, im); }
-};
-
-template <>
-struct Acc<float2, float2> {
-    float rr = 0.f, ii = 0.f, ir = 0.f, ri = 0.f;
-    __device__ void mac(float2 h, float2 v) {
-        rr = fmaf(h.x, v.x, rr);
-        ii = fmaf(h.y, v.y, ii);
-        ir = fmaf(h.y, v.x, ir);
-        ri = fmaf(h.x, v.y, ri);
-    }
-    __device__ float2 value() const { return make_float2(rr - ii, ir + ri); }
-};
-
-template <typename V, typename H>
-__global__ void strided_fir_kernel(const V* __restrict__ x, int x_rows, const V* __restrict__ head,
-                                   int head_len, const H* __restrict__ taps, int n_taps,
-                                   int taps_stride, int stride, const unsigned* __restrict__ dphi,
-                                   const unsigned* __restrict__ phase0, V* __restrict__ y,
-                                   V* __restrict__ tail, unsigned* __restrict__ phase1, int n,
-                                   int n_out, int n_tiles) {
-    extern __shared__ float smem[];
-    H* h = reinterpret_cast<H*>(smem);
-    V* span = reinterpret_cast<V*>(smem + ((n_taps * (sizeof(H) / 4) + 3) & ~3));
-    const int row = blockIdx.y;
-    const V* xr = x + static_cast<long long>(x_rows == 1 ? 0 : row) * n;
-    const V* hr = head ? head + static_cast<long long>(row) * head_len : nullptr;
-    const bool mix = dphi != nullptr;
-    const unsigned d = mix ? dphi[row] : 0u, p0 = mix ? phase0[row] : 0u;
-
-    if (static_cast<int>(blockIdx.x) == n_tiles) {  // the tail and the next phase
-        const long long total = static_cast<long long>(head_len) + n;
-        // fewer samples than T - 1 (no output then): the tail holds them all
-        const int t1 = static_cast<int>(min(static_cast<long long>(n_taps - 1), total));
-        if (tail) {
-            for (int i = threadIdx.x; i < t1; i += blockDim.x) {
-                const long long j = total - t1 + i;
-                tail[static_cast<long long>(row) * t1 + i] =
-                    j < head_len ? hr[j] : load_x(xr, j - head_len, d, p0, mix);
-            }
-        }
-        if (phase1 && threadIdx.x == 0) phase1[row] = p0 + static_cast<unsigned>(n) * d;
-        return;
-    }
-
-    STAMP(0, 0);
-    const H* hrow = taps + static_cast<long long>(row) * taps_stride;
-    for (int k = threadIdx.x; k < n_taps; k += blockDim.x) h[k] = hrow[k];
-    const long long m0 = static_cast<long long>(blockIdx.x) * kTile;
-    const int count = static_cast<int>(min(static_cast<long long>(kTile), n_out - m0));
-    const long long j0 = m0 * stride;
-    const int len = (count - 1) * stride + n_taps;
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
-        const long long j = j0 + i;
-        span[i] = j < head_len ? hr[j] : load_x(xr, j - head_len, d, p0, mix);
-    }
-    __syncthreads();
-    STAMP(0, 1);
-    if (static_cast<int>(threadIdx.x) >= count) return;
-    const V* w = span + threadIdx.x * stride + n_taps - 1;
-    Acc<V, H> acc;
-    for (int k = 0; k < n_taps; ++k) acc.mac(h[k], w[-k]);
-    y[static_cast<long long>(row) * n_out + m0 + threadIdx.x] = acc.value();
-    STAMP(0, 2);
-}
-
-template <typename V, typename H>
-int launch_fir(const void* x, int x_rows, const void* head, int head_len, const void* taps,
-               int n_taps, int taps_stride, int stride, const void* dphi, const void* phase0,
-               void* y, void* tail, void* phase1, int rows, int n, int n_out,
-               cudaStream_t stream) {
-    const int n_tiles = (n_out + kTile - 1) / kTile;
-    const size_t span = static_cast<size_t>(kTile - 1) * stride + n_taps;
-    const size_t smem = sizeof(float) * ((n_taps * (sizeof(H) / 4) + 3) & ~3) + sizeof(V) * span;
-    cudaError_t err = cudaFuncSetAttribute(strided_fir_kernel<V, H>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int extra = (tail || phase1) ? 1 : 0;
-    const dim3 grid(n_tiles + extra, rows);
-    strided_fir_kernel<V, H><<<grid, kTile, smem, stream>>>(
-        static_cast<const V*>(x), x_rows, static_cast<const V*>(head), head_len,
-        static_cast<const H*>(taps), n_taps, taps_stride, stride,
-        static_cast<const unsigned*>(dphi),
-        static_cast<const unsigned*>(phase0), static_cast<V*>(y), static_cast<V*>(tail),
-        static_cast<unsigned*>(phase1), n, n_out, n_tiles);
-    return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-#if OLD_CLOCKS
-WAVECAP_EXPORT int old_clocks(void* host) {
-    return static_cast<int>(cudaMemcpyFromSymbol(host, g_old_clocks, sizeof(g_old_clocks)));
-}
-#endif
-
-WAVECAP_EXPORT int k7_strided_fir(const void* x, int x_rows, const void* head, int head_len,
-                                  const void* taps, int n_taps, int taps_stride, int taps_cplx,
-                                  int stride, const void* dphi, const void* phase0, void* y,
-                                  void* tail, void* phase1, int rows, int n, int n_out, int cplx,
-                                  void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (taps_cplx) {
-        if (!cplx) return static_cast<int>(cudaErrorInvalidValue);  // complex taps, complex rows
-        return launch_fir<float2, float2>(x, x_rows, head, head_len, taps, n_taps, taps_stride,
-                                          stride, dphi, phase0, y, tail, phase1, rows, n, n_out, s);
-    }
-    if (cplx) {
-        return launch_fir<float2, float>(x, x_rows, head, head_len, taps, n_taps, taps_stride,
-                                         stride, dphi, phase0, y, tail, phase1, rows, n, n_out, s);
-    }
-    if (dphi) return static_cast<int>(cudaErrorInvalidValue);  // the NCO mixes complex input
-    return launch_fir<float, float>(x, x_rows, head, head_len, taps, n_taps, taps_stride, stride,
-                                    nullptr, nullptr, y, tail, phase1, rows, n, n_out, s);
-}
-"""
 
 # K14's exact pruning: a candidate whose first HEAD lags already exceed the
 # whole residual of the tile's least such partial cannot be the least
@@ -571,18 +220,31 @@ def changed(before: np.ndarray, after: np.ndarray) -> np.ndarray:
     return after[(after[:, 0] != before[:, 0]) & (after[:, 0] != 0)]
 
 
-def build(vdir: Path, build_mod) -> dict:
+
+def stamped_source(old: Path, vdir: Path, stem: str) -> Path:
+    """The parent checkout's ``stem`` with ``OLD_STAMPS`` applied, written
+    beside the builds."""
+    text = (old / stem).read_text()
+    for anchor, new in OLD_STAMPS[stem]:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"{stem}: {anchor.strip()[:60]!r} does not occur once in {old / stem}")
+        text = text.replace(anchor, new)
+    out = vdir / f"stamped_{stem}"
+    out.write_text(text)
+    return out
+
+
+def build(vdir: Path, build_mod, parent: Path) -> dict:
     """Every variant's library, compiled in parallel: name -> (CDLL, ptxas lines)."""
     vdir.mkdir(parents=True, exist_ok=True)
-    (vdir / "old_k14.cu").write_text(OLD_K14)
-    (vdir / "old_k7.cu").write_text(OLD_K7)
     csrc = build_mod.CSRC
+    old = parent / "wavecap_tpu_torch" / "kernels" / "csrc"
     jobs = {
-        "K14 first design": (vdir / "old_k14.cu", {}),
-        "K14 first design, instrumented": (vdir / "old_k14.cu", {"OLD_CLOCKS": 1}),
+        "K14 first design": (old / "echo_fit.cu", {}),
+        "K14 first design, instrumented": (stamped_source(old, vdir, "echo_fit.cu"), {"OLD_CLOCKS": 1}),
         "K14 current, instrumented": (csrc / "echo_fit.cu", {"K14_CLOCKS": 1}),
-        "K7 first design": (vdir / "old_k7.cu", {}),
-        "K7 first design, instrumented": (vdir / "old_k7.cu", {"OLD_CLOCKS": 1}),
+        "K7 first design": (old / "strided_fir.cu", {}),
+        "K7 first design, instrumented": (stamped_source(old, vdir, "strided_fir.cu"), {"OLD_CLOCKS": 1}),
         "K7 current, instrumented": (csrc / "strided_fir.cu", {"K7_CLOCKS": 1}),
     }
     jobs.update({name: (patched(csrc, vdir, name), {}) for name in PATCHES})
@@ -591,7 +253,8 @@ def build(vdir: Path, build_mod) -> dict:
     for i, (name, (src, macros)) in enumerate(jobs.items()):
         lib = vdir / f"libvariant{i}.so"
         cmd = build_mod.nvcc_command(src, lib, nvcc)
-        cmd[1:1] = [f"-I{csrc}"] + [f"-D{k}={v}" for k, v in macros.items()]
+        include = old if "first design" in name else csrc
+        cmd[1:1] = [f"-I{include}"] + [f"-D{k}={v}" for k, v in macros.items()]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -746,13 +409,15 @@ def main() -> int:
     from wavecap_tpu_torch.ops import fir
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, type=Path,
+                    help="a checkout of the commit before the redesign (its kernel sources are built)")
     ap.add_argument("--out", help="also write the JSON lines here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k7_k14_variants: no CUDA device", file=sys.stderr)
         return 2
     build_mod.build_all()
-    libs = build(build_mod.BUILD_DIR / "k7_k14_variants", build_mod)
+    libs = build(build_mod.BUILD_DIR / "k7_k14_variants", build_mod, args.parent.resolve())
     card = cs.card_line()
     dev = torch.device("cuda")
     lines = []

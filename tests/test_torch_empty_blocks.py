@@ -177,3 +177,79 @@ class TestEmptyDemods:
         ref = np.concatenate(ref, axis=-1)
         assert ref.shape == plain.shape
         assert snr_db(ref, plain) >= 50.0, f"{name}: {snr_db(ref, plain):.1f} dB against the reference"
+
+
+# --- the channelizer and the slot banks (K1-K4's wrappers) -------------------------
+
+from wavecap_tpu import models as jmodels  # noqa: E402
+from wavecap_tpu.models import channel_bank as jcb  # noqa: E402
+from wavecap_tpu.ops import channelizer as jchz  # noqa: E402
+from wavecap_tpu_torch import models as tmodels  # noqa: E402
+from wavecap_tpu_torch.models import channel_bank as tcb  # noqa: E402
+from wavecap_tpu_torch.ops import channelizer as tchz  # noqa: E402
+
+BANK_FS = 1_000_000.0  # M = 80 bins of 12.5 kHz
+BANKS = {
+    "nbfm-iir": ("nbfm", "NbfmConfig", dict(enable_highpass=True, enable_lowpass=True)),
+    "nbfm-fir": ("nbfm", "NbfmConfig", dict(enable_highpass=True, enable_lowpass=True, filter_impl="fir")),
+    "am": ("am", "AmConfig", {}),
+}
+# four slots: (bin, fine offset Hz, active); slot 2 inactive
+BANK_SLOTS = ((3, 0.0, True), (10, 700.0, True), (20, 0.0, False), (30, -300.0, True))
+
+
+def bank_pair(name: str):
+    mode, cls, opts = BANKS[name]
+    kw = dict(sample_rate=25_000, audio_rate=25_000, **opts)
+    jcfg = jcb.ChannelBankConfig(
+        channelizer=jchz.ChannelizerConfig(sample_rate=BANK_FS, channel_bandwidth=12_500.0),
+        mode=mode, demod_cfg=getattr(jmodels, cls)(**kw), capacity=len(BANK_SLOTS))
+    tcfg = tcb.ChannelBankConfig(
+        channelizer=tchz.ChannelizerConfig(sample_rate=BANK_FS, channel_bandwidth=12_500.0),
+        mode=mode, demod_cfg=getattr(tmodels, cls)(**kw), capacity=len(BANK_SLOTS))
+    cols = list(zip(*BANK_SLOTS))
+    jas = jcb.ChannelAssignment(jnp.asarray(cols[0], jnp.int32), jnp.asarray(cols[1], jnp.float32),
+                                jnp.asarray(cols[2], bool), jnp.full(len(BANK_SLOTS), -45.0, jnp.float32))
+    tas = tcb.ChannelAssignment(*(torch.from_numpy(np.array(a)) for a in jas))
+    return jcfg, tcfg, jas, tas
+
+
+def bank_signal(n: int) -> np.ndarray:
+    rng = np.random.default_rng(11)
+    t = np.arange(n) / BANK_FS
+    x = 0.1 * np.exp(2j * np.pi * (3 * 12_500.0 * t + 0.5 * np.sin(2 * np.pi * 1000.0 * t)))
+    return (x + 1e-3 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+
+
+class TestEmptyBanks:
+    def test_channelize(self):
+        """A 0-sample block: channels (M, 0), the history bitwise unchanged."""
+        jcfg, tcfg, _, _ = bank_pair("nbfm-iir")
+        x = bank_signal(80 * 40)
+        jst = jchz.channelize(jnp.asarray(x), jchz.channelizer_init(jcfg.channelizer), jcfg.channelizer)[1]
+        tst = tchz.channelize(torch.from_numpy(x), tchz.channelizer_init(tcfg.channelizer, device=CPU),
+                              tcfg.channelizer)[1]
+        jch, jst2 = jchz.channelize(jnp.zeros(0, jnp.complex64), jst, jcfg.channelizer)
+        tch, tst2 = tchz.channelize(t_empty(torch.complex64), tst, tcfg.channelizer)
+        assert tuple(tch.shape) == jch.shape == (80, 0) and tch.dtype == torch.complex64
+        assert bit_equal(tst, tst2) and np.array_equal(np.asarray(jst), np.asarray(jst2))
+
+    @pytest.mark.parametrize("name", list(BANKS))
+    def test_bank_step(self, name):
+        """A 0-sample block through ``bank_step`` (the port's after a block of
+        signal, the reference's from its initial state): audio (4, 0), RSSI
+        NaN on the active slots (the mean power of no samples) and -200 on
+        the inactive one, as the reference has them, and every carry
+        (channelizer history, NCO phases, the demod's state) bitwise
+        unchanged."""
+        jcfg, tcfg, jas, tas = bank_pair(name)
+        x = bank_signal(80 * 40)
+        jst = jcb.bank_init(jcfg)
+        tst = tcb.bank_step(torch.from_numpy(x), tcb.bank_init(tcfg, device=CPU), tas, tcfg)[1]
+        jo, jst2 = jcb.bank_step(jnp.zeros(0, jnp.complex64), jst, jas, jcfg)
+        to, tst2 = tcb.bank_step(t_empty(torch.complex64), tst, tas, tcfg)
+        assert tuple(to["audio"].shape) == jo["audio"].shape == (len(BANK_SLOTS), 0)
+        rssi = to["rssi"].numpy()
+        np.testing.assert_array_equal(rssi, np.asarray(jo["rssi"]))  # NaN compared as equal
+        assert np.isnan(rssi[[0, 1, 3]]).all() and rssi[2] == -200.0
+        assert bit_equal(tst, tst2) and bit_equal(jst, jst2)

@@ -54,7 +54,7 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     ),
     "K4_voice_fir": (
         "voice_fir", "k4_voice_fir",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     ),
     "K5_resample_poly": (
         "resample_poly", "k5_resample_poly",
@@ -78,8 +78,12 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     "K11b_nr_overlap_add": (
         "noise_reduction", "k11b_nr_overlap_add", (_P,) * 5 + (_I,) * 6 + (_P,),
     ),
-    "K12_c4fm_timing": ("p25_timing", "k12_c4fm_timing", (_P,) * 5 + (_I,) * 3 + (_F,) * 8 + (_P,)),
-    "K13_cqpsk_timing": ("p25_timing", "k13_cqpsk_timing", (_P,) * 5 + (_I,) * 3 + (_F,) * 8 + (_P,)),
+    "K12_c4fm_timing": (
+        "p25_timing", "k12_c4fm_timing", (_P,) * 6 + (_I,) * 3 + (_F,) * 8 + (_I,) * 4 + (_P,),
+    ),
+    "K13_cqpsk_timing": (
+        "p25_timing", "k13_cqpsk_timing", (_P,) * 6 + (_I,) * 3 + (_F,) * 8 + (_I,) * 4 + (_P,),
+    ),
     "K12s_c4fm_scan": ("p25_scan", "k12s_c4fm_scan", (_P,) * 6 + (_I,) * 4 + (_F,) * 10 + (_P,)),
     "K13s_cqpsk_scan": ("p25_scan", "k13s_cqpsk_scan", (_P,) * 6 + (_I,) * 4 + (_F,) * 10 + (_P,)),
     "K13_cfo_lines": ("cfo_lines", "k13_cfo_lines", (_P, _I, _I, _I, _I, _F, _P, _P, _P)),

@@ -41,13 +41,22 @@ from .registry import get_demod
 
 _CLIP_GAIN = float(np.float32(1.0 / np.tanh(1.5)) * np.float32(0.95))  # soft_clip's
 _MIN_RMS = 1e-4  # rms_normalize's default
-_MAX_ROW = 27_000  # samples per slot row that K4 stages in shared memory
 _K3_V = 4  # consecutive samples a K3 thread takes a pass
 _K3_WARP_SPAN = 32 * _K3_V  # a K3 segment is a multiple of a warp's samples
 _K3_MAX_CLUSTER = 8  # CTAs (one cluster) a row
 _K3_MAX_THREADS = 512
 _K3_SMS = 132  # SMs of the H100
 _K3_TARGET_CTAS = 4 * _K3_SMS  # CTAs a launch aims at: four an SM
+_K4_R = 16  # consecutive outputs a K4 thread forms a pass
+_K4_WARP_SPAN = 32 * _K4_R  # outputs a warp forms a pass
+_K4_MAX_CLUSTER = 8  # CTAs (one cluster) a row
+# CTAs a row for the rows left over after the whole rows: clusters of 3, 4
+# or 8 at three CTAs an SM do not all fit on the card at once, and those
+# that wait start a second round (scripts/k4_k12_variants.py)
+_K4_CUT_CLUSTER = 2
+_K4_MAX_THREADS = 384
+_K4_REGS = 56  # registers a K4 thread holds (the kernel's launch bounds cap them)
+_K4_SMEM = 232_448  # shared memory of an H100 SM, bytes
 
 
 @dataclass(frozen=True)
@@ -196,21 +205,28 @@ def slot_frontend_plain(chans, assign: ChannelAssignment, nco_phase, disc_prev,
 def slot_frontend(chans, assign: ChannelAssignment, nco_phase, disc_prev,
                   cfg: ChannelBankConfig):
     """K3: see :func:`slot_frontend_plain`.  Only a CPU tensor takes the
-    plain version; the tuning words are the plain per-slot torch math."""
+    plain version; the tuning words are the plain per-slot torch math.  An
+    empty block launches nothing: empty rows, the mean power of no samples
+    (NaN dB), the phases and ``disc_prev`` carried, as the plain version
+    has them."""
     if chans.device.type == "cpu":
         return slot_frontend_plain(chans, assign, nco_phase, disc_prev, cfg)
     dev = chans.device
     if chans.dim() != 2 or chans.dtype != torch.complex64 or not chans.is_contiguous():
         raise ValueError("K3 takes contiguous complex64 channels of shape (M, S)")
     m, s = chans.shape
-    if s == 0:
-        raise NotImplementedError("K3 takes rows of at least 1 sample")
     mode = _k3_mode(cfg)
     c = cfg.capacity
-    plan = k3_plan(c, s, mode)
     _on(assign.channel_index, dev, torch.int32, (c,), "channel_index")
     _on(assign.fine_offset_hz, dev, torch.float32, (c,), "fine_offset_hz")
     _on(nco_phase, dev, torch.uint32, (c,), "nco_phase")
+    if mode != 2:
+        _on(disc_prev, dev, torch.complex64, (c,), "disc_prev")
+    if s == 0:
+        rows = torch.empty((c, 0), dtype=torch.complex64 if mode == 2 else torch.float32, device=dev)
+        return (rows, torch.full((c,), float("nan"), dtype=torch.float32, device=dev),
+                nco_phase.clone(), disc_prev)
+    plan = k3_plan(c, s, mode)
     dphi = ops.tuning_word(-assign.fine_offset_hz, cfg.channelizer.channel_rate).contiguous()
     rssi = torch.empty(c, dtype=torch.float32, device=dev)
     phase1 = torch.empty(c, dtype=torch.uint32, device=dev)
@@ -219,7 +235,6 @@ def slot_frontend(chans, assign: ChannelAssignment, nco_phase, disc_prev,
         launch("K3_slot_frontend", dev, chans, assign.channel_index, dphi, nco_phase, None,
                rows, rssi, phase1, None, c, m, s, 0.0, mode, plan.seg, plan.cluster, plan.threads)
         return rows, rssi, phase1, disc_prev
-    _on(disc_prev, dev, torch.complex64, (c,), "disc_prev")
     dc = cfg.demod_cfg
     fm = torch.empty((c, s), dtype=torch.float32, device=dev)
     last = torch.empty(c, dtype=torch.complex64, device=dev)
@@ -250,9 +265,84 @@ def voice_fir_plain(fm, hp_z, rssi, assign: ChannelAssignment, cfg: ChannelBankC
     return audio, rssi, hp_z
 
 
+class K4Plan(NamedTuple):
+    """How K4 runs: ``ctas`` CTAs of ``threads`` threads, as many as the
+    card holds at once, in thread-block clusters of ``cluster``.  Each CTA
+    first filters ``whole`` rows alone (CTA ``b``: rows ``b, b + ctas,
+    ...``; one pass a row), then the rows left are cut into ``cluster``
+    segments of ``seg`` outputs (a multiple of 16; the last segment may be
+    shorter), one CTA a segment: cluster ``c`` takes the left rows ``c, c +
+    ctas / cluster, ...``.  A thread forms 16 consecutive outputs a pass,
+    ``passes`` passes a segment (with one, the outputs stay in registers
+    until the row's gain is known); a CTA fetches its next row's inputs
+    while it filters one."""
+
+    seg: int
+    cluster: int
+    threads: int
+    passes: int
+    ctas: int
+    whole: int
+
+
+def _k4_resident(threads: int) -> int:
+    """K4's CTAs of ``threads`` threads that the card holds at once."""
+    warps = threads // 32  # a CTA's warps take an SM's four register files in turn
+    span = threads * _K4_R + 128  # a pass's staged inputs, padded, on 16 bytes
+    smem = 4 * (2 * -(-(span + span // 16 + 1) // 4) * 4 + threads * _K4_R) + 2048
+    return _K3_SMS * max(1, min(2048 // threads, (16384 // (32 * _K4_REGS)) // -(-warps // 4),
+                                _K4_SMEM // smem))
+
+
+def k4_plan(n_slots: int, s_len: int, n_taps: int = 127, forced: tuple | None = None) -> K4Plan:
+    """K4's launch plan, the one the kernel runs.  Where one CTA of at most
+    384 threads forms a whole row in one pass and the rows outnumber the
+    CTAs the card holds at once (the slice), each CTA takes whole rows
+    alone, as many rounds as every CTA has a row, and the rows left over
+    are each cut into two segments over a cluster of 2 CTAs, so that the
+    launch ends on half rows rather than on a few CTAs filtering a last
+    whole row each.  Otherwise
+    every row is cut: as few CTAs a row (at most 8, each at least a warp's
+    512 outputs) as give the launch 528 CTAs, four an SM, and no fewer than
+    keep a segment to one pass of at most 384 threads; a segment one pass
+    where it fits, else passes of 384 threads.  ``n_taps`` only checks the
+    kernel's filter length.  ``forced``: ``(cluster, threads)`` or
+    ``(cluster, threads, ctas)`` of the second kind in its place (the
+    cluster then shrunk to the segments the row fills, the CTAs to whole
+    clusters of at most a row each)."""
+    if n_taps != 127:
+        raise ValueError(f"K4 runs the 127-tap voice FIR, not {n_taps} taps")
+    spans = max(-(-s_len // _K4_R), 1)  # groups of 16 outputs
+    if forced is None and spans <= _K4_MAX_THREADS:
+        threads = -(-spans // 32) * 32  # a whole row in one pass
+        resident = _k4_resident(threads)
+        if n_slots >= resident:
+            left = n_slots % resident
+            cluster = min(_K4_CUT_CLUSTER, -(-spans // 32), max(1, resident // left)) if left else 1
+            ctas = resident // cluster * cluster
+            seg = -(-spans // cluster) * _K4_R
+            return K4Plan(seg, max(-(-s_len // seg), 1), threads, 1, ctas, n_slots // ctas)
+    ctas = None
+    if forced is not None:
+        cluster, threads = forced[:2]
+        ctas = forced[2] if len(forced) > 2 else None
+    else:
+        one_pass = -(-spans // _K4_MAX_THREADS)  # CTAs a row for one pass of 384 threads
+        cluster = min(_K4_MAX_CLUSTER, -(-spans // 32),  # a segment at least a warp's pass
+                      max(one_pass, -(-_K3_TARGET_CTAS // max(n_slots, 1))))
+        threads = None
+    seg = -(-spans // cluster) * _K4_R
+    cluster = max(-(-s_len // seg), 1)
+    if threads is None:
+        threads = min(_K4_MAX_THREADS, -(-seg // _K4_WARP_SPAN) * 32)
+    clusters = min(n_slots, max(1, (ctas or _k4_resident(threads)) // cluster))
+    return K4Plan(seg, cluster, threads, -(-seg // (threads * _K4_R)), clusters * cluster, 0)
+
+
 def voice_fir(fm, hp_z, rssi, assign: ChannelAssignment, cfg: ChannelBankConfig):
     """K4: see :func:`voice_fir_plain`.  Only a CPU tensor takes the plain
-    version."""
+    version.  An empty block launches nothing: the audio is empty, the
+    tail carries over and the RSSI is masked, as the plain version has it."""
     if fm.device.type == "cpu":
         return voice_fir_plain(fm, hp_z, rssi, assign, cfg)
     dev = fm.device
@@ -260,8 +350,6 @@ def voice_fir(fm, hp_z, rssi, assign: ChannelAssignment, cfg: ChannelBankConfig)
     if fm.dim() != 2 or fm.shape[0] != c:
         raise ValueError(f"K4 takes discriminator rows of shape ({c}, S)")
     s = fm.shape[1]
-    if not 0 < s <= _MAX_ROW:
-        raise NotImplementedError(f"K4 stages rows of 1..{_MAX_ROW} samples, not {s}")
     taps = _taps(cfg.demod_cfg, dev)
     n_taps = taps.shape[0]
     _on(fm, dev, torch.float32, (c, s), "fm")
@@ -269,13 +357,17 @@ def voice_fir(fm, hp_z, rssi, assign: ChannelAssignment, cfg: ChannelBankConfig)
     _on(rssi, dev, torch.float32, (c,), "rssi")
     _on(assign.squelch_db, dev, torch.float32, (c,), "squelch_db")
     _on(assign.active, dev, torch.bool, (c,), "active")
+    if s == 0:
+        return fm, torch.where(assign.active, rssi, torch.full_like(rssi, -200.0)), hp_z
+    plan = k4_plan(c, s, n_taps)
     audio = torch.empty((c, s), dtype=torch.float32, device=dev)
     rssi_out = torch.empty(c, dtype=torch.float32, device=dev)
     tail_out = torch.empty((c, n_taps - 1), dtype=torch.float32, device=dev)
     launch(
         "K4_voice_fir", dev, fm, hp_z, taps, rssi, assign.squelch_db, assign.active,
         audio, rssi_out, tail_out, c, s, n_taps, float(cfg.demod_cfg.target_rms),
-        _MIN_RMS, _CLIP_GAIN,
+        _MIN_RMS, _CLIP_GAIN, plan.seg, plan.cluster, plan.threads, plan.passes, plan.ctas,
+        plan.whole,
     )
     return audio, rssi_out, tail_out
 

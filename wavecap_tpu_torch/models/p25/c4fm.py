@@ -48,6 +48,11 @@ DIBIT_SYMBOLS = np.array([1.0, 3.0, -1.0, -3.0], np.float32)
 _TWO_PI = float(np.float32(2.0 * np.pi))
 _NEG_TWO_PI = float(np.float32(-2.0 * np.pi))
 _SMEM_LIMIT = 200 * 1024  # bytes of shared memory K12, K13, K12s and K13s ask for, at most
+_K12_MAX_CLUSTER = 8  # CTAs (one cluster) a row
+_K12_CLUSTER = 4  # CTAs a row where the launch has rows enough to fill the card
+_K12_SMS = 132  # SMs of the H100
+_K12_MIN_SYMBOLS = 64  # symbols a CTA, at least
+_K12_THREADS = 256
 
 
 # ---------------------------------------------------------------------------
@@ -406,23 +411,88 @@ def c4fm_timing_plain(buf, st, n_sym: int, cfg: C4fmConfig):
     return soft, soft_to_dibits(soft), out
 
 
+class K12Plan(NamedTuple):
+    """How K12 and K13's block timing run: ``cluster`` CTAs a row (one
+    thread-block cluster) of ``threads`` threads, ``mseg`` symbols a CTA
+    (the last may have fewer), each CTA staging a window of at most ``cap``
+    samples (0: the windows read the row from global memory); ``ctas`` CTAs
+    in all."""
+
+    mseg: int
+    cluster: int
+    threads: int
+    cap: int
+    ctas: int
+
+
+def k12_window_room(mseg: int, n_sym: int, c: TimingConsts) -> int:
+    """Samples a CTA's window can span while the carried position is in
+    [0, 64 + sps] and the clock in [fmin, fmax]: its symbols and the one
+    before them at ``fmax``, the gathers' reach past them each side
+    (``sps/2 + 0.5`` of phase, ``0.005 n_sym / 2`` of ramp, 2 of margin,
+    as the kernel bounds them), the row passes' samples before the first
+    symbol (64) and after the last (the clock's slack over the block)."""
+    extra = c.half + 0.5 + 2.0 + 0.0025 * n_sym
+    slack = (n_sym + 1) * (c.sps - c.fmin)
+    return int(np.ceil((mseg + 1) * c.fmax + 2 * extra + INTERP_TAIL + 2 * c.sps + slack)) + 8
+
+
+def k12_plan(rows: int, n_sym: int, c: TimingConsts, item: int, forced: tuple | None = None) -> K12Plan:
+    """The block timing's launch plan, the one the kernel runs: 4 CTAs a
+    row of 256 threads (8 where 4 a row leave half the card's SMs idle),
+    each at least 64 symbols; a window staged where
+    :func:`k12_window_room` samples of ``item`` bytes fit in shared memory.
+    Each step's exchange waits on the cluster's slowest CTA, so more CTAs a
+    row lose at the programs' shapes (scripts/k4_k12_variants.py).
+    ``forced``: ``(cluster, threads)`` in its place."""
+    if forced is not None:
+        cluster, threads = forced
+    else:
+        wanted = _K12_CLUSTER if rows * _K12_CLUSTER >= _K12_SMS // 2 else _K12_MAX_CLUSTER
+        cluster = min(wanted, max(1, n_sym // _K12_MIN_SYMBOLS))
+        threads = _K12_THREADS
+    mseg = -(-n_sym // cluster)
+    cluster = -(-n_sym // mseg)
+    cap = k12_window_room(mseg, n_sym, c)
+    if cap * item + 16 > _SMEM_LIMIT:
+        cap = 0
+    return K12Plan(mseg, cluster, threads, cap, rows * cluster)
+
+
+@lru_cache(maxsize=16)
+def _om_table(n: int, sps: float, device: torch.device) -> torch.Tensor:
+    """``(n, 2)`` f32: the cos and sin of the O&M line's angle ``-2 pi i /
+    sps`` for ``i < n``, computed as :func:`om_line` computes them on
+    ``device``, so K12 and K13 weigh each sample exactly as the plain
+    version does.  The table has been written when it returns: the mesh's
+    shards read it from streams of their own, with no wait on the one that
+    built it."""
+    ang = _div(torch.arange(n, dtype=torch.float32, device=device) * _NEG_TWO_PI, sps)
+    tab = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1).contiguous()
+    if tab.is_cuda:
+        torch.cuda.current_stream(tab.device).synchronize()
+    return tab
+
+
 def launch_timing(name: str, buf, st, n_sym: int, c: TimingConsts):
-    """K12 or K13's block timing on the card: one CTA per row, the row and
-    the symbols staged in shared memory."""
+    """K12 or K13's block timing on the card: a cluster of CTAs a row
+    (:func:`k12_plan`), each staging only the window its symbols read;
+    rows of any length."""
     dev = buf.device
     if buf.dim() != 2 or buf.dtype not in (torch.float32, torch.complex64):
         raise ValueError(f"{name} takes float32 or complex64 rows of shape (R, L)")
     rows, length = buf.shape
-    item = buf.element_size()
-    if (length + n_sym) * item + n_sym * 4 > _SMEM_LIMIT or n_sym < 2 or length < 2:
-        raise NotImplementedError(f"{name} stages {length} samples and {n_sym} symbols: out of range")
+    if n_sym < 2 or length < 2:
+        raise NotImplementedError(f"{name} takes rows of at least 2 samples and 2 symbols")
     if st.shape != (6, rows):
         raise ValueError(f"{name}'s carried state must be (6, {rows})")
+    plan = k12_plan(rows, n_sym, c, buf.element_size())
     soft = torch.empty((rows, n_sym), dtype=torch.float32, device=dev)
     dibits = torch.empty((rows, n_sym), dtype=torch.uint8, device=dev)
     out = torch.empty((6, rows), dtype=torch.float32, device=dev)
     launch(name, dev, buf.contiguous(), st.to(device=dev, dtype=torch.float32).contiguous(),
-           soft, dibits, out, rows, length, n_sym, *c)
+           _om_table(length - INTERP_TAIL, c.sps, dev), soft, dibits, out, rows, length, n_sym, *c,
+           plan.mseg, plan.cluster, plan.threads, plan.cap)
     return soft, dibits, out
 
 

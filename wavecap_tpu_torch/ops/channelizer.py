@@ -328,7 +328,7 @@ def unpack_arms(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig,
 
     On a CUDA tensor this launches the kernel (which also writes the
     unpacked block for word input and reads ``scale`` on the card); only a
-    CPU tensor takes the plain version."""
+    CPU tensor takes the plain version.  An empty block launches nothing."""
     if x.device.type == "cpu":
         return unpack_arms_plain(x, hist, cfg, scale)
     m, t = cfg.channel_count, cfg.taps_per_channel
@@ -337,11 +337,11 @@ def unpack_arms(x: torch.Tensor, hist: torch.Tensor, cfg: ChannelizerConfig,
         raise ValueError("K1 takes contiguous tensors")
     n = x.shape[0]
     r_steps = n // m
-    if r_steps == 0:
-        raise NotImplementedError(f"K1 takes blocks of at least M={m} samples")
     u = torch.empty((2, r_steps, m), dtype=torch.complex64, device=x.device)
     kind = _WORD_KINDS.get(x.dtype, 0)
     x_c = torch.empty(n, dtype=torch.complex64, device=x.device) if kind else x
+    if r_steps == 0:  # an empty block (N % M == 0): nothing to launch
+        return x_c, u
     arms = _arms_rev(m, t, cfg.cutoff_scale, x.device)
     plan = k1_plan(m, t, r_steps, kind)
     launch(
@@ -367,7 +367,7 @@ def _arm_epilogue(y: torch.Tensor, m: int) -> torch.Tensor:
 def _fft_arms(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
     """The ``dft_impl="fft"`` route: ``torch.fft`` across arms (the
     counterpart of the reference's XLA FFT), then the epilogue."""
-    return _arm_epilogue(torch.fft.fft(u, dim=-1), cfg.channel_count)
+    return _arm_epilogue(torch.fft.fft(u, dim=-1) if u.shape[1] else u, cfg.channel_count)
 
 
 def arm_dft_plain(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
@@ -381,7 +381,8 @@ def arm_dft_plain(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
 
 def arm_dft(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
     """K2: channels ``(M, S)`` from the stacks ``(2, R, M)``; see
-    :func:`arm_dft_plain`.  Only a CPU tensor takes the plain version."""
+    :func:`arm_dft_plain`.  Only a CPU tensor takes the plain version; no
+    steps (an empty block) launch nothing."""
     if u.device.type == "cpu":
         return arm_dft_plain(u, cfg)
     m = cfg.channel_count
@@ -393,6 +394,8 @@ def arm_dft(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
         raise NotImplementedError(f"K2 stages two steps in shared memory; M={m} is too large")
     r_steps = u.shape[1]
     out = torch.empty((m, 2 * r_steps), dtype=torch.complex64, device=u.device)
+    if r_steps == 0:
+        return out
     m1, m2, k1p, n1s, k2p, n2s = _k2_layout(m)
     launch("K2_arm_dft", u.device, u, _k2_tables(m, u.device), out, m1, m2, r_steps,
            k1p, n1s, k2p, n2s)
