@@ -60,9 +60,14 @@ Phases:
    at D's and E's bank rows (160, 100), K5 beside
    one ``conv_transpose1d``, K10's own sin, cos (2 ulp) and atan (3 ulp)
    against float64; K6 (the spectrum on cuFFT) and K8 (``pack_wire``) timed;
-   last, K12s and K13s at programs A, B and C's shapes (dead air, and
-   positions past both ends of the reference's clamp), with their
-   serial-chain estimates; K7 also at a mesh shard's wide slots (program
+   last, K12s and K13s at ``scan_path_shapes()``: programs A, B and C's
+   shapes (dead air, and positions past both ends of the reference's
+   clamp), the rows the first design refused (two LSM rows of 4 s, two
+   Phase 2 rows of 3 s, a C4FM row of 11 s), and the loops whose plan
+   differs (C4FM at 240 and 960 kHz: wider chunks, shorter groups; LSM
+   with a 30,000 ppm clock range: every step checked), with their cycles a symbol
+   beside the chain floor at the operations' latencies measured on the
+   card (``scan_op_latencies``); K7 also at a mesh shard's wide slots (program
    E) and program F's two per-shard P25 filters, K14 also on a
    60,000-sample row in both modes; K4 at ``K4_PATH_SHAPES`` (the slice,
    rows of 60,000 and 150,000 samples, rows shorter than the taps) and
@@ -126,16 +131,18 @@ Any failed check exits non-zero before the last line.  Without a CUDA
 card, or outside the repository, it exits non-zero and prints no result.
 It imports nothing of JAX.
 
-To time K1-K5, K7, K9, K10, K11a, K11b, K12, K13 and K14 against another
+To time K1-K5, K7, K9, K10, K11a, K11b, K12, K13, K14, K12s and K13s against another
 checkout of the port on the same card::
 
     python3 chip_smoke.py --phase2-turns OTHER_CHECKOUT [--out FILE]
 
-runs K1, K3, K4 and K12 / K13's timing at this checkout's
-``K1_PATH_SHAPES``, ``K3_PATH_SHAPES``, ``K4_PATH_SHAPES`` and
-``K12_PATH_SHAPES`` through that checkout's wrappers (the first K3 refuses
-the 60,000-sample rows, the first K4 rows past 27,000 samples, the first
-K12 / K13 the 2 s rows), and phase 2's K2, K5, K7, K9, K10, K11a, K11b and K14 checks of
+runs K1, K3, K4, K12 / K13's timing and the scans at this checkout's
+``K1_PATH_SHAPES``, ``K3_PATH_SHAPES``, ``K4_PATH_SHAPES``,
+``K12_PATH_SHAPES`` and ``scan_path_shapes()`` through that checkout's
+wrappers (the first K3 refuses the 60,000-sample rows, the first K4 rows
+past 27,000 samples, the first K12 / K13 the 2 s rows, the first scans
+the long rows; the scans' outputs must be bit-equal between the
+checkouts wherever both ran), and phase 2's K2, K5, K7, K9, K10, K11a, K11b and K14 checks of
 OTHER_CHECKOUT's ``chip_smoke.py`` and of this one in turns (other, this,
 this, other), each in its own process with its own kernels built from its
 own sources, and prints one JSON line a turn: the K2 records of
@@ -1905,9 +1912,10 @@ def c4fm_rows(rng, rows: int, length: int, fs: float) -> np.ndarray:
     from wavecap_tpu_torch.models.p25.c4fm import DEVIATION_HZ, design_rrc, modulate_c4fm
 
     rrc = design_rrc(float(fs))
+    pad = max(600, len(rrc) + 220)  # the filter's span and the start's offset, at least
     out = np.empty((rows, length), np.float32)
     for r in range(rows - 1):
-        n48 = int((length + 600) * 48_000 / fs)
+        n48 = int((length + pad) * 48_000 / fs)
         x = modulate_c4fm(rng.integers(0, 4, n48 // 10 + 1).astype(np.uint8), 48_000.0)
         y = sps.resample(x, int(round(len(x) * fs / 48_000 * (1 + rng.uniform(-3e-4, 3e-4)))))
         disc = np.angle(y[1:] * np.conj(y[:-1])) * fs / (2 * np.pi * DEVIATION_HZ / 3.0)
@@ -3148,83 +3156,270 @@ def run_engine(device, fs: int = 10_000_000, c: int = 160, n_blocks: int = 3 * D
 A_SCAN_LAUNCHES = {**A_LAUNCHES, "K12_c4fm_timing": 0, "K12s_c4fm_scan": 1}
 B_SCAN_LAUNCHES = {**B_LAUNCHES, "K13_cqpsk_timing": 0, "K13s_cqpsk_scan": 1}
 C_SCAN_LAUNCHES = {**C_LAUNCHES, "K13_cqpsk_timing": 0, "K13s_cqpsk_scan": 2}
-# the scan's dependent chain per symbol, read from p25_scan.cu's loop: floor,
-# clamp, address, two shared-memory loads, the lerps, the Gardner error's
-# IEEE division, four clips and the position update, ~130 SM cycles
-SCAN_CYCLES = 130
+# K12s's and K13s' scans, then rows longer than the first design took (it
+# staged every symbol in shared memory: past 17,066 CQPSK and 51,200 C4FM
+# symbols it refused), then loops the plan sizes otherwise: (what,
+# modulation, rows, channel samples a block, changes to the config); rows
+# are 64 + n long, at the programs' 50 kHz unless the config says
+SCAN_EXTRA_SHAPES = (
+    ("4 s rows, LSM CQPSK, 2 x 200,064 c64", "lsm", 2, 200_000, {}),
+    ("3 s rows, Phase 2, 2 x 150,064 c64 at 6000 baud", "p2", 2, 150_000, {}),
+    ("11 s row, C4FM, 1 x 550,064 f32", "c4fm", 1, 550_000, {}),
+    ("C4FM at 240 kHz (50 samples a symbol: chunks of 2,048), 4 x 48,064 f32", "c4fm", 4, 48_000,
+     {"sample_rate": 240_000}),
+    ("C4FM at 960 kHz (200 a symbol: groups of 64, every step checked), 2 x 192,064 f32", "c4fm", 2,
+     192_000, {"sample_rate": 960_000}),
+    ("LSM with a 30,000 ppm clock range (every step checked), 21 x 7,564 c64", "lsm", 21, 7_500,
+     {"max_clock_ppm": 30_000.0}),
+)
 
 
-def scan_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_hz=None):
-    """K12s and K13s against their plain versions at programs A, B and C's
-    shapes: station rows, a dead-air row, a row whose position starts
-    below the first sample (the clamp at 0) and one whose clock runs past
-    the last (the clamp at len - 2).  Dibits equal; soft within 1e-3 and
-    the carried state within 1e-3 (the plain mean(filt) sums in another
-    order, and the loop walks an ulp a little).  Returns ``(lines, cases)``."""
+def scan_path_shapes() -> tuple:
+    """The scans' shapes: programs A, B and C's (their P25 slots, two
+    blocks of channel samples a launch, from :func:`p25_configs`), then
+    :data:`SCAN_EXTRA_SHAPES`."""
+    cfgs = p25_configs()
+    n_a = 2 * cfgs["A"].block_size // cfgs["A"].channelizer().channel_count
+    n_b = 2 * cfgs["B"].block_size // cfgs["B"].channelizer().channel_count
+    n_c = 2 * cfgs["C"].block_size // cfgs["C"].channelizer().channel_count
+    r_a, r_b, r_c = cfgs["A"].p25_capacity, cfgs["B"].p25_capacity, cfgs["C"].p25p2_capacity
+    return (
+        (f"program A, {r_a} x {64 + n_a:,} f32", "c4fm", r_a, n_a, {}),
+        (f"program B, {r_b} x {64 + n_b:,} c64", "lsm", r_b, n_b, {}),
+        (f"program C, {r_c} x {64 + n_c:,} c64 at 6000 baud", "p2", r_c, n_c, {}),
+    ) + SCAN_EXTRA_SHAPES
+
+
+SCAN_NAMES = {"c4fm": "K12s_c4fm_scan", "lsm": "K13s_cqpsk_scan", "p2": "K13s_cqpsk_scan"}
+SCAN_LONG = 100_000  # channel samples: the long rows, whose plain loop is not timed
+
+# the dependent chain of one symbol that the reference's f32 order fixes,
+# loads excluded (the next samples are known steps early): the mid point,
+# the floor and fraction, 1 - fraction, the lerp's product and sum, C4FM's
+# dc, the error's product (C4FM: the division by the block's constant
+# amp^2, at least a multiply and two fused multiply-adds exact), beta err,
+# the integrator's sum and clip, the clock's sum, the position's two sums;
+# the three clips of err, integ and freq merged exactly into one (p25_scan.cu:
+# walk).  op -> count; "floor": a floor and its fraction, the cheaper of
+# FRND + FADD and a compare + select between two known floors
+SCAN_CHAIN_OPS = {
+    "c4fm": {"fadd": 8, "fmul": 4, "ffma": 2, "fmnmx": 2, "floor": 1},
+    "cqpsk": {"fadd": 8, "fmul": 3, "ffma": 0, "fmnmx": 2, "floor": 1},
+}
+# the same chain as the reference writes it: FRND, the IEEE division, three
+# clips of two FMNMX each
+SCAN_CHAIN_AS_WRITTEN = {
+    "c4fm": {"fadd": 9, "fmul": 3, "fdiv_rn": 1, "fmnmx": 6, "frnd": 1},
+    "cqpsk": {"fadd": 9, "fmul": 3, "fmnmx": 6, "frnd": 1},
+}
+
+# dependent chains of one operation each, timed by clock64 in one thread:
+# op k runs n x 16 times; the latencies that SCAN_CHAIN_OPS weighs
+SCAN_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+template <int kOp>
+__global__ void probe(const float* in, long long* cycles, float* out, int n) {
+    __shared__ int chase[64];
+    const float a = in[0], b = in[1], c = in[2], d = in[3];
+    float x = in[4];
+    int i = static_cast<int>(in[5]);
+    for (int k = threadIdx.x; k < 64; k += blockDim.x) chase[k] = (k + 1 + static_cast<int>(in[5])) & 63;
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    const long long t0 = clock64();
+#pragma unroll 1
+    for (int k = 0; k < n; ++k) {
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+            if constexpr (kOp == 0) x = __fadd_rn(x, a);
+            if constexpr (kOp == 1) x = __fmul_rn(x, b);
+            if constexpr (kOp == 2) x = __fmaf_rn(x, b, a);
+            if constexpr (kOp == 3) x = fminf(__fadd_rn(x, a), c);
+            if constexpr (kOp == 4) x = __fadd_rn(x >= c ? d : x, a);
+            if constexpr (kOp == 5) x = __fadd_rn(floorf(x), a);
+            if constexpr (kOp == 6) x = __fadd_rn(static_cast<float>(__float2int_rd(x)), a);
+            if constexpr (kOp == 7) i = chase[i];
+            if constexpr (kOp == 8) x = __fdiv_rn(x, b);
+            if constexpr (kOp == 9) {
+                const float q = __fmul_rn(x, d);
+                x = __fmaf_rn(__fmaf_rn(-q, b, x), d, q);
+            }
+        }
+    }
+    const long long t1 = clock64();
+    cycles[kOp] = t1 - t0;
+    out[kOp] = x + static_cast<float>(i);
+}
+extern "C" __attribute__((visibility("default"))) int scan_probe(const void* in, void* cycles, void* out, int n) {
+    const float* f = static_cast<const float*>(in);
+    long long* c = static_cast<long long*>(cycles);
+    float* o = static_cast<float*>(out);
+    probe<0><<<1, 32>>>(f, c, o, n); probe<1><<<1, 32>>>(f, c, o, n);
+    probe<2><<<1, 32>>>(f, c, o, n); probe<3><<<1, 32>>>(f, c, o, n);
+    probe<4><<<1, 32>>>(f, c, o, n); probe<5><<<1, 32>>>(f, c, o, n);
+    probe<6><<<1, 32>>>(f, c, o, n); probe<7><<<1, 32>>>(f, c, o, n);
+    probe<8><<<1, 32>>>(f, c, o, n); probe<9><<<1, 32>>>(f, c, o, n);
+    return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def scan_op_latencies(n: int = 4096) -> dict:
+    """SM cycles of one dependent operation, from :data:`SCAN_PROBE_SRC`
+    built with the kernels' own nvcc line: FADD, FMUL, FFMA, FMNMX (after
+    an FADD), a compare and select (FSETP + FSEL), FRND (floorf), F2I +
+    I2F (``__float2int_rd`` back to float), a shared-memory load, the
+    IEEE division ``__fdiv_rn`` and the division by a known reciprocal
+    (a multiply and two fused multiply-adds)."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from wavecap_tpu_torch.kernels import build as kb
+
+    kb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, lib = kb.BUILD_DIR / "scan_probe.cu", kb.BUILD_DIR / "libscan_probe.so"
+    src.write_text(SCAN_PROBE_SRC)
+    out = subprocess.run(kb.nvcc_command(src, lib, kb._find_nvcc()), capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"the latency probe did not build:\n{out.stdout}{out.stderr}")
+    fn = ctypes.CDLL(str(Path(lib))).scan_probe
+    fn.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int,)
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    vals = torch.tensor([1.0, 1.0, 1e30, 0.0, 0.5, 0.0], dtype=torch.float32, device=dev)
+    cyc = torch.zeros(10, dtype=torch.int64, device=dev)
+    res = torch.zeros(10, dtype=torch.float32, device=dev)
+    for _ in range(2):  # the first call pays the module's load
+        check(fn(vals.data_ptr(), cyc.data_ptr(), res.data_ptr(), n) == 0, "the latency probe failed")
+    c = host(cyc).astype(np.float64) / (16 * n)
+    fadd = c[0]
+    return dict(fadd=fadd, fmul=c[1], ffma=c[2], fmnmx=c[3] - fadd, select=c[4] - fadd, frnd=c[5] - fadd,
+                f2i_i2f=c[6] - fadd, lds=c[7], fdiv_rn=c[8], div_by_reciprocal=c[9])
+
+
+def scan_floor_cycles(lat: dict, kind: str, ops=None) -> float:
+    """The chain of :data:`SCAN_CHAIN_OPS` (or ``ops``) at the measured latencies."""
+    lat = dict(lat, floor=min(lat["select"], lat["frnd"] + lat["fadd"]))
+    return float(sum(k * lat[op] for op, k in (ops or SCAN_CHAIN_OPS)[kind].items()))
+
+
+def scan_path_case(device, kind: str, rows: int, n: int, change=None, seed: int = SEED + 9):
+    """A scan's inputs at one of :func:`scan_path_shapes`, the program's
+    config with ``change``: ``(kernel, plain, buf, st, n_sym, cfg)``.  At
+    the shorter rows: station rows, the last dead air, row 0 starting
+    below the first sample (its mid-point reads the clamp at 0) and row 1
+    with a fast clock past the last (the clamp at len - 2); the long rows
+    are station rows."""
+    import dataclasses
+
     import torch
 
     from wavecap_tpu_torch.capture.pipeline import p25_cfg_for, p25p2_cfg_for
     from wavecap_tpu_torch.models.p25 import c4fm, cqpsk
     from wavecap_tpu_torch.models.p25.c4fm import timing_consts
 
-    clock_hz = clock_hz or sm_clock_hz()
-    rng = np.random.default_rng(SEED + 8)
-    lines, cases = {}, []
+    cfgs = p25_configs()
+    rng = np.random.default_rng(seed + rows + n + len(kind))
+    long = n >= SCAN_LONG
+    if kind == "c4fm":
+        cfg = dataclasses.replace(p25_cfg_for(cfgs["A"]), **(change or {}))
+        c = timing_consts(cfg.sps, cfg.max_clock_ppm, 0.005)
+        buf = c4fm_rows(rng, rows + long, 64 + n, cfg.sample_rate)[:rows]
+        st = timing_state(rng, rows, cfg.sps, cqpsk=False)
+        st[5] = rng.uniform(-3, 3, rows)  # the last raw symbol, which the scan reads
+        kfn, pfn, n_sym = c4fm.c4fm_scan, c4fm.c4fm_scan_plain, c4fm.n_symbols_per_block(cfg, n)
+    else:
+        cfg = dataclasses.replace(p25_cfg_for(cfgs["B"]) if kind == "lsm" else p25p2_cfg_for(cfgs["C"]),
+                                  **(change or {}))
+        c = timing_consts(cfg.sps, cfg.max_clock_ppm, 0.002)
+        buf = cqpsk_rows(rng, rows + long, 64 + n, cfg.sample_rate, cfg.symbol_rate, cfg.rrc_alpha)[:rows]
+        st = timing_state(rng, rows, cfg.sps, cqpsk=True)
+        kfn, pfn, n_sym = cqpsk.cqpsk_scan, cqpsk.cqpsk_scan_plain, cqpsk.n_symbols_per_block(cfg, n)
+    if not long:
+        st[0, 0], st[1, 0] = 0.3, cfg.sps  # y_mid reads before the first sample
+        st[0, 1], st[1, 1], st[2, 1] = 64.0 + cfg.sps + 5.0, c.fmax, c.integ_hi  # runs past the end
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    def clamp_rows(st, sps_, cqpsk_: bool, c):
-        st = st.copy()
-        st[0, 0], st[1, 0] = 0.3, sps_  # y_mid reads before the first sample
-        st[0, 1], st[1, 1], st[2, 1] = 64.0 + sps_ + 5.0, c.fmax, c.integ_hi  # runs past the end
-        return st
+    return kfn, pfn, dev(buf), dev(st), n_sym, cfg
 
-    def case(name, kfn, pfn, rows_np, st_np, n_sym, cfg, what, source, replaces, item):
-        buf, st = dev(rows_np), dev(st_np)
-        s_k, d_k, o_k = (host(v) for v in kfn(buf, st, n_sym, cfg))
+
+def scan_digest(outs) -> str:
+    """A hash of a scan's ``(soft, dibits, out)`` bits: equal digests are
+    bit-equal outputs (soft, dibits, the carried scalars and last symbol)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in outs:
+        h.update(np.ascontiguousarray(host(v)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def scan_plan(kind: str, cfg, item: int):
+    """The plan K12s / K13s launch with for ``cfg``."""
+    from wavecap_tpu_torch.models.p25.c4fm import _loop_gains, k12s_plan, timing_consts
+
+    c = timing_consts(cfg.sps, cfg.max_clock_ppm, 0.005 if kind == "c4fm" else 0.002)
+    return k12s_plan(c, _loop_gains(cfg)[0], item)
+
+
+def scan_kernel_checks(device, timer=device_ms, wall_timer=time_ms, clock_hz=None, latencies=None):
+    """K12s and K13s against their plain versions at every shape of
+    :func:`scan_path_shapes`: dibits equal; soft within 1e-3 and the carried
+    state within 1e-3 (the plain mean(filt) sums in another order, and the
+    loop walks an ulp a little).  Each timed, with the cycles a symbol at
+    the card's SM clock (the whole launch over its symbols) beside the
+    chain floor at the probe's measured latencies; at the programs' shapes
+    the plain loop timed too.  Returns ``(lines, cases)``."""
+    clock_hz = clock_hz or sm_clock_hz()
+    lat = latencies or scan_op_latencies()
+    lines, cases = {}, []
+    for what, kind, rows, n, change in scan_path_shapes():
+        kfn, pfn, buf, st, n_sym, cfg = scan_path_case(device, kind, rows, n, change)
+        name = SCAN_NAMES[kind]
+        got = kfn(buf, st, n_sym, cfg)
+        s_k, d_k, o_k = (host(v) for v in got)
         s_p, d_p, o_p = (host(v) for v in pfn(buf, st, n_sym, cfg))
         check(np.array_equal(d_k, d_p), f"{name} ({what}): dibits differ from the plain version "
               f"({int((d_k != d_p).sum())} of {d_k.size})")
         err_soft, err_state = max_abs(s_p, s_k), float(np.max(np.abs(o_k - o_p)))
         check(err_soft <= 1e-3 and err_state <= 1e-3,
               f"{name} ({what}): soft off by {err_soft:.3g}, state by {err_state:.3g} (<= 1e-3)")
-        rows, length = rows_np.shape
+        length, item = buf.shape[1], buf.element_size()
         b, f = bound(rows * (length * item + n_sym * 5 + 48), rows * 60.0 * n_sym)
-        k = dict(name=name, case=what, route="cuda", source=source, replaces=replaces, max_abs_err=err_soft,
-                 state_max_abs=err_state, bound_ms=b, bound_by=f,
-                 chain_ms=n_sym * SCAN_CYCLES / clock_hz * 1e3, chain_cycles_per_symbol=SCAN_CYCLES,
-                 ms=timer(lambda: kfn(buf, st, n_sym, cfg), "scan_kernel"),
-                 wrapper_ms=wall_timer(lambda: kfn(buf, st, n_sym, cfg)),
-                 # the plain loop is ~20 launches a symbol: its wall time, 3 calls
-                 plain_ms=time_ms(lambda: pfn(buf, st, n_sym, cfg), reps=3),
-                 plain_note="wall time between CUDA events (the Python loop over symbols)",
-                 library_ms=None, library_note="no single PyTorch call runs a timing loop")
+        chain_kind = "c4fm" if kind == "c4fm" else "cqpsk"
+        floor_cyc = scan_floor_cycles(lat, chain_kind)
+        written_cyc = scan_floor_cycles(lat, chain_kind, SCAN_CHAIN_AS_WRITTEN)
+        k = dict(name=name, case=what, route="cuda", source="wavecap_tpu_torch/kernels/csrc/p25_scan.cu",
+                 replaces=("wavecap_tpu/models/p25/c4fm.py:268-337 (the step :281-290, the scan :294)"
+                           if kind == "c4fm" else
+                           "wavecap_tpu/models/p25/cqpsk.py:346-373 (gains, interp, step) + :453-457 (the scan)"),
+                 plan=scan_plan(kind, cfg, item)._asdict(), max_abs_err=err_soft,
+                 state_max_abs=err_state, digest=scan_digest(got),
+                 chain_floor_cycles_per_symbol=floor_cyc, chain_floor_ms=n_sym * floor_cyc / clock_hz * 1e3,
+                 chain_as_written_cycles_per_symbol=written_cyc,
+                 chain_note="floor: the reference's dependent f32 chain a symbol after exact rewrites "
+                            "(SCAN_CHAIN_OPS) at the probe's measured latencies; as written: with FRND, "
+                            "__fdiv_rn and three clips; cycles_per_symbol: the launch's ms at the SM clock "
+                            "over its symbols (staging and epilogue included)")
+        k["ms"] = timer(lambda: kfn(buf, st, n_sym, cfg), "scan_kernel")
+        k["cycles_per_symbol"] = k["ms"] * 1e-3 * clock_hz / n_sym
+        k["bound_ms"], k["bound_by"] = b, f
+        if n < SCAN_LONG:
+            k["wrapper_ms"] = wall_timer(lambda: kfn(buf, st, n_sym, cfg))
+            # the plain loop is ~20 launches a symbol: its wall time, 3 calls
+            k["plain_ms"] = time_ms(lambda: pfn(buf, st, n_sym, cfg), reps=3)
+            k["plain_note"] = "wall time between CUDA events (the Python loop over symbols)"
+            k["library_ms"] = None
+            k["library_note"] = "no single PyTorch call runs a timing loop"
+            lines.setdefault(name, k)
         cases.append(k)
-        lines.setdefault(name, k)
-
-    src = "wavecap_tpu_torch/kernels/csrc/p25_scan.cu"
-    ca = p25_cfg_for(cfgs["A"])
-    n_a = 2 * cfgs["A"].block_size // cfgs["A"].channelizer().channel_count
-    rows_a = cfgs["A"].p25_capacity
-    c = timing_consts(ca.sps, ca.max_clock_ppm, 0.005)
-    st = timing_state(rng, rows_a, ca.sps, cqpsk=False)
-    st[5] = rng.uniform(-3, 3, rows_a)  # the last raw symbol, which the scan reads
-    case("K12s_c4fm_scan", c4fm.c4fm_scan, c4fm.c4fm_scan_plain, c4fm_rows(rng, rows_a, 64 + n_a, ca.sample_rate),
-         clamp_rows(st, ca.sps, False, c), c4fm.n_symbols_per_block(ca, n_a), ca,
-         f"program A: ({rows_a}, {64 + n_a}) f32 -> {c4fm.n_symbols_per_block(ca, n_a)} symbols", src,
-         "wavecap_tpu/models/p25/c4fm.py:268-337 (the step :281-290, the scan :294)", 4)
-    n_b = 2 * cfgs["B"].block_size // cfgs["B"].channelizer().channel_count
-    for cfg_q, rows, what in ((p25_cfg_for(cfgs["B"]), cfgs["B"].p25_capacity, "program B, 4800 baud"),
-                              (p25p2_cfg_for(cfgs["C"]), cfgs["C"].p25p2_capacity, "program C, 6000 baud")):
-        c = timing_consts(cfg_q.sps, cfg_q.max_clock_ppm, 0.002)
-        n_sym = cqpsk.n_symbols_per_block(cfg_q, n_b)
-        case("K13s_cqpsk_scan", cqpsk.cqpsk_scan, cqpsk.cqpsk_scan_plain,
-             cqpsk_rows(rng, rows, 64 + n_b, cfg_q.sample_rate, cfg_q.symbol_rate, cfg_q.rrc_alpha),
-             clamp_rows(timing_state(rng, rows, cfg_q.sps, cqpsk=True), cfg_q.sps, True, c), n_sym, cfg_q,
-             f"{what}: ({rows}, {64 + n_b}) c64 -> {n_sym} symbols", src,
-             "wavecap_tpu/models/p25/cqpsk.py:346-373 (gains, interp, step) + :453-457 (the scan)", 8)
-    return [lines["K12s_c4fm_scan"], lines["K13s_cqpsk_scan"]], cases
+        del buf, got
+    return [lines["K12s_c4fm_scan"], lines["K13s_cqpsk_scan"]], cases + [dict(name="scan op latencies",
+                                                                              cycles=lat)]
 
 
 @contextlib.contextmanager
@@ -3845,6 +4040,22 @@ for what, kind, rows, n_k12 in shapes.K12_PATH_SHAPES:
         ms = f"refused: {e}"
     k12.append(dict(name=shapes.K12_NAMES[kind], case=what, ms=ms))
     del buf
+# K12s and K13s at scan_path_shapes() the same way (the first design refuses
+# the long rows), with the bits of each output for the parity of the turns
+k12s = []
+for what, kind, rows, n, change in shapes.scan_path_shapes():
+    kfn, pfn, buf, st, n_sym, cfg = shapes.scan_path_case(dev, kind, rows, n, change)
+    try:
+        got = kfn(buf, st, n_sym, cfg)
+        rec = dict(bits={k: shapes.scan_digest([v]) for k, v in (("soft", got[0]), ("dibits", got[1]),
+                                                                   ("pos_freq_integ", got[2][:3]),
+                                                                   ("out", got[2]))},
+                   ms=cs.device_ms(lambda: kfn(buf, st, n_sym, cfg), ("scan_kernel",)))
+        del got
+    except NotImplementedError as e:  # the first design refuses rows it cannot stage
+        rec = dict(ms=f"refused: {e}")
+    k12s.append(dict(name=shapes.SCAN_NAMES[kind], case=what, **rec))
+    del buf
 x = torch.from_numpy((0.3 * rng.standard_normal((100, 9447))).astype(np.float32)).to(dev)
 hp = iir.butter_sos("high", (300.0,), 5, 48_000)
 z = torch.zeros((100, hp.shape[0], 2), device=dev)
@@ -3933,8 +4144,8 @@ try:
 except NotImplementedError as e:
     ms = f"refused: {e}"
 k14.append(dict(name="K14_echo_fit", case="turn: fit, one 60,000-sample row", ms=ms))
-print(json.dumps(dict(checkout=sys.argv[1], K1=k1, K2=k2, K3=k3, K4=k4, K12=k12, K9=k9, K5=k5, K10=k10,
-                      K11=k11, K7=k7, K14=k14), default=float))
+print(json.dumps(dict(checkout=sys.argv[1], K1=k1, K2=k2, K3=k3, K4=k4, K12=k12, K12s=k12s, K9=k9, K5=k5,
+                      K10=k10, K11=k11, K7=k7, K14=k14), default=float))
 """
 
 
@@ -3962,6 +4173,17 @@ def phase2_turns(other: str, out: str | None) -> int:
     if out:
         Path(out).parent.mkdir(parents=True, exist_ok=True)
         Path(out).write_text("".join(json.dumps(line) + "\n" for line in lines))
+    # the scans' outputs of this checkout's turns against the other's, where
+    # both ran: bit for bit
+    parity = {}
+    for old_, new_ in ((lines[0], lines[1]), (lines[3], lines[2])):
+        for a, b in zip(old_.get("K12s", []), new_.get("K12s", [])):
+            if "bits" in a and "bits" in b:
+                parity.setdefault(b["case"], []).append({k: a["bits"][k] == b["bits"][k] for k in b["bits"]})
+    log(dict(phase="scan parity with the other checkout", cases=parity))
+    if any(not all(d.values()) for v in parity.values() for d in v):
+        print("chip_smoke: the scans' bits differ from the other checkout's", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -3972,7 +4194,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
     ap.add_argument("--phase2-turns", metavar="OTHER_CHECKOUT",
-                    help="time K1-K5, K7, K9-K14 of this checkout and OTHER_CHECKOUT in turns")
+                    help="time K1-K5, K7, K9-K14, K12s, K13s of this checkout and OTHER_CHECKOUT in turns")
     ap.add_argument("--out", help="with --phase2-turns: also write its JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4026,7 +4248,7 @@ def main(argv=None) -> int:
             log(dict(phase="kernel-case", **k))
         kernels += mixed_lines
         # last: the scans' plain loops are ~20 launches a symbol
-        scan_lines, cases = scan_kernel_checks(p25, device)
+        scan_lines, cases = scan_kernel_checks(device)
         for k in cases:
             log(dict(phase="kernel-case", **k))
         kernels += scan_lines

@@ -84,8 +84,8 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     "K13_cqpsk_timing": (
         "p25_timing", "k13_cqpsk_timing", (_P,) * 6 + (_I,) * 3 + (_F,) * 8 + (_I,) * 4 + (_P,),
     ),
-    "K12s_c4fm_scan": ("p25_scan", "k12s_c4fm_scan", (_P,) * 6 + (_I,) * 4 + (_F,) * 10 + (_P,)),
-    "K13s_cqpsk_scan": ("p25_scan", "k13s_cqpsk_scan", (_P,) * 6 + (_I,) * 4 + (_F,) * 10 + (_P,)),
+    "K12s_c4fm_scan": ("p25_scan", "k12s_c4fm_scan", (_P,) * 6 + (_I,) * 10 + (_F,) * 10 + (_P,)),
+    "K13s_cqpsk_scan": ("p25_scan", "k13s_cqpsk_scan", (_P,) * 6 + (_I,) * 10 + (_F,) * 10 + (_P,)),
     "K13_cfo_lines": ("cfo_lines", "k13_cfo_lines", (_P, _I, _I, _I, _I, _F, _P, _P, _P)),
     "K14_echo_fit": (
         "echo_fit", "k14_echo_fit",

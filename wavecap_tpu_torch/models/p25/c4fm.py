@@ -47,12 +47,18 @@ DIBIT_SYMBOLS = np.array([1.0, 3.0, -1.0, -3.0], np.float32)
 # f32 constants as the reference's traced arithmetic rounds them
 _TWO_PI = float(np.float32(2.0 * np.pi))
 _NEG_TWO_PI = float(np.float32(-2.0 * np.pi))
-_SMEM_LIMIT = 200 * 1024  # bytes of shared memory K12, K13, K12s and K13s ask for, at most
+_SMEM_LIMIT = 200 * 1024  # bytes of shared memory K12 and K13 ask for, at most
 _K12_MAX_CLUSTER = 8  # CTAs (one cluster) a row
 _K12_CLUSTER = 4  # CTAs a row where the launch has rows enough to fill the card
 _K12_SMS = 132  # SMs of the H100
 _K12_MIN_SYMBOLS = 64  # symbols a CTA, at least
 _K12_THREADS = 256
+_K12S_SMEM = 227 * 1024  # K12s / K13s: a CTA's dynamic shared memory at most
+_K12S_SLOTS = 8  # chunks of the row in the ring
+_K12S_CHUNK = 1024  # samples a chunk, at least
+_K12S_GROUP = 128  # steps between the walker's waits and progress stores, at most
+_K12S_FIRST = 32  # the first group's end, at most
+_K12S_SYM_RING = 1024  # symbols between the walker and the helper warp
 
 
 # ---------------------------------------------------------------------------
@@ -589,10 +595,78 @@ def _scan_dc(buf, st):
     return st[4] * 0.9 + buf[:, INTERP_TAIL:].mean(-1) * 0.1
 
 
+class K12sPlan(NamedTuple):
+    """How K12s and K13s run a row, as the kernel takes it: one CTA of four
+    warps; the row streams through a ring of ``slots`` chunks of ``chunk``
+    samples in shared memory, the symbols through a ring of ``sym_ring``;
+    the walker waits for chunks and publishes symbols once every ``group``
+    steps (the first group ends at symbol ``first``); ``narrow``: each
+    step's windows loaded a step ahead hold its reads, so the steps away
+    from the row's ends may run unchecked (else every step is checked);
+    ``smem`` bytes of dynamic shared memory a CTA."""
+
+    chunk: int
+    slots: int
+    group: int
+    first: int
+    sym_ring: int
+    narrow: bool
+    smem: int
+
+
+def k12s_reach(c: TimingConsts, group: int) -> int:
+    """Samples between the lowest read still to come and the highest the
+    walker waits for before a group of ``group`` steps (each step's windows
+    a step ahead): the group's steps and one more at fmax + 1 (a step
+    advances by at most fmax + 2 alpha, alpha < 1/4), 3 of margin, and the
+    mid point's fmax / 2 + 1 below the position."""
+    return int(np.ceil((group + 1) * (c.fmax + 1.0) + 3 + c.fmax / 2 + 1))
+
+
+def k12s_narrow(c: TimingConsts, alpha: float) -> bool:
+    """Whether the windows loaded a step ahead hold the next step's reads:
+    from pos, the next position lies in [RN(RN(pos + fmin) - 2 alpha),
+    pos + fmax + 2 alpha] and its mid point spreads by (fmax - fmin) / 2
+    more, so each read lies within a sample of its window's lower end while
+    1.5 (fmax - fmin) + 4 alpha, with six roundings of half an ulp below
+    2^21 (1/16 each), stays below 1."""
+    return 1.5 * (c.fmax - c.fmin) + 4.0 * float(np.float32(alpha)) + 6 * 0.0625 < 1.0
+
+
+def k12s_plan(c: TimingConsts, alpha: float, item: int) -> K12sPlan:
+    """The scans' launch plan for a loop of constants ``c`` and gain
+    ``alpha`` over samples of ``item`` bytes, whatever the row's length:
+    a ring of 8 chunks whose (slots - 2) chunks hold ``k12s_reach`` (the
+    walker publishes a low mark a chunk behind its lowest read, so a slot
+    is refilled only when the ring still holds every sample a group of
+    steps reads): chunks of 1,024 samples (the walk consumes one in ~100
+    symbols at the programs' 10 samples a symbol) doubled while shared
+    memory allows, then groups shortened from 128 steps where the symbol
+    is longer still.  Raises NotImplementedError for a loop whose steps
+    may not advance (alpha >= 1/4 or fmin < 1) or whose group of one
+    step does not fit."""
+    a2 = 2.0 * float(np.float32(alpha))
+    if not (a2 < 0.5 and c.fmin >= 1.0):
+        raise NotImplementedError(f"K12s / K13s take loops of alpha < 1/4 and fmin >= 1 (alpha {alpha}, "
+                                  f"fmin {c.fmin})")
+    slots, sym_ring, group = _K12S_SLOTS, _K12S_SYM_RING, _K12S_GROUP
+    while group >= 1:
+        chunk = _K12S_CHUNK
+        smem = item * (chunk * slots + sym_ring + 4) + 8 * slots
+        while smem <= _K12S_SMEM:
+            if k12s_reach(c, group) <= (slots - 2) * chunk:
+                return K12sPlan(chunk, slots, group, min(_K12S_FIRST, group), sym_ring,
+                                k12s_narrow(c, alpha), smem)
+            chunk *= 2
+            smem = item * (chunk * slots + sym_ring + 4) + 8 * slots
+        group //= 2
+    raise NotImplementedError(f"K12s / K13s: a step of {c.fmax} samples does not fit their ring")
+
+
 def launch_scan(name: str, buf, st, n_sym: int, c: TimingConsts, gains, dc0=None):
-    """K12s or K13s on the card: one CTA per row, its one thread walking
-    the symbols; the row is staged in shared memory where it fits.
-    ``dc0`` ``(R,)`` is C4FM's DC estimate (None for CQPSK)."""
+    """K12s or K13s on the card: one CTA per row (:func:`k12s_plan`), the
+    row streamed through shared memory; rows of any length.  ``dc0``
+    ``(R,)`` is C4FM's DC estimate (None for CQPSK)."""
     dev = buf.device
     if buf.dim() != 2 or buf.dtype not in (torch.float32, torch.complex64):
         raise ValueError(f"{name} takes float32 or complex64 rows of shape (R, L)")
@@ -601,18 +675,13 @@ def launch_scan(name: str, buf, st, n_sym: int, c: TimingConsts, gains, dc0=None
         raise ValueError(f"{name} needs rows of more than {INTERP_TAIL + 1} samples and a symbol")
     if st.shape != (6, rows):
         raise ValueError(f"{name}'s carried state must be (6, {rows})")
-    item = buf.element_size()
-    # the symbols (and CQPSK's phase steps) always; the row where it fits
-    fixed = n_sym * item + (n_sym * 4 if buf.is_complex() else 0)
-    if fixed > _SMEM_LIMIT:
-        raise NotImplementedError(f"{name} stages {n_sym} symbols: too many")
-    staged = int(fixed + length * item <= _SMEM_LIMIT)
+    plan = k12s_plan(c, gains[0], buf.element_size())
     soft = torch.empty((rows, n_sym), dtype=torch.float32, device=dev)
     dibits = torch.empty((rows, n_sym), dtype=torch.uint8, device=dev)
     out = torch.empty((6, rows), dtype=torch.float32, device=dev)
     alpha, beta = (float(np.float32(g)) for g in gains)
     launch(name, dev, buf.contiguous(), st.to(device=dev, dtype=torch.float32).contiguous(),
-           None if dc0 is None else dc0.contiguous(), soft, dibits, out, rows, length, n_sym, staged, *c,
+           None if dc0 is None else dc0.contiguous(), soft, dibits, out, rows, length, n_sym, *plan, *c,
            alpha, beta)
     return soft, dibits, out
 
