@@ -22,8 +22,9 @@ It drives the port's paths at full width:
   slots: K3 -> K7 low-pass -> discriminator -> K7 RRC -> K12 block
   timing); B, LSM trunking at 2.4 Msps (M = 96, 0.15 s blocks, 21 CQPSK
   slots with the 41-tap simulcast equalizer: K3 -> carrier NCO -> K7 RRC
-  -> cuFFT + K13 line search -> K14 alias scores and echo fit -> K7
-  per-slot complex FIR -> K13 timing and differential detection); C,
+  -> K13's CFO estimate (K13_cfo_power x^4, cuFFT, K13_cfo_lines) -> K14
+  alias scores and echo fit -> K7 per-slot complex FIR -> K13 timing and
+  differential detection); C,
   Phase 2 dual rate (2 CQPSK + 20 slots at 6000 baud, alpha 1);
 * the server's capture engine (program D): ``CaptureManager`` ->
   ``Capture`` with pinned staging and fetch buffers, a copy stream and
@@ -74,10 +75,18 @@ Phases:
    K12 / K13's timing at ``K12_PATH_SHAPES`` (programs A, B, C, F's shard,
    2 s rows in each mode and 5 s LSM rows, whose windows do not fit in
    shared memory), each with its plan, bound and, for the
-   timing, the redesign's chain; then a 0-sample block through the card's
+   timing, the redesign's chain; K13's CFO estimate at ``CFO_PATH_SHAPES``
+   (program B's bank, C's control channel and Phase 2 bank; rows at -600,
+   0, +600 Hz): K13_cfo_power within 2 ulp of its plain version (bit
+   equality reported), K13_cfo_lines' ``j`` and residual equal to its
+   plain version's on complex X, the stage's residual equal to the
+   sequence before K13_cfo_power (two products, the FFT's pad, the search
+   over |X|), with the stage's device ops, cuFFT's time and the stage's
+   bound; then a 0-sample block through the card's
    ``channelize`` and ``bank_step`` (NBFM with IIR filters, with the voice
    FIR, AM) and K4 at S = 0 against the plain path: the same shapes, RSSI
-   (NaN and -200) and carries, and no kernel launched;
+   (NaN and -200) and carries, and no kernel launched; and K13's CFO stage
+   at n = 0 (X all zero, ``j = 0``, ``resid = 0``);
 3. the first slice: a fake 10 Msps receiver with NBFM stations on known
    bins, 6 consecutive blocks through ``pack_i16_words`` -> upload ->
    ``capture_multi`` (800 active slots) -> ``unpack_wire``: each station's
@@ -136,7 +145,10 @@ checkout of the port on the same card::
 
     python3 chip_smoke.py --phase2-turns OTHER_CHECKOUT [--out FILE]
 
-runs K1, K3, K4, K12 / K13's timing and the scans at this checkout's
+runs K13's CFO stage first (at ``CFO_PATH_SHAPES``: every device op of
+``_estimate_cfo_residual`` with its launches and ms a call, the search
+alone, K13_cfo_power where the checkout has it, cuFFT alone; the stage's
+residuals must be bit-equal between the checkouts), then K1, K3, K4, K12 / K13's timing and the scans at this checkout's
 ``K1_PATH_SHAPES``, ``K3_PATH_SHAPES``, ``K4_PATH_SHAPES``,
 ``K12_PATH_SHAPES`` and ``scan_path_shapes()`` through that checkout's
 wrappers (the first K3 refuses the 60,000-sample rows, the first K4 rows
@@ -196,7 +208,8 @@ KERNEL_FUNCTIONS = {
     "K10_pll": K10_KERNELS, "K11a_noise_blanker": K11A_KERNELS, "K11b_noise_reduction": K11B_KERNELS,
     "K12_c4fm_timing": ("timing_kernel<float, false>",), "K12s_c4fm_scan": ("::scan_kernel<float, false>",),
     "K13_cqpsk_timing": ("timing_kernel<float2, true>",), "K13s_cqpsk_scan": ("::scan_kernel<float2, true>",),
-    "K13_cfo_lines": ("cfo_lines_kernel",), "K14_echo_fit": K14_KERNELS,
+    "K13_cfo_power": ("cfo_power_kernel",), "K13_cfo_lines": ("cfo_lines_kernel",),
+    "K14_echo_fit": K14_KERNELS,
 }
 # K10's step: the dependent path from one phase to the next, counted in the
 # SASS of kernels/csrc/pll.cu's unrolled loop (scripts/k10_variants.py dumps
@@ -365,7 +378,7 @@ def plain_kernels():
             (c4fm, "c4fm_timing", c4fm.c4fm_timing_plain),
             (cqpsk, "cqpsk_timing", cqpsk.cqpsk_timing_plain),
             (c4fm, "c4fm_scan", c4fm.c4fm_scan_plain), (cqpsk, "cqpsk_scan", cqpsk.cqpsk_scan_plain),
-            (cqpsk, "cfo_lines", cqpsk.cfo_lines_plain),
+            (cqpsk, "cfo_power", cqpsk.cfo_power_plain), (cqpsk, "cfo_lines", cqpsk.cfo_lines_plain),
             (eqz, "echo_fit", eqz.echo_fit_plain), (eqz, "echo_score", eqz.echo_score_plain),
         ):
             stack.enter_context(mock.patch.object(module, name, plain))
@@ -868,12 +881,16 @@ def empty_block_checks(device) -> dict:
     (M = 80, 4 slots, slot 2 inactive) against the plain versions (the
     same state copied to the CPU): audio (4, 0), RSSI equal (NaN as equal;
     -200 on the inactive slot), every carry bitwise unchanged; K4 at S = 0
-    the same; no kernel launched."""
+    the same; no kernel launched.  Then K13's CFO stage on program B's 21
+    rows at n = 0 (an FFT of 1,024 bins): the padded buffer all zero,
+    ``j = 0`` and ``resid = 0`` as the plain versions give them, each K13
+    kernel launched once by the stage and once on its own."""
     import torch
 
     from wavecap_tpu_torch import models
     from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
     from wavecap_tpu_torch.models import channel_bank as cb
+    from wavecap_tpu_torch.models.p25 import cqpsk
     from wavecap_tpu_torch.ops import channelizer as chz
 
     ch = chz.ChannelizerConfig(sample_rate=1_000_000.0, channel_bandwidth=12_500.0)
@@ -916,6 +933,23 @@ def empty_block_checks(device) -> dict:
     check(tuple(a_k.shape) == tuple(a_p.shape) == (4, 0) and same_bits(r_k, r_p) and same_bits(t_k, args[1])
           and same_bits(t_p, args[1]), "K4 at S = 0 differs from its plain version")
     out["K4 at S = 0"] = dict(audio=list(a_k.shape), launches=0)
+    cfg_q, filt, _ = cfo_path_case(device, "B", "p25")
+    empty_rows = filt[:, :0]
+    size, k4, off, step = cqpsk._cfo_search(cfg_q, 0)
+    reset_launch_counts()
+    r_k = cqpsk._estimate_cfo_residual(empty_rows, cfg_q)
+    buf = cqpsk.cfo_power(empty_rows, size)
+    r_l, j_l = cqpsk.cfo_lines(torch.fft.fft(buf, dim=-1), k4, off, step)
+    launched = {k: v for k, v in launch_counts().items() if v}
+    r_p, j_p = cqpsk.cfo_lines_plain(torch.fft.fft(cqpsk.cfo_power_plain(empty_rows.cpu(), size), dim=-1),
+                                     k4, off, step)
+    check(tuple(buf.shape) == (filt.shape[0], size) and not bool(buf.any()),
+          "K13_cfo_power at n = 0: the padded buffer is not all zero")
+    check(same_bits(r_k, r_p) and same_bits(r_l, r_p) and same_bits(j_l, j_p) and not bool(j_p.any())
+          and not bool(r_p.any()), f"K13's CFO stage at n = 0: resid {host(r_k)}, j {host(j_l)}")
+    check(launched == {"K13_cfo_power": 2, "K13_cfo_lines": 2}, f"K13's CFO stage at n = 0 launched {launched}")
+    out["K13's CFO stage at n = 0"] = dict(rows=filt.shape[0], size=size, resid=float(r_k.abs().max()),
+                                          launches=launched)
     return out
 
 
@@ -1814,9 +1848,9 @@ C_P2_STATIONS = ((0, 0.0), (5, 1000.0), (11, 0.0), (19, -600.0))
 A_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 2, "K5_resample_poly": 1,
               "K7_strided_fir": 2, "K9_iir_cascade": 2, "K12_c4fm_timing": 1}
 B_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 1, "K7_strided_fir": 3,
-              "K13_cfo_lines": 1, "K13_cqpsk_timing": 1, "K14_echo_fit": 2}
+              "K13_cfo_power": 1, "K13_cfo_lines": 1, "K13_cqpsk_timing": 1, "K14_echo_fit": 2}
 C_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 2, "K7_strided_fir": 2,
-              "K13_cfo_lines": 2, "K13_cqpsk_timing": 2}
+              "K13_cfo_power": 2, "K13_cfo_lines": 2, "K13_cqpsk_timing": 2}
 # a serial pass of K12/K13: ~40 SM cycles per element a thread walks, ~300 per block reduction
 PASS_CYCLES, REDUCE_CYCLES = 40, 300
 
@@ -2075,6 +2109,65 @@ def timing_vs_plain(name, case, kfn, pfn, buf, st, n_sym, cfg, clock_hz) -> dict
                 plan=plan._asdict(), chain_new_ms=k12_chain_ms(plan, length, n_sym, clock_hz))
 
 
+# K13's CFO estimate at the paths' shapes: (case, program, bank)
+CFO_PATH_SHAPES = (("program B", "B", "p25"), ("program C, control channel", "C", "p25"),
+                   ("program C, Phase 2", "C", "p25p2"))
+
+
+def cfo_path_case(device, prog: str, bank: str, rng=None, seed: int = SEED + 15):
+    """``(cfg, filt, cfo)`` of K13's CFO stage at a path's shape: the
+    bank's rows of one block, matched-filtered and normalized as
+    ``cqpsk_demodulate`` hands them to the stage, at -600, 0 and +600 Hz
+    in turn; from ``rng`` where given, else from ``seed``."""
+    import torch
+
+    from wavecap_tpu_torch.capture.pipeline import p25_cfg_for, p25p2_cfg_for
+
+    c = p25_configs()[prog]
+    cfg = p25_cfg_for(c) if bank == "p25" else p25p2_cfg_for(c)
+    rows = c.p25_capacity if bank == "p25" else c.p25p2_capacity
+    n = 2 * c.block_size // c.channelizer().channel_count
+    cfo = np.tile([-600.0, 0.0, 600.0], rows)[:rows]
+    rng = rng if rng is not None else np.random.default_rng(seed)
+    filt = cqpsk_rows(rng, rows, n, cfg.sample_rate, cfg.symbol_rate, cfg.rrc_alpha, cfo=cfo)
+    return cfg, torch.from_numpy(filt).to(device), cfo
+
+
+def parent_cfo_stage(filt, cfg):
+    """K13's CFO stage as it ran before K13_cfo_power: x^4 by two torch
+    products, the FFT padded by ``torch.fft.fft``'s ``n=``, and the plain
+    search: ``(resid, j)``."""
+    import torch
+
+    from wavecap_tpu_torch.models.p25 import cqpsk
+
+    size, k4, off, step = cqpsk._cfo_search(cfg, filt.shape[-1])
+    p4 = filt * filt
+    p4 = p4 * p4
+    return cqpsk.cfo_lines_plain(torch.fft.fft(p4, n=size, dim=-1), k4, off, step)
+
+
+def device_ops(fn, reps: int = 20, warm: int = 3) -> dict:
+    """Every op ``fn`` runs on the card, as CUPTI traced them through
+    torch.profiler over ``reps`` warm calls: each op's launches and ms a
+    call, and their totals (CUPTI may keep only some launches late in a
+    long process: see ``device_ms``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted(({"op": e.key, "launches": e.count / reps, "ms": e.self_device_time_total / reps / 1e3}
+                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA), key=lambda o: -o["ms"])
+    return dict(ms=sum(o["ms"] for o in ops), launches=sum(o["launches"] for o in ops), ops=ops)
+
+
 def p25_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_hz=None):
     """K12, K13 (timing, line search), K14 and K7's per-row complex taps
     against their plain versions at the P25 programs' shapes.  Returns
@@ -2136,29 +2229,54 @@ def p25_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_h
         timing_case("K13_cqpsk_timing", cqpsk.cqpsk_timing, cqpsk.cqpsk_timing_plain, buf, st, n_sym,
                     cfg_q, f"{case}: ({rows}, {64 + n_b}) c64 -> {n_sym} symbols", k13_src, k13_rep, 8)
 
-    # K13's line search on |FFT(x^4)| of rows at -600, 0 and +600 Hz
+    # K13's CFO estimate at program B's bank and C's two: K13_cfo_power and
+    # K13_cfo_lines against their plain versions, the stage against the
+    # sequence before K13_cfo_power
     cfg_b = p25_cfg_for(cfgs["B"])
     rows_b = cfgs["B"].p25_capacity
-    cfo = np.tile([-600.0, 0.0, 600.0], rows_b)[:rows_b]
-    filt = dev(cqpsk_rows(rng, rows_b, n_b, cfg_b.sample_rate, 4800.0, 0.2, cfo=cfo))
-    size, k4, off, step = cqpsk._cfo_search(cfg_b, n_b)
-    p4 = filt * filt
-    p4 = p4 * p4
-    spec = torch.abs(torch.fft.fft(p4, n=size, dim=-1))
-    r_k, j_k = (host(v) for v in cqpsk.cfo_lines(spec, k4, off, step))
-    r_p, j_p = (host(v) for v in cqpsk.cfo_lines_plain(spec, k4, off, step))
-    check(np.array_equal(j_k, j_p) and np.array_equal(r_k, r_p), "K13 line search differs from the plain version")
-    err_hz = float(np.max(np.abs(r_k - cfo)))
-    check(err_hz <= 2 * cfg_b.sample_rate / size / 4.0, f"K13 line search misses the CFO by {err_hz:.1f} Hz")
-    b, f = bound(rows_b * size * 4 + rows_b * 8, rows_b * (size + 2.0 * (2 * k4 + 1)))
-    record("K13_cfo_lines", f"program B: ({rows_b}, {size}) |X|, {2 * k4 + 1} candidates, CFO -600/0/+600 Hz",
-           "wavecap_tpu_torch/kernels/csrc/cfo_lines.cu",
-           "wavecap_tpu/models/p25/cqpsk.py:170 _estimate_cfo_residual (line search :187-201)", None,
-           max_abs_err=0.0, cfo_max_abs_err_hz=err_hz,
-           ms=timer(lambda: cqpsk.cfo_lines(spec, k4, off, step), "cfo_lines_kernel"),
-           wrapper_ms=wall_timer(lambda: cqpsk.cfo_lines(spec, k4, off, step)),
-           plain_ms=timer(lambda: cqpsk.cfo_lines_plain(spec, k4, off, step)),
-           bound_ms=b, bound_by=f, library_note="no single PyTorch call computes the line-pair search")
+    for what, prog, bank in CFO_PATH_SHAPES:
+        cfg_q, filt, cfo = cfo_path_case(device, prog, bank, rng if prog == "B" else None)
+        rows, n = filt.shape
+        size, k4, off, step = cqpsk._cfo_search(cfg_q, n)
+        buf_k, buf_p = cqpsk.cfo_power(filt, size), cqpsk.cfo_power_plain(filt, size)
+        ref = host(torch.view_as_real(buf_p)).astype(np.float64)
+        ulp = float(np.max(ulps(ref, host(torch.view_as_real(buf_k))), initial=0.0))
+        same = same_bits(buf_k, buf_p)
+        check(ulp <= 2.0, f"K13_cfo_power at {what}: {ulp:.1f} ulp from the plain version")
+        b, f = bound(rows * n * 8 + rows * size * 8, rows * n * 12.0)
+        record("K13_cfo_power", f"{what}: ({rows}, {n}) c64 -> ({rows}, {size}), CFO -600/0/+600 Hz",
+               "wavecap_tpu_torch/kernels/csrc/cfo_lines.cu",
+               "wavecap_tpu/models/p25/cqpsk.py:170 _estimate_cfo_residual (x^4 and the FFT's pad :183-185)",
+               None, max_abs_err=max_abs(ref, host(torch.view_as_real(buf_k))), max_ulp=ulp, bit_equal=same,
+               ms=timer(lambda: cqpsk.cfo_power(filt, size), "cfo_power_kernel"),
+               wrapper_ms=wall_timer(lambda: cqpsk.cfo_power(filt, size)),
+               plain_ms=timer(lambda: cqpsk.cfo_power_plain(filt, size)), bound_ms=b, bound_by=f,
+               library_note="no single PyTorch call computes x^4 padded to the FFT's size")
+        spec = torch.fft.fft(buf_p, dim=-1)
+        r_k, j_k = (host(v) for v in cqpsk.cfo_lines(spec, k4, off, step))
+        r_p, j_p = (host(v) for v in cqpsk.cfo_lines_plain(spec, k4, off, step))
+        check(np.array_equal(j_k, j_p) and np.array_equal(r_k, r_p),
+              f"K13_cfo_lines at {what} differs from the plain version")
+        err_hz = float(np.max(np.abs(r_k - cfo)))
+        check(err_hz <= 2 * step, f"K13_cfo_lines at {what} misses the CFO by {err_hz:.1f} Hz")
+        r_s = host(cqpsk._estimate_cfo_residual(filt, cfg_q))
+        r_o, _ = (host(v) for v in parent_cfo_stage(filt, cfg_q))
+        check(np.array_equal(r_s, r_o), f"K13's CFO stage at {what} differs from the sequence before it")
+        plan = cqpsk.cfo_lines_plan(rows, size, k4, off)
+        b, f = bound(rows * size * 8 + rows * 8, rows * (5.0 * size + 2.0 * (2 * k4 + 1)))
+        record("K13_cfo_lines", f"{what}: ({rows}, {size}) c64 X, {2 * k4 + 1} candidates, CFO -600/0/+600 Hz",
+               "wavecap_tpu_torch/kernels/csrc/cfo_lines.cu",
+               "wavecap_tpu/models/p25/cqpsk.py:170 _estimate_cfo_residual (|X| and the line search :185-201)",
+               None, max_abs_err=0.0, cfo_max_abs_err_hz=err_hz, resid_equal_to_stage_before=True,
+               plan=dict(cluster=plan.cluster, ctas=plan.ctas, per=plan.per, bins=plan.bins),
+               ms=timer(lambda: cqpsk.cfo_lines(spec, k4, off, step), "cfo_lines_kernel"),
+               wrapper_ms=wall_timer(lambda: cqpsk.cfo_lines(spec, k4, off, step)),
+               plain_ms=timer(lambda: cqpsk.cfo_lines_plain(spec, k4, off, step)), bound_ms=b, bound_by=f,
+               cufft_ms=timer(lambda: torch.fft.fft(buf_p, dim=-1)),
+               stage=device_ops(lambda: cqpsk._estimate_cfo_residual(filt, cfg_q)),
+               stage_before_ms=timer(lambda: parent_cfo_stage(filt, cfg_q)),
+               stage_bound_ms=bound(rows * n * 8 + 4 * rows * size * 8, 0.0)[0],
+               library_note="no single PyTorch call computes the line-pair search")
 
     # K14 at program B's bank: echo rows (delay 4 samples, a 0.8, theta 2.98) and clean rows
     grid = cqpsk._cfg_grid(cfg_b, device)
@@ -2301,7 +2419,7 @@ def p25_kernel_checks(cfgs, device, timer=device_ms, wall_timer=time_ms, clock_h
                           plain_ms=timer(lambda: fir.strided_fir_plain(xf, taps_f, 1)),
                           # yardstick: cuDNN's conv1d of the rows' planes (TF32 off)
                           library_ms=timer(lambda: F.conv1d(planes_f, kern_f))))
-    names = ("K12_c4fm_timing", "K13_cqpsk_timing", "K13_cfo_lines", "K14_echo_fit")
+    names = ("K12_c4fm_timing", "K13_cqpsk_timing", "K13_cfo_power", "K13_cfo_lines", "K14_echo_fit")
     return [lines[k] for k in names], cases
 
 
@@ -3990,6 +4108,37 @@ from wavecap_tpu_torch.ops import channelizer as chz, iir
 
 build_all()
 dev = torch.device("cuda")
+# the checkout's shapes and cases from the checkout that runs the turns (argv[2])
+import importlib.util
+spec = importlib.util.spec_from_file_location("turn_shapes", sys.argv[2] + "/chip_smoke.py")
+shapes = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(shapes)
+# first, in a fresh process (see device_ms): K13's CFO stage at the paths'
+# shapes through this checkout's _estimate_cfo_residual, every device op
+# with its launches and ms a call, its search alone (over |X| before
+# K13_cfo_power, over complex X after), its x^4 kernel where it has one,
+# cuFFT alone, and the bits of the stage's residuals
+from wavecap_tpu_torch.models.p25 import cqpsk
+k13 = []
+for what, prog, bank in shapes.CFO_PATH_SHAPES:
+    cfg_q, filt, _ = shapes.cfo_path_case(dev, prog, bank)
+    size, k4, off, step = cqpsk._cfo_search(cfg_q, filt.shape[-1])
+    redesigned = hasattr(cqpsk, "cfo_power")
+    buf = cqpsk.cfo_power(filt, size) if redesigned else None
+    x = torch.fft.fft(buf, dim=-1) if redesigned else torch.fft.fft(filt * filt * (filt * filt), n=size, dim=-1)
+    srch = x if redesigned else torch.abs(x)
+    resid = cqpsk._estimate_cfo_residual(filt, cfg_q)
+    rec = dict(name="K13 CFO stage", case=f"{what}: ({filt.shape[0]}, {filt.shape[1]}), size {size}, "
+               f"{2 * k4 + 1} candidates", bits={"resid": shapes.scan_digest([resid])},
+               resid=[float(v) for v in resid.cpu()],
+               stage=shapes.device_ops(lambda: cqpsk._estimate_cfo_residual(filt, cfg_q)),
+               stage_ms=cs.device_ms(lambda: cqpsk._estimate_cfo_residual(filt, cfg_q)),
+               lines_ms=cs.device_ms(lambda: cqpsk.cfo_lines(srch, k4, off, step), ("cfo_lines_kernel",)),
+               cufft_ms=cs.device_ms(lambda: torch.fft.fft(x, dim=-1)))
+    if redesigned:
+        rec["power_ms"] = cs.device_ms(lambda: cqpsk.cfo_power(filt, size), ("cfo_power_kernel",))
+    k13.append(rec)
+    del filt, buf, x, srch
 k2 = [k for k in cs.kernel_checks(cs.slice_config(), dev) if k["name"] == "K2_arm_dft"]
 ch = chz.ChannelizerConfig(sample_rate=10e6, channel_bandwidth=25e3, dft_impl="matmul")
 rng = np.random.default_rng(cs.SEED)
@@ -3999,11 +4148,7 @@ k2.append(dict(name="K2_arm_dft", case="M = 400, 3,000 steps", ms=cs.device_ms(l
                ("arm_dft_kernel",)), library_ms=cs.device_ms(lambda: chz._fft_arms(u, ch))))
 # K1 and K3 at the paths' shapes through this checkout's wrappers, the
 # inputs from the shape table and case functions of the checkout that runs the
-# turns (argv[2]), the same in every checkout
-import importlib.util
-spec = importlib.util.spec_from_file_location("turn_shapes", sys.argv[2] + "/chip_smoke.py")
-shapes = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(shapes)
+# turns, the same in every checkout
 from wavecap_tpu_torch.models import channel_bank as cb
 k3 = []
 for what, slots, bins, s_len, mode in shapes.K3_PATH_SHAPES:
@@ -4144,8 +4289,8 @@ try:
 except NotImplementedError as e:
     ms = f"refused: {e}"
 k14.append(dict(name="K14_echo_fit", case="turn: fit, one 60,000-sample row", ms=ms))
-print(json.dumps(dict(checkout=sys.argv[1], K1=k1, K2=k2, K3=k3, K4=k4, K12=k12, K12s=k12s, K9=k9, K5=k5,
-                      K10=k10, K11=k11, K7=k7, K14=k14), default=float))
+print(json.dumps(dict(checkout=sys.argv[1], K13cfo=k13, K1=k1, K2=k2, K3=k3, K4=k4, K12=k12, K12s=k12s, K9=k9,
+                      K5=k5, K10=k10, K11=k11, K7=k7, K14=k14), default=float))
 """
 
 
@@ -4173,16 +4318,17 @@ def phase2_turns(other: str, out: str | None) -> int:
     if out:
         Path(out).parent.mkdir(parents=True, exist_ok=True)
         Path(out).write_text("".join(json.dumps(line) + "\n" for line in lines))
-    # the scans' outputs of this checkout's turns against the other's, where
-    # both ran: bit for bit
+    # the scans' outputs and K13's CFO residuals of this checkout's turns
+    # against the other's, where both ran: bit for bit
     parity = {}
     for old_, new_ in ((lines[0], lines[1]), (lines[3], lines[2])):
-        for a, b in zip(old_.get("K12s", []), new_.get("K12s", [])):
-            if "bits" in a and "bits" in b:
-                parity.setdefault(b["case"], []).append({k: a["bits"][k] == b["bits"][k] for k in b["bits"]})
-    log(dict(phase="scan parity with the other checkout", cases=parity))
+        for key in ("K12s", "K13cfo"):
+            for a, b in zip(old_.get(key, []), new_.get(key, [])):
+                if "bits" in a and "bits" in b:
+                    parity.setdefault(b["case"], []).append({k: a["bits"][k] == b["bits"][k] for k in b["bits"]})
+    log(dict(phase="scan and CFO parity with the other checkout", cases=parity))
     if any(not all(d.values()) for v in parity.values() for d in v):
-        print("chip_smoke: the scans' bits differ from the other checkout's", file=sys.stderr)
+        print("chip_smoke: the scans' or the CFO stage's bits differ from the other checkout's", file=sys.stderr)
         return 1
     return 0
 
@@ -4194,7 +4340,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch + CUDA port.")
     ap.add_argument("--phase2-turns", metavar="OTHER_CHECKOUT",
-                    help="time K1-K5, K7, K9-K14, K12s, K13s of this checkout and OTHER_CHECKOUT in turns")
+                    help="time K13's CFO stage, K1-K5, K7, K9-K14, K12s, K13s of this checkout and OTHER_CHECKOUT "
+                         "in turns")
     ap.add_argument("--out", help="with --phase2-turns: also write its JSON lines here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4286,7 +4433,7 @@ def main(argv=None) -> int:
     # on program A's, K13 and K14 on program B's, K11 on the engine's
     # (program D), the others on the mixed capture's
     path = {"K4_voice_fir": sl, "K12_c4fm_timing": pa, "K13_cqpsk_timing": pb,
-            "K13_cfo_lines": pb, "K14_echo_fit": pb, "K11a_noise_blanker": pd,
+            "K13_cfo_power": pb, "K13_cfo_lines": pb, "K14_echo_fit": pb, "K11a_noise_blanker": pd,
             "K11b_nr_frames": pd, "K11b_nr_gain": pd, "K11b_nr_overlap_add": pd,
             "K12s_c4fm_scan": pa_s, "K13s_cqpsk_scan": pb_s}
     for k in kernels:

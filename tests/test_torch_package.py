@@ -73,7 +73,7 @@ def test_kernel_wrappers_have_no_fallback():
         "ops/pll.py": {"_loop"},
         "ops/noise.py": {"noise_blanker", "spectral_noise_reduction"},
         "models/p25/c4fm.py": {"c4fm_timing", "launch_timing", "c4fm_scan", "launch_scan"},
-        "models/p25/cqpsk.py": {"cqpsk_timing", "cfo_lines", "cqpsk_scan"},
+        "models/p25/cqpsk.py": {"cqpsk_timing", "cfo_power", "cfo_lines", "cqpsk_scan"},
         "parallel/collectives.py": {"copy_to", "ppermute", "all_to_all_tiled", "all_gather", "scatter",
                                     "replicate"},
         "models/p25/equalizer.py": {"echo_fit", "echo_score", "_k14"},
@@ -160,7 +160,8 @@ def test_launch_counts_start_at_zero_and_reset():
                            "K5_resample_poly", "K7_strided_fir", "K9_iir_cascade", "K10_pll",
                            "K11a_noise_blanker", "K11b_nr_frames", "K11b_nr_gain",
                            "K11b_nr_overlap_add", "K12_c4fm_timing", "K13_cqpsk_timing",
-                           "K12s_c4fm_scan", "K13s_cqpsk_scan", "K13_cfo_lines", "K14_echo_fit"}
+                           "K12s_c4fm_scan", "K13s_cqpsk_scan", "K13_cfo_power", "K13_cfo_lines",
+                           "K14_echo_fit"}
     assert not any(counts.values())
 
 

@@ -86,7 +86,8 @@ KERNELS: dict[str, tuple[str, str, tuple]] = {
     ),
     "K12s_c4fm_scan": ("p25_scan", "k12s_c4fm_scan", (_P,) * 6 + (_I,) * 10 + (_F,) * 10 + (_P,)),
     "K13s_cqpsk_scan": ("p25_scan", "k13s_cqpsk_scan", (_P,) * 6 + (_I,) * 10 + (_F,) * 10 + (_P,)),
-    "K13_cfo_lines": ("cfo_lines", "k13_cfo_lines", (_P, _I, _I, _I, _I, _F, _P, _P, _P)),
+    "K13_cfo_power": ("cfo_lines", "k13_cfo_power", (_P, _I, _I, _I, _P, _P)),
+    "K13_cfo_lines": ("cfo_lines", "k13_cfo_lines", (_P,) + (_I,) * 15 + (_F, _P, _P, _P)),
     "K14_echo_fit": (
         "echo_fit", "k14_echo_fit",
         (_P, _I, _I, _I, _P, _P, _I) + (_P,) * 8 + (_I, _F, _F, _F, _F, _I, _P),

@@ -2,9 +2,10 @@
 
 Counterpart of ``wavecap_tpu/models/p25/cqpsk.py``.  Per block and slot:
 the carried carrier-offset de-rotation (exact uint32 NCO) and the RRC
-matched filter (K7), a block AGC, the 4th-power CFO search (cuFFT, then
-K13 ``cfo_lines``), the optional simulcast equalizer (K14 fit with the
-alias resolution, K7 per-slot complex FIR), then K13 ``cqpsk_timing``:
+matched filter (K7), a block AGC, the 4th-power CFO search (K13
+``cfo_power``, cuFFT, K13 ``cfo_lines``), the optional simulcast
+equalizer (K14 fit with the alias resolution, K7 per-slot complex FIR),
+then K13 ``cqpsk_timing``:
 the block timing of the C4FM path on the complex envelope (O&M line on
 |y|^2, complex Gardner), differential detection ``y[k] conj(y[k-1])``
 and the slow bias tracker; with ``timing_impl="scan"`` the per-symbol
@@ -169,15 +170,86 @@ def n_symbols_per_block(cfg: CqpskConfig, block_len: int) -> int:
     return int(round(block_len / cfg.sps))
 
 
-# --- K13: the 4th-power line search -------------------------------------------------
+# --- K13: the 4th-power spectrum and its line search --------------------------------
+
+K13_CLUSTER = 8  # CTAs a row of K13_cfo_lines: the portable cluster size
+
+
+class CfoLinesPlan(NamedTuple):
+    """How K13_cfo_lines runs, as the kernel takes it: ``cluster`` CTAs a
+    row; rank ``c`` sums bins ``[c bins, (c + 1) bins)`` for the mean and
+    searches candidates ``[c per, (c + 1) per)``; ``split`` is
+    :func:`cfo_wrap_split` packed as ``(b1, b2, dp0, dm0, dp1, dm1, dp2,
+    dm2)`` (three ranges, empty ones at the end); ``centre`` the two bins of
+    the zero-offset candidate ``j = k4``; ``ctas`` the launch's."""
+
+    cluster: int
+    bins: int
+    per: int
+    split: tuple
+    centre: tuple
+    ctas: int
+
+
+def cfo_wrap_split(size: int, k4: int, off: int) -> list:
+    """The candidates ``j = 0 .. 2 k4`` cut where one of their bins
+    ``(j - k4 +- off) mod size`` wraps: at most three contiguous ranges
+    ``(start, end, dp, dm)``, in which candidate ``j`` reads bins ``j + dp``
+    and ``j + dm``, all in ``[0, size)``."""
+    n = 2 * k4 + 1
+    cuts = {0}
+    for first in (-k4 + off, -k4 - off):  # the bin of candidate 0, before the wrap
+        r = first % size
+        if 0 < size - r < n:  # the bins reach size: they wrap to 0 at j = size - r
+            cuts.add(size - r)
+    starts = sorted(cuts)
+    ends = starts[1:] + [n]
+    return [(a, b, (a - k4 + off) % size - a, (a - k4 - off) % size - a) for a, b in zip(starts, ends)]
+
+
+def cfo_lines_plan(rows: int, size: int, k4: int, off: int, cluster: int = K13_CLUSTER) -> CfoLinesPlan:
+    """K13_cfo_lines' plan for ``rows`` rows of ``size`` bins (a power of 2,
+    >= 1,024) and ``2 k4 + 1`` candidates."""
+    ranges = cfo_wrap_split(size, k4, off)
+    n = 2 * k4 + 1
+    ranges += [(n, n, 0, 0)] * (3 - len(ranges))
+    split = (ranges[1][0], ranges[2][0]) + tuple(d for r in ranges for d in r[2:])
+    return CfoLinesPlan(cluster, size // cluster, -(-n // cluster), split, (off % size, -off % size),
+                        rows * cluster)
+
+
+def cfo_power_plain(filt: torch.Tensor, size: int) -> torch.Tensor:
+    """Plain version of K13_cfo_power: ``x^4`` of the rows ``(R, n)``,
+    zero-padded to ``(R, size)``."""
+    p4 = filt * filt
+    p4 = p4 * p4
+    buf = torch.zeros((filt.shape[0], size), dtype=p4.dtype, device=filt.device)
+    buf[:, : filt.shape[-1]] = p4
+    return buf
+
+
+def cfo_power(filt: torch.Tensor, size: int) -> torch.Tensor:
+    """K13_cfo_power: see :func:`cfo_power_plain`.  Only a CPU tensor takes
+    the plain version."""
+    if filt.device.type == "cpu":
+        return cfo_power_plain(filt, size)
+    if filt.dim() != 2 or filt.dtype != torch.complex64:
+        raise ValueError("K13_cfo_power takes complex64 rows of shape (R, n)")
+    rows, n = filt.shape
+    if not 0 <= n <= size or size % 2:
+        raise ValueError(f"K13_cfo_power pads {n} samples to an even size >= n, not {size}")
+    buf = torch.empty((rows, size), dtype=torch.complex64, device=filt.device)
+    launch("K13_cfo_power", filt.device, filt.contiguous(), rows, n, size, buf)
+    return buf
 
 
 def cfo_lines_plain(spec: torch.Tensor, k4: int, off: int, df_step: float):
-    """Plain version of K13's line search over ``|X|`` rows ``(R, size)``:
-    ``M[k] = X[(k+off) % size] + X[(k-off) % size]`` for ``k`` in
-    ``-k4..k4``, the first argmax ``j``, and ``(j - k4) df_step`` where
-    the line is significant (``M[j] > 8 mean(X)`` and ``> 1.5 M[k4]``),
-    else 0.  Returns ``(resid_hz, j)``."""
+    """Plain version of K13_cfo_lines over the complex spectrum ``X`` ``(R,
+    size)``: with ``A = |X|``, ``M[k] = A[(k+off) % size] + A[(k-off) %
+    size]`` for ``k`` in ``-k4..k4``, the first argmax ``j``, and ``(j - k4)
+    df_step`` where the line is significant (``M[j] > 8 mean(A)`` and ``>
+    1.5 M[k4]``), else 0.  Returns ``(resid_hz, j)``."""
+    spec = torch.abs(spec)
     size = spec.shape[-1]
     k = torch.arange(-k4, k4 + 1, device=spec.device)
     m = spec[:, (k + off) % size] + spec[:, (k - off) % size]
@@ -189,19 +261,21 @@ def cfo_lines_plain(spec: torch.Tensor, k4: int, off: int, df_step: float):
 
 
 def cfo_lines(spec: torch.Tensor, k4: int, off: int, df_step: float):
-    """K13's line search: see :func:`cfo_lines_plain`.  Only a CPU tensor
-    takes the plain version."""
+    """K13_cfo_lines: see :func:`cfo_lines_plain`.  Only a CPU tensor takes
+    the plain version."""
     if spec.device.type == "cpu":
         return cfo_lines_plain(spec, k4, off, df_step)
     dev = spec.device
-    if spec.dim() != 2 or spec.dtype != torch.float32:
-        raise ValueError("K13's line search takes float32 |X| rows of shape (R, size)")
+    if spec.dim() != 2 or spec.dtype != torch.complex64:
+        raise ValueError("K13_cfo_lines takes complex64 spectra of shape (R, size)")
     rows, size = spec.shape
-    if not 0 < 2 * k4 + 1 <= size:
-        raise ValueError(f"K13's line search has {2 * k4 + 1} candidates for {size} bins")
+    if not 0 < 2 * k4 + 1 <= size or size % (2 * K13_CLUSTER):
+        raise ValueError(f"K13_cfo_lines has {2 * k4 + 1} candidates for {size} bins")
+    plan = cfo_lines_plan(rows, size, k4, off)
     resid = torch.empty(rows, dtype=torch.float32, device=dev)
     j = torch.empty(rows, dtype=torch.int32, device=dev)
-    launch("K13_cfo_lines", dev, spec.contiguous(), rows, size, k4, off, float(df_step), resid, j)
+    launch("K13_cfo_lines", dev, spec.contiguous(), rows, size, k4, plan.cluster, plan.per, *plan.split,
+           *plan.centre, float(df_step), resid, j)
     return resid, j
 
 
@@ -220,11 +294,11 @@ def _estimate_cfo_residual(filt: torch.Tensor, cfg: CqpskConfig) -> torch.Tensor
     """Feedforward CFO estimate per row from the 4th-power spectrum:
     pi/4-DQPSK's ``x^4`` carries lines at ``4 CFO +- Rs/2``; the joint
     two-line search is unambiguous for |CFO| < Rs/4.  0 where no line is
-    significant (dead air), so the carried ``cfo_hz`` freezes."""
+    significant (dead air), so the carried ``cfo_hz`` freezes.  K13_cfo_power
+    writes ``x^4`` padded to the FFT's size, cuFFT transforms it, and
+    K13_cfo_lines searches the spectrum."""
     size, k4, off, df_step = _cfo_search(cfg, filt.shape[-1])
-    p4 = filt * filt
-    p4 = p4 * p4
-    spec = torch.abs(torch.fft.fft(p4, n=size, dim=-1))
+    spec = torch.fft.fft(cfo_power(filt, size), dim=-1)
     return cfo_lines(spec, k4, off, df_step)[0]
 
 
