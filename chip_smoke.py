@@ -38,7 +38,10 @@ It drives the port's paths at full width:
   (program E: program D's scene, five banks over every bin, two wide
   slots, i16 / i8 / i4) and P25 (program F: program A's scene), with
   K15's exchanges (the halo, the re-shard, the wide IF and history
-  gathers) as device copies.
+  gathers) as device copies;
+* the P25 and DMR decoders on the host, fed by the engine's P25 banks
+  (program G: C4FM control channels, a voice call and DMR at 10 Msps; LSM
+  behind a simulcast echo and Phase 2 calls at 2.4 Msps).
 
 Phases:
 
@@ -133,7 +136,25 @@ Phases:
     bins a shard, 0.24 s blocks), the NBFM base bank and the C4FM bank
     over every bin: the six stations' decisions from block 3 on (>= 99.5
     %), the NBFM lines, launches and copies;
-11. a JSON line of the kernels (K15 with its copies and bytes) and the
+11. program G, the port's decoders (``decoders/``: framer, FEC, TSBK,
+    LDU, DMR, Phase 2 MAC, the IMBE and AMBE+2 vocoders, on the host) fed
+    by the engine: ``CaptureManager`` -> ``create_capture`` ->
+    ``create_channel`` -> ``Channel.symbols``, one ``_dispatch_blocks``
+    a block, every subscriber drained after each block (a dropped batch
+    fails).  G1 at the BASELINE point (10 Msps, M = 400, a C4FM bank of 50
+    slots): 40 control channels (each its own NAC; >= 99 % of TSBKs
+    CRC-valid from block 3 on, every valid one as sent), a voice call (>=
+    95 % of LDUs with the codewords sent; the voice decoder's PCM finite
+    and not silent), a DMR channel (>= 95 % of CSBKs as sent) and 8 empty
+    channels (no valid TSBK; their frame syncs reported); G2 at 2.4 Msps:
+    an LSM bank with the 41-tap equaliser (>= 95 %; the 70 us echo
+    station >= 90 % from block 4 on) and a Phase 2 bank of 20 slots, 4
+    with calls (>= 90 % of fragments detected, every MAC PDU as sent).
+    Both: exact launches a block (``G1_LAUNCHES``, ``G2_LAUNCHES``), the
+    first blocks' card and plain symbols through fresh decoders giving
+    the same messages, decode host ms a block beside the block's length,
+    the engine's stages;
+12. a JSON line of the kernels (K15 with its copies and bytes) and the
     final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -173,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3543,8 +3565,6 @@ def scan_kernel_checks(device, timer=device_ms, wall_timer=time_ms, clock_hz=Non
 @contextlib.contextmanager
 def scan_timing():
     """``WAVECAP_P25_TIMING=scan`` while the programs' configs are built and run."""
-    import os
-
     os.environ["WAVECAP_P25_TIMING"] = "scan"
     try:
         yield
@@ -3763,8 +3783,6 @@ def run_engine_mesh(device, fs: int = 10_000_000, c: int = 160, n_blocks: int = 
     time=8 (>= 60 dB on every open bin), the stations against the
     slot-bank program on the same words (>= 50 dB), 0 host syncs, memory,
     latency."""
-    import os
-
     import torch
 
     from wavecap_tpu_torch.capture import CaptureConfig, CaptureManager
@@ -3956,7 +3974,6 @@ def run_program_f(cfgs, device, sync=None) -> dict:
     own-output bank (``p25-soft``) over every bin; the six C4FM stations'
     decisions from block 3 on, the NBFM lines, launches and copies."""
     import dataclasses
-    import os
 
     import torch
 
@@ -4084,6 +4101,654 @@ def run_program_f(cfgs, device, sync=None) -> dict:
                 msps=F_BLOCK / ms_block / 1e3, profile=profile_blocks(one_pass, N_BLOCKS, sync),
                 decisions_right={str(k): v for k, v in agree.items()}, cold_k12_vs_plain=cold,
                 nbfm_tone_margin_db={str(nbfm_bins[k]): v for k, v in margins.items()})
+
+
+# --- phase 11: the decoders on the engine's P25 banks (program G) -----------------------
+
+G_CENTER = 851_000_000.0
+G_AMPLITUDE = 0.02  # 42 stations a block: their sum stays inside the i16 range
+G1_BLOCKS = 12
+G2_BLOCKS = 16
+G_PLAIN_BLOCKS = 3  # the first blocks, also through the plain path
+G1_FS = 10_000_000
+G1_CAPACITY = 50
+G1_CONTROL = 40
+G1_EMPTY = 8
+G2_FS = 2_400_000
+G2_P25_CAPACITY = 21
+G2_P2_CAPACITY = 20
+G_FINE = (0.0, 2000.0, -720.0, 320.0, 1200.0)  # a control station's fine offset by slot % 5 (Hz)
+G2_LSM = ((0.0, 0.0, False), (0.0, 600.0, False), (0.0, 0.0, True), (-1500.0, 0.0, False),
+          (800.0, 0.0, False), (0.0, 0.0, False))  # (fine offset Hz, carrier offset Hz, echo)
+G2_P2 = (0.0, 1000.0, 0.0, -600.0)  # the Phase 2 stations' fine offsets (Hz)
+G2_EMPTY = 2  # empty channels in each G2 bank
+G_P2_FRAGMENTS = 8  # a Phase 2 loop: MAC_PTT in the first fragment, MAC_END_PTT in the last
+# kernel launches per block: G1's C4FM bank alone (no analog bank), G2's
+# LSM bank with the equaliser (program B's) and the Phase 2 bank (C's)
+G1_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 1, "K7_strided_fir": 2,
+               "K12_c4fm_timing": 1}
+G2_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 2, "K7_strided_fir": 4,
+               "K13_cfo_power": 2, "K13_cfo_lines": 2, "K13_cqpsk_timing": 2, "K14_echo_fit": 2}
+
+
+def g_key(d: dict) -> str:
+    return json.dumps(d, sort_keys=True, default=str)
+
+
+def g_tsdu_loop(nac: int, site: int, n_tsdus: int = 3):
+    """A control channel's TSDUs (IDEN_UP, GRP_V_CH_GRANT, RFSS_STS_BCAST:
+    ``harness.py``'s loop, the station's own NAC, talkgroup and site) and the
+    messages a CRC-valid TSBK of it may parse to."""
+    from wavecap_tpu_torch.decoders import p25_frames as pf
+    from wavecap_tpu_torch.decoders import p25_tsbk as tsbk
+
+    blocks = [
+        pf.encode_tsbk_block(tsbk.TSBKOpcode.IDEN_UP, tsbk.make_iden_up_data(
+            identifier=1, base_freq_mhz=851.0, channel_spacing_khz=12.5, tx_offset_mhz=-45.0), last=False),
+        pf.encode_tsbk_block(tsbk.TSBKOpcode.GRP_V_CH_GRANT, tsbk.make_group_grant_data(
+            tgid=2000 + site, source_id=700_000 + site, band=1, channel_number=56 + site % 64), last=False),
+        pf.encode_tsbk_block(tsbk.TSBKOpcode.RFSS_STS_BCAST, tsbk.make_rfss_status_data(
+            system_id=0x123, rfss_id=1, site_id=site, band=1, channel_number=16), last=True),
+    ]
+    frame = pf.build_tsdu_frame(nac, blocks)
+    sent = set()
+    for b in pf.decode_tsdu(frame).tsbk_blocks:
+        sent.add(g_key({"nac": nac, **tsbk.parse_tsbk(b.opcode, b.mfid, b.data)}))
+    return np.concatenate([frame] * n_tsdus), sent
+
+
+def g_voice_loop(nac: int):
+    """A voice call: HDU, then LDU1 / LDU2 pairs whose 9 IMBE codewords each
+    come from the IMBE encoder on a harmonic tone (120 Hz and its
+    harmonics).  Returns the dibits, the LDUs' codewords (by bytes), the
+    LDUs per loop and an LDU's length."""
+    from wavecap_tpu_torch.decoders import imbe_vocoder as iv
+    from wavecap_tpu_torch.decoders import p25_frames as pf
+    from wavecap_tpu_torch.decoders import p25_voice as pv
+    from wavecap_tpu_torch.decoders.voice import imbe_fec_encode
+
+    n_ldu = 8
+    t = np.arange(int(n_ldu * 9 * 0.02 * 8000) + 320) / 8000.0
+    tone = sum(np.exp(-(((h * 120.0 - 600.0) / 500.0) ** 2)) * np.cos(2 * np.pi * h * 120.0 * t + h)
+               for h in range(1, 25))
+    us = iv.ImbeEncoder().encode(0.3 * tone / np.max(np.abs(tone)))
+    cws = [imbe_fec_encode(u) for u in us[: n_ldu * 9]]
+    lc = pv.encode_lc_hexbits(pv.make_group_lc_bits(tgid=3001, source_id=4242))
+    head = np.concatenate([pf.FRAME_SYNC_DIBITS, pf.encode_nid(nac, pf.DUID.HDU)])
+    hdu = np.concatenate([pf.insert_status_dibits(head, 0), pf.insert_status_dibits(
+        pf.bits_to_dibits(pv.encode_hdu_payload(tgid=3001, algid=0x80, kid=0)), 57)])
+    pieces, sent = [np.pad(hdu, (0, 396 - len(hdu)))], set()
+    for k in range(n_ldu):
+        group = cws[9 * k: 9 * k + 9]
+        pieces.append(pf.build_ldu_frame(nac, pf.DUID.LDU1 if k % 2 == 0 else pf.DUID.LDU2, lc,
+                                         imbe_codewords=group))
+        sent.add(np.concatenate(group).astype(np.uint8).tobytes())
+    return np.concatenate(pieces), sent, n_ldu, len(pieces[1])
+
+
+def g_dmr_loop(color_code: int = 7):
+    """DMR CSBK data bursts back to back: six grants, aloha and preamble;
+    the CSBK fields of each as sent."""
+    from wavecap_tpu_torch.decoders import dmr
+
+    csbks = [dmr.make_csbk_bits(0x30 + (k % 2), channel=100 + k, slot=k % 2, dst_id=2000 + k, src_id=700_000 + k)
+             for k in range(4)]
+    csbks += [dmr.make_csbk_bits(0x19, net=0x1234, site=7, ms_id=42),
+              dmr.make_csbk_bits(0x3D, data_follows=True, blocks_to_follow=4, dst_id=9, src_id=8)]
+    bursts = [dmr.build_data_burst(b, dmr.DataType.CSBK, color_code=color_code) for b in csbks]
+    sent = {g_key({"colorCode": color_code, **dmr.parse_csbk(b)}) for b in csbks}
+    return np.concatenate(bursts), sent
+
+
+def g_p2_loop(tgids: tuple):
+    """A Phase 2 superframe loop: the first fragment opens a call in each
+    timeslot (FACCH MAC_PTT), the last ends it (MAC_END_PTT), the others
+    carry AMBE+2 voice bursts of a harmonic tone.  Returns the dibits, the
+    parsed MAC PDUs as sent and the fragments as sent (by bytes)."""
+    from wavecap_tpu_torch.decoders import p25_mac as mac
+    from wavecap_tpu_torch.decoders import p25_phase2 as p2
+    from wavecap_tpu_torch.decoders.ambe_vocoder import AmbeEncoder
+
+    n_frags = G_P2_FRAGMENTS
+    t = np.arange(int(n_frags * 4 * 4 * 0.02 * 8000) + 320) / 8000.0
+    x = sum(a * np.sin(2 * np.pi * 150.0 * k * t) for k, a in ((1, 1.0), (2, 0.6), (3, 0.45)))
+    frames = AmbeEncoder().encode((0.3 * x / np.max(np.abs(x))).astype(np.float32))
+    pdus = [[mac.make_mac_ptt(tgid=g, source=90_000 + g, algid=0x80) for g in tgids],
+            [mac.make_mac_end_ptt(tgid=g, source=90_000 + g) for g in tgids]]
+    frags, sent, f = [], set(), 0
+    for k in range(n_frags):
+        frag = np.zeros(p2.FRAGMENT_DIBITS, np.uint8)
+        for pos in range(4):
+            if pos < 2 and k in (0, n_frags - 1):
+                burst = mac.encode_timeslot_burst(mac.BURST_FACCH, pdus[k != 0][pos])
+                sent.add(g_key(mac.parse_mac_pdu(mac.decode_burst(burst)[1])))
+            else:
+                burst = p2.build_voice_burst(frames[f % len(frames): f % len(frames) + 4], with_sync=pos >= 2)
+                f += 4
+            frag[180 * pos: 180 * (pos + 1)] = burst
+        frags.append(p2.build_test_fragment(frag))
+    return np.concatenate(frags), sent, {x.astype(np.uint8).tobytes() for x in frags}
+
+
+def fsk4_cyclic(dibits: np.ndarray, deviation_hz: float) -> np.ndarray:
+    """``modulate_c4fm_cyclic`` at another deviation (DMR's 1,944 Hz)."""
+    from wavecap_tpu_torch.models.p25.c4fm import DIBIT_SYMBOLS, design_rrc
+
+    n = len(dibits) * 10
+    impulses = np.zeros(n)
+    impulses[::10] = DIBIT_SYMBOLS[np.asarray(dibits, np.uint8)] * 10
+    h = design_rrc(48_000.0).astype(np.float64)
+    h_pad = np.roll(np.pad(h, (0, n - len(h))), -(len(h) // 2))
+    freq = np.fft.irfft(np.fft.rfft(impulses) * np.fft.rfft(h_pad), n) * (deviation_hz / 3.0)
+    cycles = np.sum(freq) / 48_000.0
+    phase = 2 * np.pi * np.cumsum(freq - (cycles - round(cycles)) * 48_000.0 / n) / 48_000.0
+    return np.exp(1j * phase).astype(np.complex64)
+
+
+def g_station(iq48: np.ndarray, fs: int, offset: float, amplitude: float, echo=None) -> dict:
+    """A looped station at ``fs``: circular FFT resampling from 48 kHz, the
+    echo applied circularly, and the mixer folded into the loop where the
+    offset makes a whole number of cycles over it (else the receiver mixes)."""
+    from scipy import signal as sps
+
+    n_out = len(iq48) * fs // 48_000
+    check(n_out * 48_000 == len(iq48) * fs, "a loop does not resample to a whole length")
+    x = sps.resample(iq48.astype(np.complex128), n_out)
+    if echo is not None:
+        delay, a, theta = echo
+        x = x + a * np.exp(1j * theta) * np.roll(x, delay)
+    cycles = offset * n_out / fs
+    if abs(cycles - round(cycles)) < 1e-9:
+        x = x * np.exp(2j * np.pi * round(cycles) * np.arange(n_out) / n_out)
+        offset = 0.0
+    return dict(offset_hz=offset, kind="iq_loop", iq_loop=x.astype(np.complex64), amplitude=amplitude)
+
+
+class GConsumer:
+    """One channel's subscriber with the port's decoders, wired as the
+    reference's consumers wire them: ``p25`` as ``P25Attachment.process``
+    (framer -> TSBKs, LDUs -> the voice decoder; ``capture/attachments.py:157-218``),
+    ``dmr`` as ``DmrAttachment.process`` (:220-260), ``p25p2`` as the
+    recorder's Phase 2 path (``trunking/recorder.py:133-175``).  Each event
+    is ``(block, kind, key)``."""
+
+    def __init__(self, kind: str):
+        from wavecap_tpu_torch.decoders.ambe_vocoder import AmbeDecoder
+        from wavecap_tpu_torch.decoders.dmr import DMRDecoder
+        from wavecap_tpu_torch.decoders.framer import P25Framer
+        from wavecap_tpu_torch.decoders.p25_phase2 import P25P2SuperFrameDetector
+        from wavecap_tpu_torch.decoders.voice import VoiceDecoder
+
+        self.kind = kind
+        self.framer = P25Framer() if kind == "p25" else None
+        self.voice = VoiceDecoder() if kind == "p25" else None
+        self.dmr = DMRDecoder() if kind == "dmr" else None
+        self.p2 = P25P2SuperFrameDetector() if kind == "p25p2" else None
+        self.ambe = AmbeDecoder() if kind == "p25p2" else None
+        self.events: list = []
+        self.pcm: list = []
+        self.symbols = 0
+
+    def feed(self, k: int, soft: np.ndarray) -> None:
+        from wavecap_tpu_torch.decoders import dmr, p25_mac
+        from wavecap_tpu_torch.decoders import p25_frames as pf
+        from wavecap_tpu_torch.decoders import p25_tsbk as tsbk
+        from wavecap_tpu_torch.decoders.p25_phase2 import extract_voice_frames
+
+        soft = np.asarray(soft, np.float32)
+        self.symbols += len(soft)
+        ev = self.events
+        if self.framer is not None:
+            for frame in self.framer.process(soft):
+                if frame.duid == pf.DUID.TSDU:
+                    pl = pf.remove_status_dibits(frame.dibits[57:], 57)
+                    sl = pf.remove_status_dibits(frame.soft[57:], 57)
+                    for b in pf.decode_tsbk_payload(pl, sl):
+                        key = g_key({"nac": frame.nac, **tsbk.parse_tsbk(b.opcode, b.mfid, b.data)}) \
+                            if b.crc_valid else None
+                        ev.append((k, "tsbk", key))
+                elif frame.duid in (pf.DUID.LDU1, pf.DUID.LDU2):
+                    ldu = pf.decode_ldu(frame.dibits)
+                    if ldu is None:
+                        ev.append((k, "ldu", None))
+                        continue
+                    ev.append((k, "ldu", np.concatenate(ldu.imbe_codewords).astype(np.uint8).tobytes()))
+                    pcm = self.voice.decode_codewords(ldu.imbe_codewords)
+                    if pcm is not None and len(pcm):
+                        self.pcm.append(pcm)
+                else:
+                    ev.append((k, frame.duid.name, None))
+        elif self.dmr is not None:
+            for burst in self.dmr.process(soft):
+                parsed = dmr.decode_burst(burst)
+                if parsed is None or "opcode" not in parsed:
+                    ev.append((k, "csbk", None))
+                    continue
+                fields = ("colorCode",) + tuple(dmr.parse_csbk(dmr.make_csbk_bits(parsed["opcode"])) or ())
+                ev.append((k, "csbk", g_key({f: parsed[f] for f in fields if f in parsed})))
+        else:
+            for frag in self.p2.process(soft):
+                ev.append((k, "fragment", frag.dibits.astype(np.uint8).tobytes()))
+                for _, burst in frag.bursts():
+                    m = p25_mac.decode_burst(burst)
+                    if m is not None and m[0] in (p25_mac.BURST_SACCH, p25_mac.BURST_FACCH):
+                        ev.append((k, "mac", g_key(p25_mac.parse_mac_pdu(m[1]))))
+                        continue
+                    pcm = self.ambe.decode_frames(extract_voice_frames(burst))
+                    if pcm is not None and len(pcm):
+                        self.pcm.append(pcm)
+
+    def keys(self, kind: str, first: int = 0) -> list:
+        return [key for k, kd, key in self.events if kd == kind and k >= first]
+
+    def valid(self) -> list:
+        """The CRC-valid messages, in order (TSBKs, LDU codewords, CSBKs, MAC PDUs)."""
+        return [(kd, key) for _, kd, key in self.events if key is not None and kd != "fragment"]
+
+
+def g_sent_bounds(counted: int, spacing: int, per_frame: int = 1) -> tuple:
+    """The fewest and the most messages that frames ``spacing`` symbols
+    apart, ``per_frame`` messages each, can complete in ``counted`` symbols:
+    one frame fewer than fit, two more (the window's two edges and the
+    framer's look-ahead)."""
+    return per_frame * (counted // spacing - 1), per_frame * (counted // spacing + 2)
+
+
+def g_rate(keys: list, sent: set, floor: float, bounds: tuple, what: str) -> dict:
+    """The share of ``keys`` that are CRC-valid, each one that was sent, and
+    the valid count between the fewest and the most sent in the counted
+    blocks (a stretch of symbols published twice exceeds the most)."""
+    sent_lower, sent_upper = bounds
+    ok = [x for x in keys if x is not None]
+    check(all(x in sent for x in ok), f"{what}: a CRC-valid message was not sent: "
+          f"{[x for x in ok if x not in sent][:2]}")
+    check(len(ok) <= sent_upper, f"{what}: {len(ok)} valid, more than the {sent_upper} sent")
+    rate = len(ok) / max(len(keys), sent_lower, 1)
+    check(rate >= floor, f"{what}: {len(ok)} of {max(len(keys), sent_lower)} valid ({rate:.4f} < {floor})")
+    return dict(valid=len(ok), decoded=len(keys), sent_lower=sent_lower, sent_upper=sent_upper, rate=rate)
+
+
+def g_scene(device, cfg, stations: list, n_blocks: int):
+    """``CaptureManager`` -> ``create_capture`` over a fake receiver with the
+    stations, and ``n_blocks`` of its IQ at the capture's block size."""
+    from wavecap_tpu_torch.capture import CaptureManager
+    from wavecap_tpu_torch.devices import DeviceConfig, FakeDriver, FakeStation
+
+    # loops already mixed to their offsets and of one length sum into one
+    # loop: the receiver then gathers it once a block, not once a station
+    merged, rest = {}, []
+    for st in stations:
+        if st["offset_hz"] == 0.0:
+            x = st["amplitude"] * st["iq_loop"]
+            n = len(x)
+            merged[n] = x if n not in merged else merged[n] + x
+        else:
+            rest.append(st)
+    rest += [dict(offset_hz=0.0, kind="iq_loop", iq_loop=x.astype(np.complex64), amplitude=1.0)
+             for x in merged.values()]
+    driver = FakeDriver(1, [FakeStation(**s) for s in rest])
+    cap = CaptureManager(driver, device=device).create_capture(config=cfg)
+    dev = driver.open("fake0")
+    dev.configure(DeviceConfig(center_hz=cfg.center_hz, sample_rate=cfg.sample_rate))
+    stream = dev.start_stream()
+    return cap, [stream.read(cap.block_size)[0] for _ in range(n_blocks)]
+
+
+def rss_mb() -> float | None:
+    try:
+        with open("/proc/self/status") as f:
+            return next(int(x.split()[1]) / 1024.0 for x in f if x.startswith("VmRSS:"))
+    except (OSError, StopIteration):
+        return None
+
+
+def process_state() -> dict:
+    """What the host decode time depends on besides the decoders: the
+    garbage collector's tracked objects and thresholds, the threads, the
+    resident memory, the host's load and processor."""
+    import gc
+    import threading
+
+    import torch
+
+    try:
+        with open("/proc/cpuinfo") as f:
+            cpu = next((x.split(":", 1)[1].strip() for x in f if x.startswith("model name")), None)
+    except OSError:
+        cpu = None
+    return dict(gc_tracked_objects=len(gc.get_objects()), gc_count=list(gc.get_count()),
+                gc_threshold=list(gc.get_threshold()), python_threads=threading.active_count(),
+                torch_threads=torch.get_num_threads(), rss_mb=rss_mb(), load_avg=list(os.getloadavg()),
+                cpus=os.cpu_count(), cpu=cpu)
+
+
+def g_calibration_ms() -> float:
+    """The host's speed at the decoders' work, to set decode times taken on
+    different machines side by side: a fresh P25 consumer decoding 12
+    clean TSDUs (4,320 symbols), ms, the best of 5."""
+    from wavecap_tpu_torch.models.p25.c4fm import DIBIT_SYMBOLS
+
+    soft = np.tile(DIBIT_SYMBOLS[g_tsdu_loop(0x100, site=1)[0]], 4).astype(np.float32)
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        c = GConsumer("p25")
+        c.feed(0, soft)
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    check(len(c.valid()) >= 33, f"the calibration decoded {len(c.valid())} of 36 TSBKs")
+    return best
+
+
+def run_g_engine(cap, specs: list, blocks: list, launches: dict, transport: str):
+    """The scene's blocks through the engine, one ``_dispatch_blocks`` a
+    block (no reader or fetch thread: the batch drains inline), every
+    channel's symbols drained into its decoders after each block; returns
+    the consumers, the counts, the decode time a block (wall, this thread's
+    CPU and the garbage collector's pauses), the first blocks' published
+    symbols and the card's f32 soft symbols of those blocks before the
+    wire packs them.  Earlier garbage is collected before the first block,
+    so that the decoders' time does not carry it."""
+    import gc
+
+    from wavecap_tpu_torch.capture import ChannelSpec
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    subs, cons = {}, {}
+    for cid, mode, freq in specs:
+        h = cap.create_channel(ChannelSpec(id=cid, mode=mode, frequency_hz=freq))
+        subs[cid] = (h, h.symbols.subscribe(maxsize=4))
+        cons[cid] = GConsumer("p25p2" if mode == "p25p2" else "dmr" if mode == "dmr" else "p25")
+    step, card = cap._step, []
+
+    def keep_soft(batch, state, ctl):  # the engine's own outputs, before the wire
+        out, state = step(batch, state, ctl)
+        card.append({g: out[g]["soft"].clone() for g in ("p25", "p25p2") if g in out})
+        return out, state
+
+    gc_ms, gc_n, t_gc = [0.0], [0, 0, 0], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t_gc[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - t_gc[0]) * 1e3
+            gc_n[info["generation"]] += 1
+
+    t_c = time.perf_counter()
+    freed = gc.collect()
+    state0 = dict(process_state(), collected=freed, collect_ms=(time.perf_counter() - t_c) * 1e3,
+                  calibration_ms=g_calibration_ms())
+    reset_launch_counts()
+    timing, first = [], {cid: [] for cid in subs}
+    gc.callbacks.append(on_gc)
+    try:
+        for k, block in enumerate(blocks):
+            cap._step = keep_soft if k < G_PLAIN_BLOCKS else step
+            cap.transport_active = transport
+            cap._dispatch_blocks([block])
+            t0, c0, g0, n0 = time.perf_counter(), time.thread_time(), gc_ms[0], sum(gc_n)
+            for cid, (h, sub) in subs.items():
+                got = sub.get_nowait()
+                check(got is not None and sub.get_nowait() is None,
+                      f"channel {cid}: not one symbol batch in block {k}")
+                if k < G_PLAIN_BLOCKS:
+                    first[cid].append(np.asarray(got["soft"], np.float32))
+                cons[cid].feed(k, got["soft"])
+            timing.append(((time.perf_counter() - t0) * 1e3, (time.thread_time() - c0) * 1e3,
+                           gc_ms[0] - g0, sum(gc_n) - n0))
+    finally:
+        gc.callbacks.remove(on_gc)
+        cap._step = step
+    counts = launch_counts()
+    check(cap.blocks_processed == len(blocks) and cap.state != "failed", f"engine state {cap.state}: {cap.error}")
+    for cid, (h, sub) in subs.items():
+        check(sub.dropped == 0, f"channel {cid}: the symbol fan-out dropped {sub.dropped} batches")
+        check(h.mode_group in ("p25", "p25p2"), f"channel {cid} in group {h.mode_group}")
+    want = {name: len(blocks) * launches.get(name, 0) for name in counts}
+    check(counts == want, f"launch counts {counts} != {want}")
+    card = [{g: host(x)[0] for g, x in c.items()} for c in card]
+    host_state = dict(before=state0, after=process_state(), gc_collections=gc_n, gc_ms=gc_ms[0])
+    return cons, counts, timing, host_state, first, card
+
+
+def g_first_blocks_vs_plain(device, cap, blocks, first: dict, card: list, specs: list, stations: set,
+                            transport: str) -> dict:
+    """The first blocks through the plain path on the card from the engine's
+    program, control and words: the stations' f32 soft symbols, the card's
+    as the engine computed them, >= 50 dB against the plain path's (as
+    ``first_blocks_vs_plain`` holds programs A-D; the empty channels' are
+    reported); the wire's symbols, the card's as the engine published them,
+    also compared (their 1/16 steps counted); and each channel's card and
+    plain wire symbols through fresh decoders: the same CRC-valid
+    messages."""
+    from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init, unpack_wire
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    pipe_cfg, ctl = cap._pipe_cfg, cap._ctl
+    st = pipeline_init(pipe_cfg, device=device)
+    reset_launch_counts()
+    plain, plain_f32 = {cid: [] for cid, _, _ in specs}, {cid: [] for cid, _, _ in specs}
+    slots = {cid: (h.mode_group, h.slot) for cid, h in cap.channels.items()}
+    for k in range(G_PLAIN_BLOCKS):
+        with plain_kernels():
+            out, st = capture_multi(_batch_on(device, *_words_for(transport, blocks[k])), st, ctl, pipe_cfg)
+        packed = out.pop("_packed")
+        soft = {g: host(out[g]["soft"])[0] for g in card[k]}
+        wire = unpack_wire(out, host(packed).reshape(1, -1))
+        for cid, (group, slot) in slots.items():
+            plain[cid].append(wire[group]["soft"][0][slot])
+            plain_f32[cid].append(soft[group][slot])
+    launched = {name: v for name, v in launch_counts().items() if v}
+    check(not launched, f"the plain path launched kernels: {launched}")
+    same, messages = 0, 0
+    f32 = {"stations": [], "empty": []}  # (dB, channel, block)
+    wire_snr = {"stations": float("inf"), "empty": float("inf")}
+    steps = {"stations": 0, "empty": 0, "symbols": 0, "most": 0.0}
+    for cid, mode, _ in specs:
+        kind = "p25p2" if mode == "p25p2" else "dmr" if mode == "dmr" else "p25"
+        a, b = GConsumer(kind), GConsumer(kind)
+        who = "stations" if cid in stations else "empty"
+        group, slot = slots[cid]
+        for k in range(G_PLAIN_BLOCKS):
+            a.feed(k, first[cid][k])
+            b.feed(k, plain[cid][k])
+            f32[who].append((snr_db(plain_f32[cid][k], card[k][group][slot]), cid, k))
+            wire_snr[who] = min(wire_snr[who], snr_db(plain[cid][k], first[cid][k]))
+            diff = np.abs(np.asarray(plain[cid][k], np.float64) - np.asarray(first[cid][k], np.float64))
+            steps[who] += int(np.count_nonzero(diff))
+            steps["symbols"] += diff.size
+            steps["most"] = max(steps["most"], float(diff.max(initial=0.0)) * 16)
+        check(a.valid() == b.valid(), f"channel {cid}: the card's first blocks give {len(a.valid())} messages, "
+              f"the plain path's {len(b.valid())}, not the same")
+        same += 1
+        messages += len(a.valid())
+    worst = min(f32["stations"])
+    check(worst[0] >= 50.0, f"first blocks' f32 soft SNR {worst[0]:.1f} dB < 50 against the plain path "
+          f"(channel {worst[1]}, block {worst[2]})")
+    f32_report = dict(stations_min=worst[0], stations_min_at=worst[1:],
+                      stations_median=float(np.median([x[0] for x in f32["stations"]])),
+                      stations_min_by_block=[min(x[0] for x in f32["stations"] if x[2] == k)
+                                             for k in range(G_PLAIN_BLOCKS)],
+                      empty_min=min(f32["empty"])[0] if f32["empty"] else None)
+    return dict(first_blocks=G_PLAIN_BLOCKS, channels_same=same, messages_same=messages,
+                first_blocks_f32_soft_snr_db=f32_report, first_blocks_wire_soft_snr_db_min=wire_snr,
+                first_blocks_wire_symbols_differing=steps)
+
+
+def g_report(cap, timing: list, host_state: dict, counts: dict, n_blocks: int) -> dict:
+    block_ms = cap.block_size / cap.config.sample_rate * 1e3
+    perf = {k: v / cap.perf["dispatches"] for k, v in cap.perf.items() if k != "dispatches"}
+    wall, cpu, gcp, gcn = (np.asarray(x, np.float64) for x in zip(*timing))
+    return dict(block_size=cap.block_size, block_ms=block_ms, launches=counts,
+                decode_ms_per_block=dict(mean=float(np.mean(wall)), max=float(np.max(wall)),
+                                         warm_mean=float(np.mean(wall[1:])), per_block=wall.tolist()),
+                decode_thread_cpu_ms_per_block=dict(warm_mean=float(np.mean(cpu[1:])), per_block=cpu.tolist()),
+                decode_gc_ms_per_block=dict(warm_mean=float(np.mean(gcp[1:])), max=float(np.max(gcp)),
+                                            collections=int(gcn.sum())),
+                decode_share_of_block=float(np.mean(wall[1:])) / block_ms, host_state=host_state,
+                perf_ms_per_block=perf, blocks=n_blocks)
+
+
+def run_program_g1(device) -> dict:
+    """G1 at the BASELINE point: 10 Msps, 25 kHz bins, a C4FM ``p25`` bank
+    of 50 slots through the engine: 40 control channels (TSDU loops, each
+    its own NAC, talkgroup and site), one voice call (HDU, LDU1 / LDU2 with
+    IMBE codewords of a harmonic tone), one ``dmr`` channel (CSBK bursts on
+    the same 4800-baud bank) and 8 channels on empty bins."""
+    from wavecap_tpu_torch.capture import CaptureConfig
+    from wavecap_tpu_torch.models.p25.c4fm import modulate_c4fm_cyclic
+    from wavecap_tpu_torch.ops.channelizer import ChannelizerConfig
+
+    fs, n_control, n_empty, n_blocks = G1_FS, G1_CONTROL, G1_EMPTY, G1_BLOCKS
+    t_set0 = time.perf_counter()
+    ch = ChannelizerConfig(sample_rate=float(fs), channel_bandwidth=25_000.0)
+    n_ch = n_control + 2 + n_empty
+    check(n_ch <= G1_CAPACITY, f"{n_ch} channels do not fit the bank's {G1_CAPACITY} slots")
+    bins = p25_bins(ch.channel_count, n_ch, max(2, (ch.channel_count - 8) // n_ch))
+    stations, specs, sent = [], [], {}
+    for s in range(n_control):
+        nac, fine = 0x100 + s, G_FINE[s % len(G_FINE)]
+        dib, sent[f"c{s}"] = g_tsdu_loop(nac, site=s + 1)
+        off = ch.channel_offset_hz(bins[s]) + fine
+        stations.append(g_station(modulate_c4fm_cyclic(dib, 48_000.0), fs, off, G_AMPLITUDE))
+        specs.append((f"c{s}", "p25", G_CENTER + off))
+    vdib, vsent, n_ldu, ldu_len = g_voice_loop(0x2A0)
+    vdib = np.pad(vdib, (0, -len(vdib) % 3))
+    off = ch.channel_offset_hz(bins[n_control])
+    stations.append(g_station(modulate_c4fm_cyclic(vdib, 48_000.0), fs, off, G_AMPLITUDE))
+    specs.append(("voice", "p25", G_CENTER + off))
+    ddib, dsent = g_dmr_loop()
+    off = ch.channel_offset_hz(bins[n_control + 1])
+    stations.append(g_station(fsk4_cyclic(ddib, 1944.0), fs, off, G_AMPLITUDE))
+    specs.append(("dmr", "dmr", G_CENTER + off))
+    for e in range(n_empty):
+        specs.append((f"e{e}", "p25", G_CENTER + ch.channel_offset_hz(bins[n_control + 2 + e])))
+    cfg = CaptureConfig(center_hz=G_CENTER, sample_rate=fs, channel_bandwidth=25_000.0, block_seconds=0.25,
+                        narrow_capacity=0, wide_capacity=0, p25_capacity=G1_CAPACITY, p25_modulation="c4fm",
+                        p25_equalizer_taps=0, fft_size=2048, audio_rate=48_000, transport="i16",
+                        adaptive_transport=False)
+    cap, blocks = g_scene(device, cfg, stations, n_blocks)
+    setup_s = time.perf_counter() - t_set0
+    cons, counts, timing, host_state, first, card = run_g_engine(cap, specs, blocks, G1_LAUNCHES, "i16")
+
+    n_sym = cons["c0"].symbols // n_blocks
+    counted = (n_blocks - P25_FIRST) * n_sym
+    control = {}
+    for s in range(n_control):
+        control[f"c{s}"] = g_rate(cons[f"c{s}"].keys("tsbk", P25_FIRST), sent[f"c{s}"], 0.99,
+                                  g_sent_bounds(counted, 360, 3), f"control station c{s}")
+    v = cons["voice"]
+    ldus = v.keys("ldu", P25_FIRST)
+    # the loop is an HDU and n_ldu LDUs: the fewest by their share of it, the most packed back to back
+    voice = g_rate(ldus, vsent, 0.95, (counted * n_ldu // len(vdib) - 1, g_sent_bounds(counted, ldu_len)[1]),
+                   "voice station's LDUs")
+    pcm = np.concatenate(v.pcm) if v.pcm else np.zeros(0, np.float32)
+    check(len(pcm) and np.isfinite(pcm).all(), "the voice decoder gave no PCM or non-finite PCM")
+    voice.update(pcm_s=len(pcm) / 8000.0, pcm_rms=float(np.sqrt(np.mean(pcm ** 2))))
+    check(voice["pcm_rms"] > 1e-3, f"the voice PCM is silent (rms {voice['pcm_rms']:.2e})")
+    dmr_ = g_rate(cons["dmr"].keys("csbk", P25_FIRST), dsent, 0.95, g_sent_bounds(counted, 144),
+                  "DMR station's CSBKs")
+    empty = {}
+    for e in range(n_empty):
+        c = cons[f"e{e}"]
+        valid = [x for x in c.keys("tsbk") if x is not None]
+        check(not valid, f"empty channel e{e} yielded CRC-valid TSBKs {valid[:2]}")
+        empty[f"e{e}"] = dict(frame_syncs=c.framer.sync_count, frames=c.framer.frame_count)
+    stations_ = {cid for cid, _, _ in specs if not cid.startswith("e")}
+    plain = g_first_blocks_vs_plain(device, cap, blocks, first, card, specs, stations_, "i16")
+    rates = [r["rate"] for r in control.values()]
+    return dict(phase="decoders on the engine, G1 (C4FM bank at 10 Msps)", channels=ch.channel_count,
+                p25_slots=G1_CAPACITY, symbols_per_block=n_sym, setup_s=setup_s,
+                control_tsbk_rate_min=min(rates), control_tsbks_valid=sum(r["valid"] for r in control.values()),
+                control=control, voice=voice, dmr=dmr_, empty=empty, **plain,
+                **g_report(cap, timing, host_state, counts, n_blocks))
+
+
+def run_program_g2(device) -> dict:
+    """G2 at programs B / C's rate: 2.4 Msps, an LSM ``p25`` bank with the
+    41-tap equaliser (a station behind the 70 us simulcast echo, one 600 Hz
+    off its carrier) and a ``p25p2`` bank of 20 slots, four of them with
+    Phase 2 calls (MAC PTT / END_PTT and AMBE+2 voice bursts)."""
+    from wavecap_tpu_torch.capture import CaptureConfig
+    from wavecap_tpu_torch.models.p25.cqpsk import modulate_cqpsk_cyclic
+    from wavecap_tpu_torch.ops.channelizer import ChannelizerConfig
+
+    fs, n_blocks = G2_FS, G2_BLOCKS
+    t_set0 = time.perf_counter()
+    ch = ChannelizerConfig(sample_rate=float(fs), channel_bandwidth=25_000.0)
+    n_lsm, n_p2 = len(G2_LSM), len(G2_P2)
+    bins = p25_bins(ch.channel_count, n_lsm + n_p2 + 2 * G2_EMPTY, 5)
+    echo_delay = int(round(70e-6 * fs))
+    stations, specs, sent, sent_frags = [], [], {}, {}
+    for s, (fine, cfo, echo) in enumerate(G2_LSM):
+        dib, sent[f"l{s}"] = g_tsdu_loop(0x300 + s, site=100 + s)
+        off = ch.channel_offset_hz(bins[s]) + fine
+        stations.append(g_station(modulate_cqpsk_cyclic(dib, 48_000.0), fs, off + cfo, P25_AMPLITUDE,
+                                  (echo_delay, ECHO[1], ECHO[2]) if echo else None))
+        specs.append((f"l{s}", "p25", G_CENTER + off))
+    for s, fine in enumerate(G2_P2):
+        dib, sent[f"p{s}"], sent_frags[f"p{s}"] = g_p2_loop((4000 + 2 * s, 4001 + 2 * s))
+        off = ch.channel_offset_hz(bins[n_lsm + s]) + fine
+        stations.append(g_station(modulate_cqpsk_cyclic(dib, 48_000.0, 6000.0, 1.0), fs, off, P25_AMPLITUDE))
+        specs.append((f"p{s}", "p25p2", G_CENTER + off))
+    for e in range(G2_EMPTY):
+        specs.append((f"le{e}", "p25", G_CENTER + ch.channel_offset_hz(bins[n_lsm + n_p2 + e])))
+        specs.append((f"pe{e}", "p25p2", G_CENTER + ch.channel_offset_hz(bins[n_lsm + n_p2 + G2_EMPTY + e])))
+    cfg = CaptureConfig(center_hz=G_CENTER, sample_rate=fs, channel_bandwidth=25_000.0, block_seconds=0.15,
+                        narrow_capacity=0, wide_capacity=0, p25_capacity=G2_P25_CAPACITY, p25_modulation="cqpsk",
+                        p25_equalizer_taps=41, p25p2_capacity=G2_P2_CAPACITY, fft_size=2048, audio_rate=48_000,
+                        transport="i8", adaptive_transport=False)
+    cap, blocks = g_scene(device, cfg, stations, n_blocks)
+    setup_s = time.perf_counter() - t_set0
+    cons, counts, timing, host_state, first, card = run_g_engine(cap, specs, blocks, G2_LAUNCHES, "i8")
+
+    n_sym = cons["l0"].symbols // n_blocks
+    lsm = {}
+    for s, (_, _, echo) in enumerate(G2_LSM):
+        start = P25_FIRST + 1 if echo else P25_FIRST  # the equaliser engages in block 3
+        counted = (n_blocks - start) * n_sym
+        lsm[f"l{s}"] = g_rate(cons[f"l{s}"].keys("tsbk", start), sent[f"l{s}"], 0.90 if echo else 0.95,
+                              g_sent_bounds(counted, 360, 3), f"LSM station l{s}" + (" (echo)" if echo else ""))
+    p2 = {}
+    for s in range(n_p2):
+        c = cons[f"p{s}"]
+        frags = c.keys("fragment", P25_FIRST)
+        dibits = (n_blocks - P25_FIRST) * (c.symbols // n_blocks)
+        lo, hi = g_sent_bounds(dibits, 720)
+        as_sent = [x for x in frags if x in sent_frags[f"p{s}"]]  # noise fragments match none
+        check(hi >= len(as_sent) >= 0.9 * lo, f"Phase 2 station p{s}: {len(as_sent)} fragments as sent "
+              f"({len(frags)} found), not within 90 % of {lo} .. {hi} sent")
+        # MAC PDUs ride the loop's first and last fragments (adjacent in the
+        # cycle), two each: the fewest and the most in lo / hi fragments
+        n_loop = G_P2_FRAGMENTS
+        mac_lo = 2 * (2 * (lo // n_loop) + max(0, lo % n_loop - (n_loop - 2)))
+        mac_hi = 2 * (2 * (hi // n_loop) + min(2, hi % n_loop))
+        macs = c.keys("mac", P25_FIRST)
+        check(all(m in sent[f"p{s}"] for m in macs), f"Phase 2 station p{s}: a MAC PDU was not sent")
+        check(mac_hi >= len(macs) >= 0.9 * mac_lo,
+              f"Phase 2 station p{s}: {len(macs)} MAC PDUs, not within 90 % of {mac_lo} .. {mac_hi} sent")
+        pcm = np.concatenate(c.pcm) if c.pcm else np.zeros(0, np.float32)
+        check(len(pcm) and np.isfinite(pcm).all(), f"Phase 2 station p{s}: no or non-finite voice PCM")
+        p2[f"p{s}"] = dict(fragments_as_sent=len(as_sent), fragments=len(frags), sent=[lo, hi],
+                           mac_pdus=len(macs), mac_sent=[mac_lo, mac_hi], pcm_s=len(pcm) / 8000.0)
+    empty = {}
+    for e in range(G2_EMPTY):
+        c = cons[f"le{e}"]
+        valid = [x for x in c.keys("tsbk") if x is not None]
+        check(not valid, f"empty LSM channel le{e} yielded CRC-valid TSBKs")
+        empty[f"le{e}"] = dict(frame_syncs=c.framer.sync_count)
+        c = cons[f"pe{e}"]
+        check(not c.keys("mac"), f"empty Phase 2 channel pe{e} yielded MAC PDUs")
+        empty[f"pe{e}"] = dict(fragments=len(c.keys("fragment")))
+    state = cap._dev_state
+    hits = host(state.p25.c4fm.eq_hits)
+    echo_slot = cap.channels[f"l{[e for _, _, e in G2_LSM].index(True)}"].slot
+    stations_ = {cid for cid, _, _ in specs if cid[0] in "lp" and cid[1].isdigit()}
+    plain = g_first_blocks_vs_plain(device, cap, blocks, first, card, specs, stations_, "i8")
+    return dict(phase="decoders on the engine, G2 (LSM + Phase 2 banks at 2.4 Msps)", channels=ch.channel_count,
+                p25_slots=G2_P25_CAPACITY, p25p2_slots=G2_P2_CAPACITY, symbols_per_block=n_sym,
+                setup_s=setup_s, lsm=lsm, phase2=p2, empty=empty, echo_eq_hits=int(hits[echo_slot]), **plain,
+                **g_report(cap, timing, host_state, counts, n_blocks))
 
 
 def card_line() -> str:
@@ -4296,7 +4961,6 @@ print(json.dumps(dict(checkout=sys.argv[1], K13cfo=k13, K1=k1, K2=k2, K3=k3, K4=
 
 def phase2_turns(other: str, out: str | None) -> int:
     """``--phase2-turns``: see the module's docstring."""
-    import os
     from pathlib import Path
 
     here = str(Path(__file__).resolve().parent)
@@ -4423,6 +5087,9 @@ def main(argv=None) -> int:
         log(dict(phase="kernel-case", **pe["k15"]))
         pf = run_program_f(p25, device)
         log(pf)
+        # program G: the port's decoders on the engine's P25 banks
+        log(run_program_g1(device))
+        log(run_program_g2(device))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -211,6 +211,46 @@ def test_spectrogram_sampled_matches(rng):
     assert float(np.max(np.abs(p_got - p_ref)[strong])) <= 0.05
 
 
+@pytest.mark.parametrize("n,fft,hop,average", [(8192, 1024, 512, 1), (8192, 1024, None, 1), (20_000, 512, 256, 4),
+                                                (100, 256, None, 1), (0, 256, 128, 1)])
+def test_spectrogram_matches(rng, n, fft, hop, average):
+    """All frames of a block (``tests/test_ops_core.py:278-280``; a block
+    shorter than a frame and an empty block, ``tests/test_empty_blocks.py:76-78``)."""
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    ref = np.asarray(jops.spectrogram(jnp.asarray(x), fft_size=fft, hop=hop, average=average))
+    got = tops.spectrogram(t(x), fft_size=fft, hop=hop, average=average).numpy()
+    assert got.shape == ref.shape and got.dtype == np.float32
+    if ref.size:  # two f32 FFT libraries: |dB| <= 0.05 on bins within 60 dB of the peak
+        strong = ref >= ref.max() - 60.0
+        assert float(np.max(np.abs(got - ref)[strong])) <= 0.05
+    if (n, fft, hop) == (8192, 1024, 512):
+        assert got.shape == (15, 1024)
+
+
+@pytest.mark.parametrize("freq", [1000.0, -2345.5, 0.0])
+def test_real_osc_matches(freq):
+    """The real cosine oscillator: the same phase words, cos within an ulp
+    of the other library's; a carried phase continues it."""
+    fs, p0 = 48_000.0, 123_456_789
+    ref, ref_nxt = jops.real_osc(5000, freq, fs, jnp.uint32(p0))
+    got, nxt = tops.real_osc(5000, freq, fs, t(np.uint32(p0)))
+    assert got.shape == (5000,) and int(nxt) == int(ref_nxt)
+    assert float(np.max(np.abs(got.numpy() - np.asarray(ref)))) <= 2e-7
+    ref0, _ = jops.real_osc(300, freq, fs)
+    got0, nxt0 = tops.real_osc(300, freq, fs, device="cpu")
+    assert nxt0.device.type == "cpu"
+    assert float(np.max(np.abs(got0.numpy() - np.asarray(ref0)))) <= 2e-7
+
+
+def test_module_constants_match():
+    from wavecap_tpu.models.p25 import cqpsk as jq
+    from wavecap_tpu_torch.models.p25 import cqpsk as tq
+
+    assert tpipe.NARROW_MODES == jpipe.NARROW_MODES
+    assert (tq.INTERP_TAIL, tq.EQ_NFFT) == (jq.INTERP_TAIL, jq.EQ_NFFT)
+    assert set(jops.__all__) <= set(tops.__all__)
+
+
 # --- transport -----------------------------------------------------------------------
 
 

@@ -49,6 +49,7 @@ from ..ops.channelizer import ChannelizerConfig, _channelize, channelizer_init, 
 from ..ops import fir as fir_ops
 from ..utils.torchenv import DeviceLike, resolve_device
 
+NARROW_MODES = ("nbfm", "am", "sam", "usb", "lsb")
 WIDE_RATE = 240_000  # WBFM intermediate rate
 
 # --- device->host wire formats ----------------------------------------------

@@ -17,9 +17,18 @@ the port's per-shard layout: each ``(n_streams, M, ...)`` leaf split over
 the mesh's time shards, the history and the wide demods onto each row's
 first shard (the wide NCO phases, replicated in the reference, onto
 every shard).
+
+The host decoders hand over by ``decoder_state_from_reference``: a
+reference framer, detector, vocoder or DMR tracker becomes the port's
+object of the same class with the same buffers, counters and parameters,
+so a decode can move from one package to the other mid-stream.
 """
 
 from __future__ import annotations
+
+import enum
+import importlib
+from collections import deque
 
 import numpy as np
 import torch
@@ -122,3 +131,65 @@ def grid_control_from_numpy(cfg: ShardedGridConfig, mesh: Mesh, tree) -> GridCon
     return control_from_numpy(cfg, mesh, _field(tree, "fine_offset_hz"), _field(tree, "active"),
                               _field(tree, "squelch_db"), _field(tree, "bank_idx"),
                               None if wide is None else _map(wide, lambda a: a))
+
+
+# --- the host decoders ----------------------------------------------------------------
+
+_REFERENCE_DECODERS = "wavecap_tpu.decoders."
+DECODER_CLASSES = ("P25Framer", "P25P2SuperFrameDetector", "ImbeDecoder", "VoiceDecoder",
+                   "AmbeDecoder", "DMRDecoder", "DMRVoiceTracker")
+
+
+def _port_type(obj) -> type:
+    """The port's class of a reference decoder object, by module and name
+    (read from the object: nothing of the reference is imported)."""
+    mod = type(obj).__module__
+    if not mod.startswith(_REFERENCE_DECODERS):
+        raise TypeError(f"{type(obj).__qualname__} from {mod} is not a reference decoder class")
+    port = importlib.import_module("wavecap_tpu_torch.decoders." + mod[len(_REFERENCE_DECODERS):])
+    return getattr(port, type(obj).__qualname__)
+
+
+def _decoder_value(v):
+    """A copy of one attribute: arrays copied, containers rebuilt, reference
+    decoder objects and enum members as the port's, generators with their
+    state; plain values (and callbacks) as they are."""
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    if isinstance(v, enum.Enum):
+        return getattr(_port_type(v), v.name) if type(v).__module__.startswith(_REFERENCE_DECODERS) else v
+    if isinstance(v, np.random.Generator):
+        g = np.random.Generator(type(v.bit_generator)())
+        g.bit_generator.state = v.bit_generator.state
+        return g
+    if isinstance(v, deque):
+        return deque((_decoder_value(x) for x in v), maxlen=v.maxlen)
+    if isinstance(v, dict):
+        return {k: _decoder_value(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)) and not hasattr(v, "_fields"):
+        return type(v)(_decoder_value(x) for x in v)
+    if type(v).__module__.startswith(_REFERENCE_DECODERS):
+        return _decoder_object(v)
+    return v
+
+
+def _decoder_object(obj):
+    cls = _port_type(obj)
+    # the port's VoiceDecoder holds its own vocoder library handle
+    handles = ("lib", "_mbelib") if cls.__name__ == "VoiceDecoder" else ()
+    new = cls() if handles else cls.__new__(cls)
+    for k, v in vars(obj).items():
+        if k not in handles:
+            setattr(new, k, _decoder_value(v))
+    return new
+
+
+def decoder_state_from_reference(obj):
+    """The reference's decoder ``obj`` (one of ``DECODER_CLASSES``: the P25
+    framer with its NAC tracker, the Phase 2 superframe detector, the IMBE
+    and AMBE vocoders, the voice facade minus its library handle, the DMR
+    burst decoder and voice tracker) as the port's object of the same class,
+    its state copied as numpy arrays and plain values."""
+    if type(obj).__qualname__ not in DECODER_CLASSES:
+        raise TypeError(f"no hand-over for {type(obj).__qualname__}; one of {DECODER_CLASSES}")
+    return _decoder_object(obj)

@@ -55,6 +55,7 @@ from .c4fm import (
 )
 
 _QUARTER_PI = float(np.float32(np.pi / 4))
+EQ_NFFT = eqz.EQ_NFFT  # the echo fit's spectrum grid; INTERP_TAIL comes from c4fm
 
 
 @lru_cache(maxsize=8)
@@ -311,7 +312,7 @@ def _eq_candidates(
 ) -> tuple:
     """CQPSK candidate grid: the clean post-RX-RRC acf ``ifft(|R|^4)``
     template; noise passes the RX RRC, so its acf is the RRC's."""
-    nfft = eqz.EQ_NFFT
+    nfft = EQ_NFFT
     rrc = design_rrc_cqpsk(sample_rate, symbol_rate, alpha)
     R2 = np.abs(np.fft.fft(rrc, nfft)) ** 2
     r_s = np.fft.ifft(R2 * R2).real

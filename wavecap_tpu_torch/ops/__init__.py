@@ -1,6 +1,6 @@
 """Kernel library of the port: stateful-by-carry ops on torch tensors."""
 
-from .nco import freq_shift, tuning_word, nco_phases
+from .nco import freq_shift, tuning_word, nco_phases, real_osc
 from .fir import (
     fir_filter,
     fir_decimate,
@@ -34,6 +34,6 @@ from .demod import (
     quadrature_demod,
     ssb_product,
 )
-from .spectrum import power_spectrum, spectrogram_sampled
+from .spectrum import power_spectrum, spectrogram, spectrogram_sampled
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -101,3 +101,14 @@ def freq_shift(iq: torch.Tensor, offset_hz, sample_rate: float, phase0_u32=0):
     ph = nco_phases(n, dphi, p0)
     osc = torch.complex(torch.cos(ph), torch.sin(ph))
     return iq * osc, _next_phase(p0, n, dphi)
+
+
+def real_osc(n: int, freq_hz, sample_rate: float, phase0_u32=0, device: DeviceLike = None):
+    """Real cosine oscillator block (for BFO / pilot regeneration); returns
+    ``(cos, next_phase0_u32)``.  ``device`` says where a Python-number
+    frequency and phase put the block; tensors keep their own."""
+    dev = phase0_u32.device if isinstance(phase0_u32, torch.Tensor) else (
+        freq_hz.device if isinstance(freq_hz, torch.Tensor) else resolve_device(device))
+    dphi = tuning_word(freq_hz, sample_rate, device=dev)
+    p0 = _as_u32(phase0_u32, dev)
+    return torch.cos(nco_phases(n, dphi, p0)), _next_phase(p0, n, dphi)

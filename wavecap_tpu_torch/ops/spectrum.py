@@ -41,6 +41,31 @@ def power_spectrum(
     return _db(p)
 
 
+def spectrogram(
+    iq: torch.Tensor,
+    fft_size: int = 2048,
+    hop: int | None = None,
+    average: int = 1,
+) -> torch.Tensor:
+    """All frames of the block: ``(..., n_frames, fft_size)`` dB spectra."""
+    hop = hop or fft_size
+    n = iq.shape[-1]
+    n_frames = max((n - fft_size) // hop + 1, 0)
+    if n_frames == 0:
+        return torch.zeros(iq.shape[:-1] + (0, fft_size), dtype=torch.float32, device=iq.device)
+    if hop == fft_size:
+        frames = iq[..., : n_frames * fft_size].reshape(iq.shape[:-1] + (n_frames, fft_size))
+    else:
+        idx = np.arange(n_frames)[:, None] * hop + np.arange(fft_size)[None, :]
+        frames = iq[..., torch.from_numpy(idx).to(iq.device)]
+    spec = torch.fft.fftshift(torch.fft.fft(frames * _hann(fft_size, iq.device), dim=-1), dim=-1)
+    p = (spec.abs() ** 2) / float(fft_size)
+    if average > 1:
+        k = (n_frames // average) * average
+        p = p[..., :k, :].reshape(p.shape[:-2] + (-1, average, fft_size)).mean(-2)
+    return _db(p)
+
+
 def spectrogram_sampled(
     iq: torch.Tensor,
     fft_size: int = 2048,
