@@ -40,8 +40,13 @@ It drives the port's paths at full width:
   K15's exchanges (the halo, the re-shard, the wide IF and history
   gathers) as device copies;
 * the P25 and DMR decoders on the host, fed by the engine's P25 banks
-  (program G: C4FM control channels, a voice call and DMR at 10 Msps; LSM
-  behind a simulcast echo and Phase 2 calls at 2.4 Msps).
+  through the port's ``P25Attachment`` and ``DmrAttachment`` (program G:
+  C4FM control channels, a voice call and DMR at 10 Msps; LSM behind a
+  simulcast echo and Phase 2 calls at 2.4 Msps);
+* the channel attachments and the scanner (program H: POCSAG, FLEX and
+  RDS pagers and broadcast on an NBFM bank of 160 and a WBFM wide slot at
+  10 Msps, a ``ScannerService`` retuning a channel, and the file-replay
+  source).
 
 Phases:
 
@@ -139,22 +144,41 @@ Phases:
 11. program G, the port's decoders (``decoders/``: framer, FEC, TSBK,
     LDU, DMR, Phase 2 MAC, the IMBE and AMBE+2 vocoders, on the host) fed
     by the engine: ``CaptureManager`` -> ``create_capture`` ->
-    ``create_channel`` -> ``Channel.symbols``, one ``_dispatch_blocks``
-    a block, every subscriber drained after each block (a dropped batch
-    fails).  G1 at the BASELINE point (10 Msps, M = 400, a C4FM bank of 50
-    slots): 40 control channels (each its own NAC; >= 99 % of TSBKs
-    CRC-valid from block 3 on, every valid one as sent), a voice call (>=
-    95 % of LDUs with the codewords sent; the voice decoder's PCM finite
-    and not silent), a DMR channel (>= 95 % of CSBKs as sent) and 8 empty
-    channels (no valid TSBK; their frame syncs reported); G2 at 2.4 Msps:
-    an LSM bank with the 41-tap equaliser (>= 95 %; the 70 us echo
-    station >= 90 % from block 4 on) and a Phase 2 bank of 20 slots, 4
-    with calls (>= 90 % of fragments detected, every MAC PDU as sent).
-    Both: exact launches a block (``G1_LAUNCHES``, ``G2_LAUNCHES``), the
-    first blocks' card and plain symbols through fresh decoders giving
-    the same messages, decode host ms a block beside the block's length,
-    the engine's stages;
-12. a JSON line of the kernels (K15 with its copies and bytes) and the
+    ``create_channel``, a ``P25Attachment`` or ``DmrAttachment`` on each
+    ``p25`` / ``dmr`` channel (its own thread and ``Channel.symbols``
+    subscription), the ``p25p2`` channels through the trunking
+    recorder's Phase 2 path (``GPhase2``), one ``_dispatch_blocks`` a
+    block, every attachment waited for after each block (a dropped batch
+    or a decoder that raised fails).  G1 at the BASELINE point (10 Msps,
+    M = 400, a C4FM bank of 50 slots): 40 control channels (each its own
+    NAC; >= 99 % of TSBKs CRC-valid from block 3 on, every valid one as
+    sent), a voice call (>= 95 % of LDUs with the codewords sent; the
+    voice decoder's PCM finite and not silent), a DMR channel (>= 95 % of
+    CSBKs as sent) and 8 empty channels (no valid TSBK; their frame syncs
+    reported); G2 at 2.4 Msps: an LSM bank with the 41-tap equaliser (>=
+    95 %; the 70 us echo station >= 90 % from block 4 on) and a Phase 2
+    bank of 20 slots, 4 with calls (>= 90 % of fragments detected, every
+    MAC PDU as sent).  Both: exact launches a block (``G1_LAUNCHES``,
+    ``G2_LAUNCHES``), the first blocks' card and plain symbols through
+    fresh consumers giving the same messages and PCM, decode host ms a
+    block beside the block's length, the engine's stages;
+12. program H, the attachments and the scanner (``capture/attachments.py``,
+    ``capture/scanner.py``, ``decoders/pocsag.py``, ``flex.py``,
+    ``rds.py``) on the engine at 10 Msps, M = 400, 50 blocks of 0.2 s
+    paced to their length: an NBFM bank of 160 (8 POCSAG pagers at 512,
+    1200 and 2400 baud, 4 FLEX pagers, each repeating a seeded set of
+    pages; the scanner's channel; gated tones and idle bins) and a WBFM
+    wide slot with RDS.  Every page sent decodes, address or capcode and
+    content as sent, each call only what its window held, within the
+    fewest and most the blocks carry; RDS's PI, PS and RadioText as sent;
+    the scanner stops only on its one active entry, stays there while the
+    carrier is up, makes two full passes, every retune through
+    ``update_channel`` (no rebuild, no new capture); the first two blocks'
+    pager audio and wide baseband >= 50 dB against the same engine on the
+    CPU (the plain versions); the first 4 blocks written by
+    ``write_iq_wav`` and replayed by ``FileReplayDriver`` through a second
+    capture: the same pages; exact launches a block (``H_LAUNCHES``);
+13. a JSON line of the kernels (K15 with its copies and bytes) and the
     final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -4264,86 +4288,154 @@ def g_station(iq48: np.ndarray, fs: int, offset: float, amplitude: float, echo=N
     return dict(offset_hz=offset, kind="iq_loop", iq_loop=x.astype(np.complex64), amplitude=amplitude)
 
 
-class GConsumer:
-    """One channel's subscriber with the port's decoders, wired as the
-    reference's consumers wire them: ``p25`` as ``P25Attachment.process``
-    (framer -> TSBKs, LDUs -> the voice decoder; ``capture/attachments.py:157-218``),
-    ``dmr`` as ``DmrAttachment.process`` (:220-260), ``p25p2`` as the
-    recorder's Phase 2 path (``trunking/recorder.py:133-175``).  Each event
-    is ``(block, kind, key)``."""
+class GLog:
+    """What one channel's consumer put out, by block: ``(block, kind,
+    key)`` events (a key of ``None``: decoded but not valid), the PCM it
+    published and the symbols it was fed."""
 
-    def __init__(self, kind: str):
-        from wavecap_tpu_torch.decoders.ambe_vocoder import AmbeDecoder
-        from wavecap_tpu_torch.decoders.dmr import DMRDecoder
-        from wavecap_tpu_torch.decoders.framer import P25Framer
-        from wavecap_tpu_torch.decoders.p25_phase2 import P25P2SuperFrameDetector
-        from wavecap_tpu_torch.decoders.voice import VoiceDecoder
-
-        self.kind = kind
-        self.framer = P25Framer() if kind == "p25" else None
-        self.voice = VoiceDecoder() if kind == "p25" else None
-        self.dmr = DMRDecoder() if kind == "dmr" else None
-        self.p2 = P25P2SuperFrameDetector() if kind == "p25p2" else None
-        self.ambe = AmbeDecoder() if kind == "p25p2" else None
+    def __init__(self):
         self.events: list = []
         self.pcm: list = []
         self.symbols = 0
-
-    def feed(self, k: int, soft: np.ndarray) -> None:
-        from wavecap_tpu_torch.decoders import dmr, p25_mac
-        from wavecap_tpu_torch.decoders import p25_frames as pf
-        from wavecap_tpu_torch.decoders import p25_tsbk as tsbk
-        from wavecap_tpu_torch.decoders.p25_phase2 import extract_voice_frames
-
-        soft = np.asarray(soft, np.float32)
-        self.symbols += len(soft)
-        ev = self.events
-        if self.framer is not None:
-            for frame in self.framer.process(soft):
-                if frame.duid == pf.DUID.TSDU:
-                    pl = pf.remove_status_dibits(frame.dibits[57:], 57)
-                    sl = pf.remove_status_dibits(frame.soft[57:], 57)
-                    for b in pf.decode_tsbk_payload(pl, sl):
-                        key = g_key({"nac": frame.nac, **tsbk.parse_tsbk(b.opcode, b.mfid, b.data)}) \
-                            if b.crc_valid else None
-                        ev.append((k, "tsbk", key))
-                elif frame.duid in (pf.DUID.LDU1, pf.DUID.LDU2):
-                    ldu = pf.decode_ldu(frame.dibits)
-                    if ldu is None:
-                        ev.append((k, "ldu", None))
-                        continue
-                    ev.append((k, "ldu", np.concatenate(ldu.imbe_codewords).astype(np.uint8).tobytes()))
-                    pcm = self.voice.decode_codewords(ldu.imbe_codewords)
-                    if pcm is not None and len(pcm):
-                        self.pcm.append(pcm)
-                else:
-                    ev.append((k, frame.duid.name, None))
-        elif self.dmr is not None:
-            for burst in self.dmr.process(soft):
-                parsed = dmr.decode_burst(burst)
-                if parsed is None or "opcode" not in parsed:
-                    ev.append((k, "csbk", None))
-                    continue
-                fields = ("colorCode",) + tuple(dmr.parse_csbk(dmr.make_csbk_bits(parsed["opcode"])) or ())
-                ev.append((k, "csbk", g_key({f: parsed[f] for f in fields if f in parsed})))
-        else:
-            for frag in self.p2.process(soft):
-                ev.append((k, "fragment", frag.dibits.astype(np.uint8).tobytes()))
-                for _, burst in frag.bursts():
-                    m = p25_mac.decode_burst(burst)
-                    if m is not None and m[0] in (p25_mac.BURST_SACCH, p25_mac.BURST_FACCH):
-                        ev.append((k, "mac", g_key(p25_mac.parse_mac_pdu(m[1]))))
-                        continue
-                    pcm = self.ambe.decode_frames(extract_voice_frames(burst))
-                    if pcm is not None and len(pcm):
-                        self.pcm.append(pcm)
 
     def keys(self, kind: str, first: int = 0) -> list:
         return [key for k, kd, key in self.events if kd == kind and k >= first]
 
     def valid(self) -> list:
-        """The CRC-valid messages, in order (TSBKs, LDU codewords, CSBKs, MAC PDUs)."""
+        """The valid messages, in order (TSBKs, LDU codewords, CSBKs, MAC PDUs)."""
         return [(kd, key) for _, kd, key in self.events if key is not None and kd != "fragment"]
+
+
+def attachments_wait(atts: dict, k: int, what: str, timeout: float = 60.0) -> float:
+    """Until every attachment has taken ``k`` batches; fails on a timeout,
+    a dropped batch or a decoder that raised (``errors``: the attachment's
+    thread logs the exception and goes on).  Returns the wait (ms)."""
+    t0 = time.perf_counter()
+    while any(a.batches < k for a in atts.values()):
+        check(time.perf_counter() - t0 < timeout, f"{what}: an attachment did not take batch {k} within "
+              f"{timeout} s: {[(c, a.batches) for c, a in atts.items() if a.batches < k][:4]}")
+        time.sleep(0.001)
+    for cid, a in atts.items():
+        check(a.errors == 0, f"{what}: attachment {cid} raised in {a.errors} batches")
+        check(a._sub.dropped == 0, f"{what}: attachment {cid} dropped {a._sub.dropped} batches")
+        check(a.batches == k, f"{what}: attachment {cid} took {a.batches} batches after block {k}")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def g_attach(mode: str, channel):
+    """The port's ``P25Attachment`` (``p25``) or ``DmrAttachment`` (``dmr``)
+    on a channel, with a tally of what it has noted so far; the P25 voice
+    decoder's LDUs are noted on their way in (their codewords, by bytes)."""
+    from wavecap_tpu_torch.capture.attachments import DmrAttachment, P25Attachment
+
+    att = DmrAttachment(channel) if mode == "dmr" else P25Attachment(channel)
+    att.noted = dict(messages=0, ldus=0, frames={}, bursts=0)
+    att.ldus = []
+    if mode != "dmr":
+        decode = att.voice.decode_codewords
+
+        def noted(codewords):
+            att.ldus.append(np.concatenate(codewords).astype(np.uint8).tobytes())
+            return decode(codewords)
+
+        att.voice.decode_codewords = noted
+    return att
+
+
+def g_note(att, log: GLog, k: int) -> None:
+    """The attachment's output since the last note, as block ``k``'s events:
+    each TSBK it put out (CRC-valid; keyed as sent), and one invalid one
+    for each of the 3 TSBKs of a TSDU frame its framer found that did not
+    come out; each LDU frame (its codewords, or invalid where
+    ``decode_ldu`` refused it); each DMR burst (a CSBK's fields, or
+    invalid)."""
+    from wavecap_tpu_torch.decoders import dmr
+
+    n = att.noted
+    msgs = list(att.messages)[n["messages"]:]
+    check(len(att.messages) < att.messages.maxlen, f"{att.channel.id}: the message ring filled")
+    n["messages"] += len(msgs)
+    if att.kind == "dmr":
+        for m in msgs:
+            fields = ("colorCode",) + tuple(dmr.parse_csbk(dmr.make_csbk_bits(m["opcode"])) or ()) \
+                if "opcode" in m else ()
+            log.events.append((k, "csbk", g_key({f: m[f] for f in fields if f in m}) if fields else None))
+        bursts = att.decoder.bursts_found - n["bursts"]
+        n["bursts"] = att.decoder.bursts_found
+        log.events += [(k, "csbk", None)] * (bursts - len(msgs))
+        return
+    frames = {d: c - n["frames"].get(d, 0) for d, c in att.frame_counts.items()}
+    n["frames"] = dict(att.frame_counts)
+    log.events += [(k, "tsbk", g_key({f: v for f, v in m.items() if f != "time"})) for m in msgs]
+    log.events += [(k, "tsbk", None)] * max(0, 3 * frames.get("TSDU", 0) - len(msgs))
+    ldus = att.ldus[n["ldus"]:]
+    n["ldus"] += len(ldus)
+    log.events += [(k, "ldu", x) for x in ldus]
+    log.events += [(k, "ldu", None)] * (frames.get("LDU1", 0) + frames.get("LDU2", 0) - len(ldus))
+
+
+class GPhase2:
+    """The trunking recorder's Phase 2 path (``trunking/recorder.py:133-175``):
+    superframe fragments, their MAC PDUs, AMBE+2 voice bursts to PCM.  The
+    recorder is ROADMAP Queue 1 item 4c, not ported yet; this stands in
+    for it until 4c, which removes it."""
+
+    def __init__(self):
+        from wavecap_tpu_torch.decoders.ambe_vocoder import AmbeDecoder
+        from wavecap_tpu_torch.decoders.p25_phase2 import P25P2SuperFrameDetector
+
+        self.p2, self.ambe, self.log = P25P2SuperFrameDetector(), AmbeDecoder(), GLog()
+
+    def feed(self, k: int, soft) -> None:
+        from wavecap_tpu_torch.decoders import p25_mac
+        from wavecap_tpu_torch.decoders.p25_phase2 import extract_voice_frames
+
+        soft = np.asarray(soft, np.float32)
+        self.log.symbols += len(soft)
+        for frag in self.p2.process(soft):
+            self.log.events.append((k, "fragment", frag.dibits.astype(np.uint8).tobytes()))
+            for _, burst in frag.bursts():
+                m = p25_mac.decode_burst(burst)
+                if m is not None and m[0] in (p25_mac.BURST_SACCH, p25_mac.BURST_FACCH):
+                    self.log.events.append((k, "mac", g_key(p25_mac.parse_mac_pdu(m[1]))))
+                    continue
+                pcm = self.ambe.decode_frames(extract_voice_frames(burst))
+                if pcm is not None and len(pcm):
+                    self.log.pcm.append(pcm)
+
+
+def g_stand_in(cid: str):
+    """A channel for an attachment fed by hand (``process``): its fan-outs only."""
+    from types import SimpleNamespace
+
+    from wavecap_tpu_torch.utils.broadcast import FanOut
+
+    return SimpleNamespace(id=cid, audio=FanOut(maxsize=4096), symbols=FanOut(maxsize=4), baseband=FanOut(maxsize=4))
+
+
+def g_decode_by_hand(mode: str, softs: list) -> list:
+    """A fresh consumer of ``mode`` fed ``softs`` block by block on this
+    thread: the attachment's ``process`` (``GPhase2`` for ``p25p2``);
+    returns its valid messages and PCM."""
+    if mode == "p25p2":
+        c = GPhase2()
+        for k, s in enumerate(softs):
+            c.feed(k, s)
+        return c.log.valid() + [("pcm", x.tobytes()) for x in c.log.pcm]
+    ch = g_stand_in(f"by-hand-{mode}")
+    att, log = g_attach(mode, ch), GLog()
+    pcm = ch.audio.subscribe(maxsize=4096)
+    try:
+        for k, s in enumerate(softs):
+            for m in att.process({"soft": s}):
+                att.messages.append(m)
+            g_note(att, log, k)
+    finally:
+        att.stop()
+    pcm_bytes = []
+    while (x := pcm.get_nowait()) is not None:
+        pcm_bytes.append(("pcm", np.asarray(x).tobytes()))
+    return log.valid() + pcm_bytes
 
 
 def g_sent_bounds(counted: int, spacing: int, per_frame: int = 1) -> tuple:
@@ -4424,40 +4516,53 @@ def process_state() -> dict:
 
 def g_calibration_ms() -> float:
     """The host's speed at the decoders' work, to set decode times taken on
-    different machines side by side: a fresh P25 consumer decoding 12
-    clean TSDUs (4,320 symbols), ms, the best of 5."""
+    different machines side by side: a fresh ``P25Attachment``'s
+    ``process`` of 12 clean TSDUs (4,320 symbols), ms, the best of 5."""
     from wavecap_tpu_torch.models.p25.c4fm import DIBIT_SYMBOLS
 
     soft = np.tile(DIBIT_SYMBOLS[g_tsdu_loop(0x100, site=1)[0]], 4).astype(np.float32)
     best = float("inf")
     for _ in range(5):
-        t0 = time.perf_counter()
-        c = GConsumer("p25")
-        c.feed(0, soft)
-        best = min(best, (time.perf_counter() - t0) * 1e3)
-    check(len(c.valid()) >= 33, f"the calibration decoded {len(c.valid())} of 36 TSBKs")
+        att = g_attach("p25", g_stand_in("calibration"))
+        try:
+            t0 = time.perf_counter()
+            out = att.process({"soft": soft})
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        finally:
+            att.stop()
+    check(len(out) >= 33, f"the calibration decoded {len(out)} of 36 TSBKs")
     return best
 
 
 def run_g_engine(cap, specs: list, blocks: list, launches: dict, transport: str):
     """The scene's blocks through the engine, one ``_dispatch_blocks`` a
-    block (no reader or fetch thread: the batch drains inline), every
-    channel's symbols drained into its decoders after each block; returns
-    the consumers, the counts, the decode time a block (wall, this thread's
-    CPU and the garbage collector's pauses), the first blocks' published
-    symbols and the card's f32 soft symbols of those blocks before the
-    wire packs them.  Earlier garbage is collected before the first block,
-    so that the decoders' time does not carry it."""
+    block (no reader or fetch thread: the batch drains inline).  Each
+    ``p25`` / ``dmr`` channel has the port's attachment on its own thread
+    and ``channel.symbols`` subscription; after each block every attachment
+    is waited for until it has taken the block's batch (a dropped batch or
+    a decoder that raised fails), and the ``p25p2`` channels' symbols go
+    through ``GPhase2`` on this thread.  Returns each channel's ``GLog``,
+    the counts, the decode time a block (wall from the dispatch's end to
+    the last consumer's end, the process's CPU and the garbage collector's
+    pauses), the first blocks' published symbols and the card's f32 soft
+    symbols of those blocks before the wire packs them.  Earlier garbage is
+    collected before the first block, so that the decoders' time does not
+    carry it."""
     import gc
 
     from wavecap_tpu_torch.capture import ChannelSpec
     from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    subs, cons = {}, {}
+    taps, atts, p2, logs, pcm = {}, {}, {}, {}, {}
     for cid, mode, freq in specs:
         h = cap.create_channel(ChannelSpec(id=cid, mode=mode, frequency_hz=freq))
-        subs[cid] = (h, h.symbols.subscribe(maxsize=4))
-        cons[cid] = GConsumer("p25p2" if mode == "p25p2" else "dmr" if mode == "dmr" else "p25")
+        taps[cid] = (h, h.symbols.subscribe(maxsize=4))
+        if mode == "p25p2":
+            p2[cid] = GPhase2()
+            logs[cid] = p2[cid].log
+        else:
+            atts[cid], logs[cid] = g_attach(mode, h), GLog()
+            pcm[cid] = h.audio.subscribe(maxsize=4096)
     step, card = cap._step, []
 
     def keep_soft(batch, state, ctl):  # the engine's own outputs, before the wire
@@ -4479,36 +4584,46 @@ def run_g_engine(cap, specs: list, blocks: list, launches: dict, transport: str)
     state0 = dict(process_state(), collected=freed, collect_ms=(time.perf_counter() - t_c) * 1e3,
                   calibration_ms=g_calibration_ms())
     reset_launch_counts()
-    timing, first = [], {cid: [] for cid in subs}
+    timing, first = [], {cid: [] for cid in taps}
     gc.callbacks.append(on_gc)
     try:
         for k, block in enumerate(blocks):
             cap._step = keep_soft if k < G_PLAIN_BLOCKS else step
             cap.transport_active = transport
             cap._dispatch_blocks([block])
-            t0, c0, g0, n0 = time.perf_counter(), time.thread_time(), gc_ms[0], sum(gc_n)
-            for cid, (h, sub) in subs.items():
+            t0, c0, g0, n0 = time.perf_counter(), time.process_time(), gc_ms[0], sum(gc_n)
+            for cid, (h, sub) in taps.items():
                 got = sub.get_nowait()
                 check(got is not None and sub.get_nowait() is None,
                       f"channel {cid}: not one symbol batch in block {k}")
                 if k < G_PLAIN_BLOCKS:
                     first[cid].append(np.asarray(got["soft"], np.float32))
-                cons[cid].feed(k, got["soft"])
-            timing.append(((time.perf_counter() - t0) * 1e3, (time.thread_time() - c0) * 1e3,
+                if cid in p2:
+                    p2[cid].feed(k, got["soft"])
+                else:
+                    logs[cid].symbols += len(got["soft"])
+            attachments_wait(atts, k + 1, "program G")
+            for cid, att in atts.items():
+                g_note(att, logs[cid], k)
+                while (x := pcm[cid].get_nowait()) is not None:
+                    logs[cid].pcm.append(np.asarray(x, np.float32))
+            timing.append(((time.perf_counter() - t0) * 1e3, (time.process_time() - c0) * 1e3,
                            gc_ms[0] - g0, sum(gc_n) - n0))
     finally:
         gc.callbacks.remove(on_gc)
         cap._step = step
+        for att in atts.values():
+            att.stop()
     counts = launch_counts()
     check(cap.blocks_processed == len(blocks) and cap.state != "failed", f"engine state {cap.state}: {cap.error}")
-    for cid, (h, sub) in subs.items():
+    for cid, (h, sub) in taps.items():
         check(sub.dropped == 0, f"channel {cid}: the symbol fan-out dropped {sub.dropped} batches")
         check(h.mode_group in ("p25", "p25p2"), f"channel {cid} in group {h.mode_group}")
     want = {name: len(blocks) * launches.get(name, 0) for name in counts}
     check(counts == want, f"launch counts {counts} != {want}")
     card = [{g: host(x)[0] for g, x in c.items()} for c in card]
     host_state = dict(before=state0, after=process_state(), gc_collections=gc_n, gc_ms=gc_ms[0])
-    return cons, counts, timing, host_state, first, card
+    return logs, atts, counts, timing, host_state, first, card
 
 
 def g_first_blocks_vs_plain(device, cap, blocks, first: dict, card: list, specs: list, stations: set,
@@ -4519,8 +4634,8 @@ def g_first_blocks_vs_plain(device, cap, blocks, first: dict, card: list, specs:
     ``first_blocks_vs_plain`` holds programs A-D; the empty channels' are
     reported); the wire's symbols, the card's as the engine published them,
     also compared (their 1/16 steps counted); and each channel's card and
-    plain wire symbols through fresh decoders: the same CRC-valid
-    messages."""
+    plain wire symbols through fresh consumers (``g_decode_by_hand``): the
+    same valid messages and PCM."""
     from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init, unpack_wire
     from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
 
@@ -4545,23 +4660,21 @@ def g_first_blocks_vs_plain(device, cap, blocks, first: dict, card: list, specs:
     wire_snr = {"stations": float("inf"), "empty": float("inf")}
     steps = {"stations": 0, "empty": 0, "symbols": 0, "most": 0.0}
     for cid, mode, _ in specs:
-        kind = "p25p2" if mode == "p25p2" else "dmr" if mode == "dmr" else "p25"
-        a, b = GConsumer(kind), GConsumer(kind)
         who = "stations" if cid in stations else "empty"
         group, slot = slots[cid]
+        a = g_decode_by_hand(mode, first[cid][:G_PLAIN_BLOCKS])
+        b = g_decode_by_hand(mode, plain[cid][:G_PLAIN_BLOCKS])
         for k in range(G_PLAIN_BLOCKS):
-            a.feed(k, first[cid][k])
-            b.feed(k, plain[cid][k])
             f32[who].append((snr_db(plain_f32[cid][k], card[k][group][slot]), cid, k))
             wire_snr[who] = min(wire_snr[who], snr_db(plain[cid][k], first[cid][k]))
             diff = np.abs(np.asarray(plain[cid][k], np.float64) - np.asarray(first[cid][k], np.float64))
             steps[who] += int(np.count_nonzero(diff))
             steps["symbols"] += diff.size
             steps["most"] = max(steps["most"], float(diff.max(initial=0.0)) * 16)
-        check(a.valid() == b.valid(), f"channel {cid}: the card's first blocks give {len(a.valid())} messages, "
-              f"the plain path's {len(b.valid())}, not the same")
+        check(a == b, f"channel {cid}: the card's first blocks give {len(a)} messages and PCM blocks, "
+              f"the plain path's {len(b)}, not the same")
         same += 1
-        messages += len(a.valid())
+        messages += len(a)
     worst = min(f32["stations"])
     check(worst[0] >= 50.0, f"first blocks' f32 soft SNR {worst[0]:.1f} dB < 50 against the plain path "
           f"(channel {worst[1]}, block {worst[2]})")
@@ -4576,13 +4689,17 @@ def g_first_blocks_vs_plain(device, cap, blocks, first: dict, card: list, specs:
 
 
 def g_report(cap, timing: list, host_state: dict, counts: dict, n_blocks: int) -> dict:
+    """The engine's stages and the decode a block: wall from the dispatch's
+    end until the last consumer has taken the block (the attachments'
+    threads poll their queues every 50 ms), the process's CPU in that
+    span, the garbage collector's pauses."""
     block_ms = cap.block_size / cap.config.sample_rate * 1e3
     perf = {k: v / cap.perf["dispatches"] for k, v in cap.perf.items() if k != "dispatches"}
     wall, cpu, gcp, gcn = (np.asarray(x, np.float64) for x in zip(*timing))
     return dict(block_size=cap.block_size, block_ms=block_ms, launches=counts,
                 decode_ms_per_block=dict(mean=float(np.mean(wall)), max=float(np.max(wall)),
                                          warm_mean=float(np.mean(wall[1:])), per_block=wall.tolist()),
-                decode_thread_cpu_ms_per_block=dict(warm_mean=float(np.mean(cpu[1:])), per_block=cpu.tolist()),
+                decode_process_cpu_ms_per_block=dict(warm_mean=float(np.mean(cpu[1:])), per_block=cpu.tolist()),
                 decode_gc_ms_per_block=dict(warm_mean=float(np.mean(gcp[1:])), max=float(np.max(gcp)),
                                             collections=int(gcn.sum())),
                 decode_share_of_block=float(np.mean(wall[1:])) / block_ms, host_state=host_state,
@@ -4629,7 +4746,7 @@ def run_program_g1(device) -> dict:
                         adaptive_transport=False)
     cap, blocks = g_scene(device, cfg, stations, n_blocks)
     setup_s = time.perf_counter() - t_set0
-    cons, counts, timing, host_state, first, card = run_g_engine(cap, specs, blocks, G1_LAUNCHES, "i16")
+    cons, atts, counts, timing, host_state, first, card = run_g_engine(cap, specs, blocks, G1_LAUNCHES, "i16")
 
     n_sym = cons["c0"].symbols // n_blocks
     counted = (n_blocks - P25_FIRST) * n_sym
@@ -4653,7 +4770,8 @@ def run_program_g1(device) -> dict:
         c = cons[f"e{e}"]
         valid = [x for x in c.keys("tsbk") if x is not None]
         check(not valid, f"empty channel e{e} yielded CRC-valid TSBKs {valid[:2]}")
-        empty[f"e{e}"] = dict(frame_syncs=c.framer.sync_count, frames=c.framer.frame_count)
+        framer = atts[f"e{e}"].framer
+        empty[f"e{e}"] = dict(frame_syncs=framer.sync_count, frames=framer.frame_count)
     stations_ = {cid for cid, _, _ in specs if not cid.startswith("e")}
     plain = g_first_blocks_vs_plain(device, cap, blocks, first, card, specs, stations_, "i16")
     rates = [r["rate"] for r in control.values()]
@@ -4700,7 +4818,7 @@ def run_program_g2(device) -> dict:
                         transport="i8", adaptive_transport=False)
     cap, blocks = g_scene(device, cfg, stations, n_blocks)
     setup_s = time.perf_counter() - t_set0
-    cons, counts, timing, host_state, first, card = run_g_engine(cap, specs, blocks, G2_LAUNCHES, "i8")
+    cons, atts, counts, timing, host_state, first, card = run_g_engine(cap, specs, blocks, G2_LAUNCHES, "i8")
 
     n_sym = cons["l0"].symbols // n_blocks
     lsm = {}
@@ -4736,7 +4854,7 @@ def run_program_g2(device) -> dict:
         c = cons[f"le{e}"]
         valid = [x for x in c.keys("tsbk") if x is not None]
         check(not valid, f"empty LSM channel le{e} yielded CRC-valid TSBKs")
-        empty[f"le{e}"] = dict(frame_syncs=c.framer.sync_count)
+        empty[f"le{e}"] = dict(frame_syncs=atts[f"le{e}"].framer.sync_count)
         c = cons[f"pe{e}"]
         check(not c.keys("mac"), f"empty Phase 2 channel pe{e} yielded MAC PDUs")
         empty[f"pe{e}"] = dict(fragments=len(c.keys("fragment")))
@@ -4749,6 +4867,643 @@ def run_program_g2(device) -> dict:
                 p25_slots=G2_P25_CAPACITY, p25p2_slots=G2_P2_CAPACITY, symbols_per_block=n_sym,
                 setup_s=setup_s, lsm=lsm, phase2=p2, empty=empty, echo_eq_hits=int(hits[echo_slot]), **plain,
                 **g_report(cap, timing, host_state, counts, n_blocks))
+
+
+# --- phase 12: the channel attachments and the scanner on the engine (program H) --------
+
+H_FS = 10_000_000
+H_CENTER = 152_000_000.0
+H_BLOCKS = 50  # 0.2 s each (1,984,400 samples: whole wide-slot and channelizer steps)
+H_CAPACITY = 160  # program D's bank
+H_AMPLITUDE = 0.02
+H_DEVIATION = 4500.0  # Hz a unit of the pagers' audio (tests/test_attachments_live.py:207-220)
+H_DSP = {"enable_highpass": False, "enable_lowpass": False}  # as the server's attachment route sets them
+H_RATE = 50_000  # narrow stations are made at the channel rate, the WBFM one at 10x: whole samples a block
+H_POCSAG = ((512, 20), (512, 23), (1200, 26), (1200, 29), (1200, 32), (2400, 35), (2400, 38), (2400, 41))
+H_FLEX = (44, 47, 50, 53)
+H_RDS_BIN = 100  # the WBFM station at +2.5 MHz: narrow bins 88-112 stay clear of it
+H_RDS = (0x5A17, "WAVECAP ", "RDS ON THE H100")  # PI, PS, RadioText
+H_SCAN_BINS = (250, 253, 256, 259, 262, 265)
+H_SCAN_ACTIVE = 5  # the entry whose bin carries the gated carrier
+# the blocks in which that carrier is up: the scanner reaches the last entry
+# after five dwells (~16 blocks) and again ~16 blocks after the first
+# carrier drops; the gap outlasts a hold and two blocks.  The dwell outlasts
+# a retune's wait for a block at the new frequency (a block and its
+# dispatch): the scanner reads the channel's last RSSI, which until then
+# is the old frequency's
+H_SCAN_ON = ((8, 26), (38, 50))
+H_SCAN_DWELL_S, H_SCAN_HOLD_S, H_SCAN_SQUELCH_DB = 0.6, 0.4, -60.0
+H_TONE_BINS = tuple(range(150, 190, 2))  # gated 1 kHz FM tones among the bank's fillers
+H_IDLE_BINS = tuple(range(113, 150)) + tuple(range(300, 400))
+H_PLAIN_BLOCKS = 2
+H_REPLAY_BLOCKS = 4
+H_MARGIN_S = 0.004  # a page's sync-to-content span keeps this far from a block's edges
+# the NBFM path's delay, RF to 48 kHz audio, at 25 kHz bins: the channelizer's
+# prototype (M x 9 taps) is centred, and a block whose channel samples 25 does
+# not divide takes the centred one-shot resampler (measured on the plain path)
+H_AUDIO_DELAY_S = (400 * 9 - 2) / 2 / H_FS
+# kernel launches per block: one NBFM bank (its IIR filters off) and one wide
+# group (K7 shift, K5 to audio, K9 deemphasis and MPX low-pass)
+H_LAUNCHES = {"K1_unpack_arms": 1, "K2_arm_dft": 1, "K3_slot_frontend": 1, "K5_resample_poly": 2,
+              "K7_strided_fir": 1, "K9_iir_cascade": 2}
+
+
+class HPage:
+    """One sent page: its station, key (address or capcode, content), the
+    sync word's start and the end of its content (s, signal time), and
+    the least distance (samples) from a decoder's bit sample to its bit's
+    edges."""
+
+    def __init__(self, station: str, key: tuple, sync: float, crit_end: float, margin: float):
+        self.station, self.key, self.sync, self.crit_end, self.margin = station, key, sync, crit_end, margin
+
+
+def h_text(rng, n: int, numeric: bool) -> str:
+    if numeric:
+        return "".join(rng.choice(list("0123456789"), n))
+    body = list(rng.choice(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"), n))
+    for i in rng.integers(1, max(2, n - 1), n // 5):
+        body[int(i)] = " "
+    return "".join(body)
+
+
+def h_pocsag_sets(rng) -> dict:
+    """Each POCSAG station's set of pages (address, text, numeric), sized
+    so that the sync word, the address word (frame 0) and the content
+    words fit inside one block: 512 baud a 5-digit numeric page, 1200
+    two alpha pages of up to 11 characters, 2400 three of up to 20."""
+    sets = {}
+    for s, (baud, _) in enumerate(H_POCSAG):
+        n_pages, n_chars = {512: (1, 5), 1200: (2, 11), 2400: (3, 20)}[baud]
+        pages = []
+        for _ in range(n_pages):
+            numeric = baud == 512
+            n = n_chars if numeric else int(rng.integers(n_chars // 2, n_chars + 1))
+            pages.append((int(rng.integers(1, 1 << 18)) << 3, h_text(rng, n, numeric), numeric))
+        sets[f"pocsag{s}"] = (baud, pages)
+    return sets
+
+
+def h_flex_sets(rng) -> dict:
+    return {f"flex{s}": [(int(rng.integers(1, 1 << 21)), h_text(rng, int(rng.integers(8, 22)), False))
+                         for _ in range(3)] for s in range(len(H_FLEX))}
+
+
+def h_crit_bits(text: str, numeric: bool) -> int:
+    """The sync word, the address word and the content words."""
+    return 32 + 32 * (1 + -(-(4 if numeric else 7) * len(text) // 20))
+
+
+def h_levels(bits: np.ndarray, t0: float, baud: float, n: int, rate: int = H_RATE):
+    """``modulate_pocsag`` / ``modulate_flex`` levels (1 -> -0.8) of bits
+    starting at ``t0`` s, on the ``rate`` grid: (first sample, levels)."""
+    s0 = int(np.ceil(t0 * rate))
+    s1 = min(n, int(np.ceil((t0 + len(bits) / baud) * rate)))
+    idx = np.minimum(((np.arange(s0, s1) / rate - t0) * baud).astype(np.int64), len(bits) - 1)
+    return s0, np.where(bits[idx] > 0, -0.8, 0.8).astype(np.float32)
+
+
+def h_fm(audio: np.ndarray, deviation: float, rate: int) -> np.ndarray:
+    return np.exp(2j * np.pi * deviation * np.cumsum(audio.astype(np.float64)) / rate)
+
+
+def h_margins(syncs: np.ndarray, n_bits: int, baud: float, n_audio: int, block_s: float, windows: list):
+    """For each candidate sync time (s), the least distance (48 kHz
+    samples) from a decoder's bit sample to its bit's edges, over the
+    ``n_bits`` bits from the sync word on and every call whose window holds
+    them all (inf where none does).  The decoders sample a window's bits at
+    ``int(j * spb + spb / 2)`` from its start, without clock recovery, and
+    each block's audio is resampled on its own (``n_audio`` samples for
+    ``block_s``, so the stream's clock steps at every block edge)."""
+    tau = syncs[:, None] + np.arange(n_bits + 1)[None, :] / baud + H_AUDIO_DELAY_S
+    blk = np.floor(tau / block_s)
+    a = blk * n_audio + (tau - blk * block_s) * 48_000
+    spb = 48_000 / baud
+    worst = np.full(len(syncs), np.inf)
+    for w0, w1 in windows:
+        inside = (a[:, 0] >= w0) & (a[:, -1] <= w1)
+        if not inside.any():
+            continue
+        j = np.round(((a[:, :-1] + a[:, 1:]) / 2 - w0 - spb / 2) / spb)
+        pos = w0 + np.floor(j * spb + spb / 2)
+        m = np.minimum(pos - a[:, :-1], a[:, 1:] - pos).min(axis=1)
+        worst = np.where(inside, np.minimum(worst, m), worst)
+    return worst
+
+
+def h_best(syncs, n_bits: int, baud: float, n_audio: int, block_s: float, windows: list) -> tuple:
+    """The candidate sync time whose bits every call samples farthest from
+    their edges, and that margin; a page no call can decode fails."""
+    margins = h_margins(np.asarray(syncs), n_bits, baud, n_audio, block_s, windows)
+    margins[np.isinf(margins)] = -np.inf  # no call's window holds the page
+    i = int(np.argmax(margins))
+    check(np.isfinite(margins[i]) and margins[i] >= 1.0,
+          f"no placement samples a {baud:g}-baud page 1 sample from its bits' edges ({margins[i]:.2f})")
+    return float(syncs[i]), float(margins[i])
+
+
+def h_pocsag_station(name: str, baud: int, pages: list, first: float, n: int, block_s: float, n_audio: int,
+                     run_s: float, n_calls: int):
+    """A pager's audio at ``H_RATE``: its set again and again, each page's
+    preamble, sync and batch (``encode_message``) with its sync word
+    starting just inside a block and its content done before the block
+    ends (a block edge inside would let a call decode a shortened page),
+    placed where every call's decoder samples its bits farthest from their
+    edges (``h_best``); returns (audio, pages)."""
+    from wavecap_tpu_torch.decoders import pocsag
+
+    audio, sent = np.zeros(n, np.float32), []
+    windows = h_windows(n_audio, 57_600, n_calls)
+    t_free, i = first, 0
+    while True:
+        addr, text, numeric = pages[i % len(pages)]
+        bits = pocsag.encode_message(addr, text, numeric=numeric)
+        n_crit = h_crit_bits(text, numeric)
+        crit = n_crit / baud
+        slack = block_s - 2 * H_MARGIN_S - crit
+        check(slack > 1 / baud, f"{name}: a page's sync and content do not fit in a block")
+        b = max(0, int(np.floor((t_free + 576 / baud) / block_s)))
+        if b * block_s + H_MARGIN_S - 576 / baud < t_free:
+            b += 1
+        sync0 = b * block_s + H_MARGIN_S
+        if sync0 + (len(bits) - 574) / baud > run_s - block_s:
+            break
+        sync, margin = h_best(sync0 + np.arange(0.0, min(slack, 2 / baud), 1 / 384_000), n_crit, baud, n_audio,
+                              block_s, windows)
+        end = sync + (len(bits) - 576) / baud
+        s0, lv = h_levels(bits, sync - 576 / baud, baud, n)
+        audio[s0:s0 + len(lv)] = lv
+        sent.append(HPage(name, (addr, text, baud), sync, sync + crit, margin))
+        t_free, i = end + 0.02, i + 1
+    return audio, sent
+
+
+def h_flex_station(name: str, frames: list, first_block: int, n: int, block_s: float, n_audio: int, run_s: float,
+                   n_calls: int):
+    """A FLEX pager's audio: its frames (``encode_frame``) 4 blocks apart.
+    The decoder drops a data word that fails its check, so a bit lost at a
+    block's edge would shorten a page: the block edge falls in the sync
+    word (about 10 bits in), and the frame word and all 8 data words lie
+    inside the next block, placed as ``h_best`` finds."""
+    from wavecap_tpu_torch.decoders import flex
+
+    audio, sent = np.zeros(n, np.float32), []
+    windows = h_windows(n_audio, 96_000, n_calls)
+    b, i = first_block, 0
+    while True:
+        cap, text = frames[i % len(frames)]
+        bits = flex.encode_frame(cap, text)
+        sync0 = (b + 1) * block_s - 10 / 1600
+        if sync0 + (len(bits) - 118) / 1600 > run_s - block_s:
+            break
+        sync, margin = h_best(sync0 + np.arange(0.0, 2 / 1600, 1 / 384_000), 352, 1600.0, n_audio, block_s,
+                              windows)
+        s0, lv = h_levels(bits, sync - 120 / 1600, 1600.0, n)
+        audio[s0:s0 + len(lv)] = lv
+        sent.append(HPage(name, (cap, text), sync, sync + 352 / 1600, margin))
+        b, i = b + 4, i + 1
+    return audio, sent
+
+
+def h_rds_station(n_wide: int, rate: int) -> np.ndarray:
+    """The WBFM station at ``rate``: a 1 kHz program tone, the 19 kHz
+    pilot and RDS (``modulate_rds``, as ``tests/test_attachments_live.py:27-46``
+    builds it) with the PI, PS (group 0A) and RadioText (2A) of ``H_RDS``,
+    75 kHz deviation."""
+    from wavecap_tpu_torch.decoders import rds
+
+    pi, ps, rt = H_RDS
+    rt = rt.ljust(-(-len(rt) // 4) * 4)
+    groups = [rds.encode_group(pi, 0, (10 << 5) | seg, 0xE201, (ord(ps[2 * seg]) << 8) | ord(ps[2 * seg + 1]))
+              for seg in range(4)]
+    groups += [rds.encode_group(pi, 2, (10 << 5) | seg, (ord(rt[4 * seg]) << 8) | ord(rt[4 * seg + 1]),
+                                (ord(rt[4 * seg + 2]) << 8) | ord(rt[4 * seg + 3])) for seg in range(len(rt) // 4)]
+    n_bits = int(n_wide / rate * rds.RDS_BITRATE) + 1
+    bits = np.concatenate(groups * (-(-n_bits // (104 * len(groups)))))[:n_bits]
+    mpx = np.asarray(rds.modulate_rds(bits, rate, amplitude=0.12), np.float64)[:n_wide]
+    mpx = np.pad(mpx, (0, n_wide - len(mpx)))
+    mpx += 0.4 * np.sin(2 * np.pi * 1000.0 * np.arange(n_wide) / rate)
+    return h_fm(mpx, 75_000.0, rate)
+
+
+def h_gated_carrier(n: int, block_s: float) -> np.ndarray:
+    t = np.arange(n) / H_RATE
+    env = np.zeros(n)
+    for b0, b1 in H_SCAN_ON:
+        ramp = 1e-3
+        env = np.maximum(env, np.clip(np.minimum(t - b0 * block_s, b1 * block_s - t) / ramp, 0.0, 1.0))
+    return 0.5 - 0.5 * np.cos(np.pi * env)
+
+
+def h_gated_tone(n: int, phase: float) -> np.ndarray:
+    period, on = D_GATE
+    t = np.arange(n) / H_RATE + phase
+    return h_fm(((t % period) < on) * np.sin(2 * np.pi * 1000.0 * t), 4000.0, H_RATE)
+
+
+def h_scene(cfg, device, n_blocks: int, block_size: int, n_audio: int, seed: int = SEED + 16):
+    """Program H's stations as one IQ record of ``n_blocks`` blocks at
+    ``H_FS``: each narrow station made at ``H_RATE`` and the WBFM one at
+    10x, their spectra placed at their bins' offsets (whole cycles over
+    the record) and summed, one inverse FFT on ``device``.  Returns the
+    IQ, the pages sent and the scanner's entries (Hz)."""
+    import torch
+
+    from wavecap_tpu_torch.ops.channelizer import ChannelizerConfig
+
+    rng = np.random.default_rng(seed)
+    ch = ChannelizerConfig(sample_rate=float(H_FS), channel_bandwidth=25_000.0)
+    block_s = block_size / H_FS
+    run_s = n_blocks * block_s
+    n_total = n_blocks * block_size
+    n = n_total * H_RATE // H_FS
+    check(n * H_FS == n_total * H_RATE, "the narrow stations' rate does not divide the record")
+    parts, sent = [], []
+    for (name, (baud, pages)), (_, b) in zip(h_pocsag_sets(rng).items(), H_POCSAG):
+        first = block_s * float(rng.uniform(0.5, 2.0))  # some pages inside the replayed blocks
+        audio, pg = h_pocsag_station(name, baud, pages, first, n, block_s, n_audio, run_s, n_blocks)
+        parts.append((H_AMPLITUDE * h_fm(audio, H_DEVIATION, H_RATE), H_RATE, b))
+        sent += pg
+    pg_flex: list = []
+    for (name, frames), b in zip(h_flex_sets(rng).items(), H_FLEX):
+        audio, pg = h_flex_station(name, frames, 1 + len(pg_flex) % 4, n, block_s, n_audio, run_s, n_blocks)
+        pg_flex.append(name)
+        parts.append((H_AMPLITUDE * h_fm(audio, H_DEVIATION, H_RATE), H_RATE, b))
+        sent += pg
+    parts.append((D_AMPLITUDE * h_rds_station(10 * n, 10 * H_RATE), 10 * H_RATE, H_RDS_BIN))
+    parts.append((H_AMPLITUDE * h_gated_carrier(n, block_s), H_RATE, H_SCAN_BINS[H_SCAN_ACTIVE]))
+    for k, b in enumerate(H_TONE_BINS):
+        parts.append((H_AMPLITUDE * h_gated_tone(n, 0.013 * k), H_RATE, b))
+    spec = torch.zeros(n_total, dtype=torch.complex64, device=device)
+    for x, rate, b in parts:
+        n_r = len(x)
+        shift = int(round(ch.channel_offset_hz(b) * run_s))
+        k = np.fft.fftfreq(n_r, 1.0 / n_r).astype(np.int64)
+        target = torch.from_numpy((k + shift) % n_total).to(device)
+        spec[target] += torch.fft.fft(torch.from_numpy(x.astype(np.complex64)).to(device)) * (n_total / n_r)
+    iq = host(torch.fft.ifft(spec))
+    del spec
+    scan = [H_CENTER + ch.channel_offset_hz(b) for b in H_SCAN_BINS]
+    return iq, sent, scan
+
+
+class HScanLog:
+    """The engine as the scanner sees it: every retune recorded (wall
+    time, Hz) on its way to ``Capture.update_channel``."""
+
+    def __init__(self, cap):
+        self.cap, self.retunes = cap, []
+
+    @property
+    def channels(self):
+        return self.cap.channels
+
+    def update_channel(self, channel_id, **kw):
+        self.retunes.append((time.perf_counter(), kw.get("frequency_hz")))
+        return self.cap.update_channel(channel_id, **kw)
+
+
+def h_channels(cap, ch_cfg) -> dict:
+    """Every channel of program H through ``create_channel``, in one order
+    (so that a second capture gets the same slots): the pagers, the
+    scanner's channel, the fillers on the gated tones and on idle bins up
+    to ``H_CAPACITY``, and the WBFM station's wide slot."""
+    from wavecap_tpu_torch.capture import ChannelSpec
+
+    specs = [(f"pocsag{s}", b) for s, (_, b) in enumerate(H_POCSAG)]
+    specs += [(f"flex{s}", b) for s, b in enumerate(H_FLEX)]
+    specs.append(("scan", H_SCAN_BINS[0]))
+    specs += [(f"tone{k}", b) for k, b in enumerate(H_TONE_BINS)]
+    idle = iter(H_IDLE_BINS)
+    while len(specs) < H_CAPACITY:
+        b = next(idle)
+        specs.append((f"idle{b}", b))
+    check(len({b for _, b in specs}) == len(specs), "program H: two channels on one bin")
+    handles = {cid: cap.create_channel(ChannelSpec(id=cid, mode="nbfm", dsp=dict(H_DSP),
+                                                   frequency_hz=H_CENTER + ch_cfg.channel_offset_hz(b)))
+               for cid, b in specs}
+    handles["rds"] = cap.create_channel(ChannelSpec(id="rds", mode="wbfm",
+                                                    frequency_hz=H_CENTER + ch_cfg.channel_offset_hz(H_RDS_BIN)))
+    return handles
+
+
+def h_attach(cap, handles: dict) -> dict:
+    from wavecap_tpu_torch.capture.attachments import FlexAttachment, PocsagAttachment, RdsAttachment
+
+    atts = {cid: PocsagAttachment(h) for cid, h in handles.items() if cid.startswith("pocsag")}
+    atts.update({cid: FlexAttachment(h) for cid, h in handles.items() if cid.startswith("flex")})
+    atts["rds"] = RdsAttachment(handles["rds"], capture=cap)
+    return atts
+
+
+def h_msgs(att, since: int) -> list:
+    """An attachment's messages from position ``since`` on, without their
+    wall-clock stamp."""
+    return [{k: v for k, v in m.items() if k != "time"} for m in list(att.messages)[since:]]
+
+
+def h_windows(n_audio: int, keep: int, n_calls: int) -> list:
+    """Each call's audio window (first, end) in stream samples: the
+    decoder's kept tail (``keep`` samples, ``POCSAGDecoder`` 1.2 s,
+    ``FlexDecoder`` 2 s) and the new block."""
+    out, tail = [], 0
+    for k in range(n_calls):
+        length = tail + n_audio
+        out.append(((k + 1) * n_audio - length, (k + 1) * n_audio))
+        tail = min(keep, length)
+    return out
+
+
+def h_pager_calls(kind: str, sent: list, got: list, n_audio: int, block_s: float) -> dict:
+    """One pager's decodes, call by call, against what the call's window
+    held: a page could decode in call ``k`` only if its sync word and
+    content lie inside the window, and must decode in a call whose window
+    holds them with ``H_MARGIN_S`` to spare.  Every decode is a page sent
+    (address or capcode and content as sent), none is decoded twice in
+    one call, each page sent decodes in at least one call."""
+    keep = 57_600 if kind == "pocsag" else 96_000
+
+    def t_of(i: int) -> float:  # signal time of stream audio sample i
+        return (i // n_audio) * block_s + (i % n_audio) / 48_000 - H_AUDIO_DELAY_S
+
+    m = H_MARGIN_S
+    decoded, needed = [0] * len(sent), [False] * len(sent)
+    most = 0
+    for k, (w0, w1) in enumerate(h_windows(n_audio, keep, len(got))):
+        lo, hi = t_of(w0), t_of(w1 - 1)
+        allowed = {p.key: i for i, p in enumerate(sent) if p.sync >= lo - m and p.crit_end <= hi + m}
+        check(len(allowed) == sum(p.sync >= lo - m and p.crit_end <= hi + m for p in sent),
+              f"{sent[0].station}: one page twice in a window")
+        for i, p in enumerate(sent):
+            needed[i] |= p.sync >= lo + m and p.crit_end <= hi - m
+        most += len(allowed)
+        keys = [(d["address"], d["content"], d["baud"]) if kind == "pocsag" else (d["capcode"], d["content"])
+                for d in got[k]]
+        check(all(key in allowed for key in keys), f"{sent[0].station} call {k}: decoded {keys} beyond the "
+              f"pages its window held {sorted(allowed)}")
+        check(len(set(keys)) == len(keys), f"{sent[0].station} call {k}: a page decoded twice: {keys}")
+        for key in keys:
+            decoded[allowed[key]] += 1
+    missed = [sent[i].key for i, n in enumerate(decoded) if n == 0 and needed[i]]
+    check(not missed, f"{sent[0].station}: pages sent but never decoded: {missed}")
+    fewest = sum(needed)
+    check(fewest <= sum(decoded) <= most, f"{sent[0].station}: {sum(decoded)} decodes, not within {fewest} .. {most}")
+    return dict(pages_sent=len(sent), decodes=sum(decoded), fewest=fewest, most=most,
+                decodes_per_page=[int(n) for n in decoded], sample_margin_min=min(p.margin for p in sent))
+
+
+def h_config():
+    from wavecap_tpu_torch.capture import CaptureConfig
+
+    return CaptureConfig(center_hz=H_CENTER, sample_rate=H_FS, channel_bandwidth=25_000.0, block_seconds=0.2,
+                         narrow_capacity=H_CAPACITY, wide_capacity=1, p25_capacity=0, fft_size=2048,
+                         audio_rate=48_000, transport="i16", adaptive_transport=False)
+
+
+def h_scan_report(per_block: list, retunes: list, scanner, scan_freqs: list) -> dict:
+    """The scanner's record against the carrier's schedule: it stops (a
+    hit) on the active entry only, stays there while the carrier is up,
+    visits only its entries, and makes at least two full passes."""
+    active = scan_freqs[H_SCAN_ACTIVE]
+
+    def up(k: int) -> bool:
+        return any(b0 <= k < b1 for b0, b1 in H_SCAN_ON)
+
+    visited = [f for _, f in retunes]
+    check(visited and set(visited) <= set(scan_freqs), f"the scanner tuned {sorted(set(visited) - set(scan_freqs))}")
+    hits = {f: n for f, n in scanner.hits.items() if n}
+    check(set(hits) == {active}, f"the scanner stopped on {sorted(hits)}, not only on {active}")
+    for k, r in enumerate(per_block):
+        check(r["state"] != "holding" or r["freq"] == active,
+              f"block {k}: the scanner holds on {r['freq']}, an idle entry")
+        if k + 1 < len(per_block) and r["freq"] == active and up(k) and up(k + 1):
+            check(per_block[k + 1]["freq"] == active,
+                  f"block {k + 1}: the scanner left {active} while its carrier was up")
+    order = [scan_freqs.index(f) for f in visited]
+    passes, want = 0, 0
+    for i in order:
+        if i == want:
+            want += 1
+            if want == len(scan_freqs):
+                passes, want = passes + 1, 0
+    check(passes >= 2, f"the scanner made {passes} full passes, not 2: {order}")
+    on_blocks = [k for k, r in enumerate(per_block) if r["freq"] == active]
+    return dict(visited_entries=order, visited_hz=visited, full_passes=passes, hits=hits,
+                blocks_on_active=on_blocks, carrier_up_blocks=[list(x) for x in H_SCAN_ON],
+                states=[r["state"] for r in per_block], rssi_db=[round(r["rssi"], 1) for r in per_block])
+
+
+def h_vs_plain(first: dict, blocks: list) -> dict:
+    """The first blocks through the same engine on the CPU (the plain
+    versions): each pager's published audio and the wide slot's
+    baseband, >= 50 dB against the card's (program D's floor)."""
+    from wavecap_tpu_torch.capture import CaptureManager
+    from wavecap_tpu_torch.devices import FakeDriver
+
+    pcap = CaptureManager(FakeDriver(1), device="cpu").create_capture(config=h_config())
+    ph = h_channels(pcap, pcap._channelizer)
+    pcap.enable_wide_baseband()
+    subs = {cid: (ph[cid].baseband if cid == "rds" else ph[cid].audio).subscribe(maxsize=H_PLAIN_BLOCKS + 2)
+            for cid in first}
+    for k in range(H_PLAIN_BLOCKS):
+        pcap.transport_active = "i16"
+        pcap._dispatch_blocks([blocks[k]])
+    db = {}
+    for cid, sub in subs.items():
+        for k in range(H_PLAIN_BLOCKS):
+            ref = sub.get_nowait()
+            check(ref is not None and ref.shape == first[cid][k].shape,
+                  f"{cid} block {k}: the plain path published {None if ref is None else ref.shape}")
+            db[f"{cid}:{k}"] = snr_db(ref, first[cid][k])
+    worst = min(db, key=db.get)
+    check(db[worst] >= 50.0, f"program H's first blocks: {worst} at {db[worst]:.1f} dB < 50 against the plain path")
+    return dict(first_blocks=H_PLAIN_BLOCKS, min_db=db[worst], min_at=worst,
+                audio_min_db=min(v for c, v in db.items() if not c.startswith("rds")),
+                baseband_min_db=min(v for c, v in db.items() if c.startswith("rds")))
+
+
+def h_replay(device, blocks: list, calls: dict) -> dict:
+    """``write_iq_wav`` of the first blocks, replayed by ``FileReplayDriver``
+    through a second capture on ``device`` with the same channels and
+    attachments: the same pages, call for call, as the fake receiver's run."""
+    import tempfile
+    from pathlib import Path
+
+    from wavecap_tpu_torch.capture import CaptureManager
+    from wavecap_tpu_torch.devices import DeviceConfig, FileReplayDriver
+    from wavecap_tpu_torch.utils.wavio import write_iq_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "program_h.wav"
+        write_iq_wav(path, np.concatenate(blocks[:H_REPLAY_BLOCKS]), H_FS)
+        cap = CaptureManager(FileReplayDriver(path, loop=False), device=device).create_capture(config=h_config())
+        handles = h_channels(cap, cap._channelizer)
+        atts = h_attach(cap, handles)
+        try:
+            cap.device.configure(DeviceConfig(center_hz=H_CENTER, sample_rate=H_FS))
+            check(cap.device.file_rate == H_FS, f"the replay's rate {cap.device.file_rate}")
+            stream = cap.device.start_stream()
+            step = 0.0
+            for k in range(H_REPLAY_BLOCKS):
+                x, overflow = stream.read(cap.block_size)
+                check(not overflow, "the replay overflowed")
+                step = max(step, float(np.max(np.abs(x - blocks[k]))))
+                cap.transport_active = "i16"
+                cap._dispatch_blocks([x])
+                attachments_wait(atts, k + 1, "program H's replay")
+            check(stream.read(1)[0][0] == 0 and stream.exhausted, "the replay did not end with its file")
+            check(step <= 2.5 / 32768, f"the replayed samples are {step:.3g} off the blocks written")
+            same, pages = 0, 0
+            for cid, a in atts.items():
+                if cid == "rds":
+                    continue
+                want = [m for c in calls[cid][:H_REPLAY_BLOCKS] for m in c]
+                got = h_msgs(a, 0)
+                check(got == want, f"{cid}: the replay decoded {got}, the fake receiver's run {want}")
+                same, pages = same + 1, pages + len(got)
+            check(pages > 0, "no page decoded in the replayed blocks")
+        finally:
+            for a in atts.values():
+                a.stop()
+    return dict(blocks=H_REPLAY_BLOCKS, channels_same=same, pages_same=pages, max_sample_step=step)
+
+
+def run_program_h(device) -> dict:
+    """Program H: the port's channel attachments and scanner on the engine
+    at 10 Msps, 25 kHz bins (M = 400), 0.2 s blocks.  ``CaptureManager``
+    over a fake receiver -> ``create_capture`` -> ``create_channel``: an
+    NBFM bank of 160 (8 POCSAG pagers at 512, 1200 and 2400 baud, 4 FLEX
+    pagers, the scanner's channel, gated tones and idle bins) and a WBFM
+    wide slot with RDS; ``PocsagAttachment`` / ``FlexAttachment`` on the
+    pagers, ``RdsAttachment`` on the wide slot (its baseband fan-out on),
+    a ``ScannerService`` over six entries, one with a gated carrier.  One
+    ``_dispatch_blocks`` a block, paced to the blocks' length (the
+    scanner's dwell and hold are wall-clock times), every attachment
+    waited for after each block."""
+    import torch
+
+    from wavecap_tpu_torch.capture import CaptureManager
+    from wavecap_tpu_torch.capture.pipeline import capture_multi, pipeline_init
+    from wavecap_tpu_torch.capture.scanner import ScanEntry, ScannerConfig, ScannerService
+    from wavecap_tpu_torch.devices import DeviceConfig, FakeDriver, FakeStation
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    t_all = time.perf_counter()
+    stations: list = []
+    mgr = CaptureManager(FakeDriver(1, stations), device=device)
+    cap = mgr.create_capture(config=h_config())
+    ch_cfg = cap._channelizer
+    block_s = cap.block_size / H_FS
+    steps = 2 * cap.block_size // ch_cfg.channel_count
+    n_audio = -(-steps * 48_000 // int(ch_cfg.channel_rate))
+    iq, sent, scan_freqs = h_scene(cap.config, device, H_BLOCKS, cap.block_size, n_audio)
+    stations.append(FakeStation(offset_hz=0.0, kind="iq_loop", iq_loop=iq, amplitude=1.0))
+    sdr = mgr.driver.open("fake0")
+    sdr.configure(DeviceConfig(center_hz=H_CENTER, sample_rate=H_FS))
+    stream = sdr.start_stream()
+    blocks = [stream.read(cap.block_size)[0] for _ in range(H_BLOCKS)]
+    del iq, stations[:]
+    scene_s = time.perf_counter() - t_all
+
+    handles = h_channels(cap, ch_cfg)
+    atts = h_attach(cap, handles)
+    pagers = [cid for cid in atts if cid != "rds"]
+    taps = {cid: handles[cid].audio.subscribe(maxsize=H_BLOCKS + 2) for cid in pagers}
+    taps["rds"] = handles["rds"].baseband.subscribe(maxsize=H_BLOCKS + 2)
+    scan_h = handles["scan"]
+    build, built = cap._build_control, []
+
+    def build_noted():  # the scanner channel's frequency in each control the blocks run with
+        built.append(scan_h.spec.frequency_hz)
+        return build()
+
+    cap._build_control = build_noted
+    t0 = time.perf_counter()
+    w = cap.warmup()
+    w.join(timeout=900)
+    check(not w.is_alive() and cap.warmup_error is None, f"program H: warmup failed: {cap.warmup_error}")
+    warm_s = time.perf_counter() - t0
+    gen0, slot0 = cap._pipe_gen, scan_h.slot
+    scan_log = HScanLog(cap)
+    scanner = ScannerService(scan_log, "scan", ScannerConfig(
+        entries=[ScanEntry(f) for f in scan_freqs], dwell_s=H_SCAN_DWELL_S, hold_s=H_SCAN_HOLD_S,
+        squelch_db=H_SCAN_SQUELCH_DB))
+    calls = {cid: [] for cid in atts}
+    first = {cid: [] for cid in taps}
+    per_block, timing = [], []
+    reset_launch_counts()
+    t_run = time.perf_counter()
+    scanner.start()
+    try:
+        for k, block in enumerate(blocks):
+            t_b = time.perf_counter()
+            cap.transport_active = "i16"
+            cap._dispatch_blocks([block])
+            t_d = time.perf_counter()
+            per_block.append(dict(freq=built[-1], rssi=scan_h.rssi_db, state=scanner.state))
+            wait_ms = attachments_wait(atts, k + 1, "program H")
+            for cid, a in atts.items():
+                seen = sum(len(c) for c in calls[cid])
+                check(len(a.messages) < a.messages.maxlen, f"{cid}: the message ring filled")
+                calls[cid].append(h_msgs(a, seen))
+            for cid, sub in taps.items():
+                x = sub.get_nowait()
+                check(x is not None and sub.get_nowait() is None, f"{cid}: not one published batch in block {k}")
+                if cid != "rds":
+                    check(x.shape == (n_audio,), f"{cid}: {x.shape} audio samples, not {n_audio}")
+                if k < H_PLAIN_BLOCKS:
+                    first[cid].append(np.asarray(x, np.float32))
+            timing.append(((t_d - t_b) * 1e3, wait_ms))
+            time.sleep(max(0.0, t_run + (k + 1) * block_s - time.perf_counter()))
+    finally:
+        scanner.stop()
+        cap._build_control = build
+    run_s = time.perf_counter() - t_run
+    counts = launch_counts()
+    check(cap.blocks_processed == H_BLOCKS and cap.state != "failed", f"program H: engine {cap.state}: {cap.error}")
+    if cap.torch_device.type == "cuda":
+        want = {name: H_BLOCKS * H_LAUNCHES.get(name, 0) for name in counts}
+        check(counts == want, f"program H: launch counts {counts} != {want}")
+    check(cap._pipe_gen == gen0 and scan_h.slot == slot0 and list(mgr.captures.values()) == [cap],
+          "program H: a retune rebuilt the program, moved the slot or made a capture")
+    check(cap.channels["scan"] is scan_h, "program H: the scanner's channel was replaced")
+
+    pages = {}
+    for cid in pagers:
+        kind = "pocsag" if cid.startswith("pocsag") else "flex"
+        pages[cid] = h_pager_calls(kind, [p for p in sent if p.station == cid], calls[cid], n_audio, block_s)
+    rds = atts["rds"].decoder.data
+    check((rds.pi, rds.ps, rds.radiotext) == H_RDS,
+          f"RDS: pi {rds.pi}, ps {rds.ps!r}, radiotext {rds.radiotext!r}, not {H_RDS}")
+    scan = h_scan_report(per_block, scan_log.retunes, scanner, scan_freqs)
+    for a in atts.values():
+        a.stop()
+    plain = h_vs_plain(first, blocks)
+    replay = h_replay(device, blocks, calls)
+    profile = None
+    if cap.torch_device.type == "cuda":
+        pipe_cfg, ctl = cap._pipe_cfg, cap._ctl
+        words = torch.from_numpy(_words_for("i16", blocks[0])[0]).to(device)
+
+        def one_pass():
+            o, _ = capture_multi(words, pipeline_init(pipe_cfg, device=device), ctl, pipe_cfg)
+            fetch(o["_packed"])
+
+        one_pass()
+        torch.cuda.synchronize()
+        profile = profile_blocks(one_pass, 1, torch.cuda.synchronize)
+    disp, wait = (np.asarray(x) for x in zip(*timing))
+    return dict(phase="attachments and scanner on the engine (program H)", blocks=H_BLOCKS,
+                block_size=cap.block_size, block_s=block_s, channels=ch_cfg.channel_count, nbfm_slots=H_CAPACITY,
+                audio_per_block=n_audio, launches=counts,
+                launches_per_block={k: v / H_BLOCKS for k, v in counts.items() if v},
+                pages=pages, pages_sent=len(sent), decodes=sum(p["decodes"] for p in pages.values()),
+                rds=dict(pi=rds.pi, ps=rds.ps, radiotext=rds.radiotext, blocks_ok=rds.blocks_ok,
+                         blocks_bad=rds.blocks_bad, groups=dict(rds.group_counts)),
+                scanner=scan, vs_plain=plain, replay=replay, profile=profile,
+                dispatch_ms_per_block=dict(mean=float(disp.mean()), max=float(disp.max())),
+                attachment_wait_ms_per_block=dict(mean=float(wait.mean()), max=float(wait.max())),
+                scene_s=scene_s, warmup_s=warm_s, run_s=run_s, h_wall_s=time.perf_counter() - t_all)
 
 
 def card_line() -> str:
@@ -5090,6 +5845,8 @@ def main(argv=None) -> int:
         # program G: the port's decoders on the engine's P25 banks
         log(run_program_g1(device))
         log(run_program_g2(device))
+        # program H: the channel attachments and the scanner on the engine
+        log(run_program_h(device))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,5 @@
-"""IQ sources: the fake synthesizer (numpy copies of the JAX package's)."""
+"""IQ sources: fake synthesizer, file replay, hardware gates (numpy copies
+of the JAX package's ``devices``)."""
 
 from .base import (
     Device,
@@ -8,5 +9,6 @@ from .base import (
     StreamHandle,
 )
 from .fake import FakeDevice, FakeDriver, FakeStation, FakeStream
+from .file_replay import FileReplayDriver, FileReplayDevice
 
 __all__ = [n for n in dir() if not n.startswith("_")]
