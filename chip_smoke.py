@@ -46,7 +46,10 @@ It drives the port's paths at full width:
 * the channel attachments and the scanner (program H: POCSAG, FLEX and
   RDS pagers and broadcast on an NBFM bank of 160 and a WBFM wide slot at
   10 Msps, a ``ScannerService`` retuning a channel, and the file-replay
-  source).
+  source);
+* trunking (program I: P25 Phase 1 and 2 and DMR Tier III sites at 2.4
+  Msps, each locked, its grants followed and its calls recorded; a worker
+  process; Phase 1 on the mesh).
 
 Phases:
 
@@ -147,7 +150,8 @@ Phases:
     ``create_channel``, a ``P25Attachment`` or ``DmrAttachment`` on each
     ``p25`` / ``dmr`` channel (its own thread and ``Channel.symbols``
     subscription), the ``p25p2`` channels through the trunking
-    recorder's Phase 2 path (``GPhase2``), one ``_dispatch_blocks`` a
+    recorder's Phase 2 path (``GP2Recorders``: a ``VoiceRecorder`` a
+    timeslot), one ``_dispatch_blocks`` a
     block, every attachment waited for after each block (a dropped batch
     or a decoder that raised fails).  G1 at the BASELINE point (10 Msps,
     M = 400, a C4FM bank of 50 slots): 40 control channels (each its own
@@ -178,7 +182,25 @@ Phases:
     CPU (the plain versions); the first 4 blocks written by
     ``write_iq_wav`` and replayed by ``FileReplayDriver`` through a second
     capture: the same pages; exact launches a block (``H_LAUNCHES``);
-13. a JSON line of the kernels (K15 with its copies and bytes) and the
+13. program I, the port's trunking (``trunking/``) on the engine, each
+    system the reference's default deployment (``TrunkingSystemConfig``:
+    2.4 Msps, i8 words, 4 voice recorders) through ``TrunkingManager`` ->
+    ``TrunkingSystem``, its capture fed one ``_dispatch_blocks`` a pair of
+    blocks and its pump run once a block, on a virtual clock (holds,
+    hunting and call ends follow the blocks): I1 P25 Phase 1 (C4FM: lock,
+    NAC, system, site, IDEN_UP; two talkgroups' grants onto two recorders;
+    every TSBK from block 3 on as sent; each call's WAV the CPU decode of
+    its recorded IMBE frames, as many as were sent, the same frames once
+    the FEC has decoded them), I2 Phase 2 (CQPSK control with the probe
+    slot, a call in each TDMA slot of the 6000-baud bank: fragments, MAC
+    PDUs, AMBE+2 voice), I3 DMR Tier III (CSBK grants to both slots of a
+    carrier), I4 a ``TrunkingProcessManager`` worker on the card
+    answering ``status`` synced, I5 I1's samples on the 8-shard mesh (the
+    same site, calls, WAVs and control messages from 0.6 s on); each
+    system's launches a block (the ones its scene implies > 0), and its
+    second and third blocks against the engine on the CPU from the card's
+    carried state (>= 50 dB, the same messages; the first block reported);
+14. a JSON line of the kernels (K15 with its copies and bytes) and the
     final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -4374,34 +4396,47 @@ def g_note(att, log: GLog, k: int) -> None:
     log.events += [(k, "ldu", None)] * (frames.get("LDU1", 0) + frames.get("LDU2", 0) - len(ldus))
 
 
-class GPhase2:
-    """The trunking recorder's Phase 2 path (``trunking/recorder.py:133-175``):
-    superframe fragments, their MAC PDUs, AMBE+2 voice bursts to PCM.  The
-    recorder is ROADMAP Queue 1 item 4c, not ported yet; this stands in
-    for it until 4c, which removes it."""
+class GP2Recorders:
+    """A ``p25p2`` channel's calls through the trunking recorder's Phase 2
+    path (``trunking/recorder.py``, ``VoiceRecorder._process_phase2``): one
+    recorder a timeslot, each mid-call on its slot, both fed the channel's
+    symbols.  Taps log the superframe fragments the slot-0 recorder's
+    detector finds, the MAC PDUs each recorder handles (both slots': the
+    loop's PTT and END_PTT) and the PCM each synthesizes, as ``GLog``
+    events by block; the recorders themselves run unchanged."""
 
     def __init__(self):
-        from wavecap_tpu_torch.decoders.ambe_vocoder import AmbeDecoder
         from wavecap_tpu_torch.decoders.p25_phase2 import P25P2SuperFrameDetector
+        from wavecap_tpu_torch.trunking.recorder import CallInfo, VoiceRecorder
 
-        self.p2, self.ambe, self.log = P25P2SuperFrameDetector(), AmbeDecoder(), GLog()
+        self.log, self.k, self.recs = GLog(), 0, []
+        for slot in (0, 1):
+            rec = VoiceRecorder(slot, f"p2-slot{slot}", protocol="p25_phase2")
+            rec.assign(CallInfo(tgid=0, source_id=0, frequency_hz=0.0, start_time=0.0, tdma_slot=slot))
+            det = rec._p2 = P25P2SuperFrameDetector()
+            process, handle = det.process, rec._handle_mac
+
+            def tapped(soft, process=process, slot=slot):
+                frags = list(process(soft))
+                if slot == 0:
+                    self.log.events += [(self.k, "fragment", f.dibits.astype(np.uint8).tobytes()) for f in frags]
+                return frags
+
+            def mac(pdu, handle=handle):
+                self.log.events.append((self.k, "mac", g_key(pdu)))
+                return handle(pdu)
+
+            det.process, rec._handle_mac = tapped, mac
+            self.recs.append(rec)
 
     def feed(self, k: int, soft) -> None:
-        from wavecap_tpu_torch.decoders import p25_mac
-        from wavecap_tpu_torch.decoders.p25_phase2 import extract_voice_frames
-
         soft = np.asarray(soft, np.float32)
+        self.k = k
         self.log.symbols += len(soft)
-        for frag in self.p2.process(soft):
-            self.log.events.append((k, "fragment", frag.dibits.astype(np.uint8).tobytes()))
-            for _, burst in frag.bursts():
-                m = p25_mac.decode_burst(burst)
-                if m is not None and m[0] in (p25_mac.BURST_SACCH, p25_mac.BURST_FACCH):
-                    self.log.events.append((k, "mac", g_key(p25_mac.parse_mac_pdu(m[1]))))
-                    continue
-                pcm = self.ambe.decode_frames(extract_voice_frames(burst))
-                if pcm is not None and len(pcm):
-                    self.log.pcm.append(pcm)
+        for rec in self.recs:
+            n = len(rec._pcm)
+            rec.process_symbols(soft, now=float(k))
+            self.log.pcm += [p for p in rec._pcm[n:] if len(p)]
 
 
 def g_stand_in(cid: str):
@@ -4415,10 +4450,10 @@ def g_stand_in(cid: str):
 
 def g_decode_by_hand(mode: str, softs: list) -> list:
     """A fresh consumer of ``mode`` fed ``softs`` block by block on this
-    thread: the attachment's ``process`` (``GPhase2`` for ``p25p2``);
+    thread: the attachment's ``process`` (``GP2Recorders`` for ``p25p2``);
     returns its valid messages and PCM."""
     if mode == "p25p2":
-        c = GPhase2()
+        c = GP2Recorders()
         for k, s in enumerate(softs):
             c.feed(k, s)
         return c.log.valid() + [("pcm", x.tobytes()) for x in c.log.pcm]
@@ -4541,7 +4576,7 @@ def run_g_engine(cap, specs: list, blocks: list, launches: dict, transport: str)
     and ``channel.symbols`` subscription; after each block every attachment
     is waited for until it has taken the block's batch (a dropped batch or
     a decoder that raised fails), and the ``p25p2`` channels' symbols go
-    through ``GPhase2`` on this thread.  Returns each channel's ``GLog``,
+    through ``GP2Recorders`` on this thread.  Returns each channel's ``GLog``,
     the counts, the decode time a block (wall from the dispatch's end to
     the last consumer's end, the process's CPU and the garbage collector's
     pauses), the first blocks' published symbols and the card's f32 soft
@@ -4558,7 +4593,7 @@ def run_g_engine(cap, specs: list, blocks: list, launches: dict, transport: str)
         h = cap.create_channel(ChannelSpec(id=cid, mode=mode, frequency_hz=freq))
         taps[cid] = (h, h.symbols.subscribe(maxsize=4))
         if mode == "p25p2":
-            p2[cid] = GPhase2()
+            p2[cid] = GP2Recorders()
             logs[cid] = p2[cid].log
         else:
             atts[cid], logs[cid] = g_attach(mode, h), GLog()
@@ -5506,6 +5541,975 @@ def run_program_h(device) -> dict:
                 scene_s=scene_s, warmup_s=warm_s, run_s=run_s, h_wall_s=time.perf_counter() - t_all)
 
 
+
+
+# --- phase 13: trunking on the engine (program I) -----------------------------------------
+
+I_FS = 2_400_000  # the reference's default deployment: 2.4 Msps, i8 transport, 4 voice recorders
+I_CENTER = 851_500_000.0
+I_CC = 851_200_000.0  # -300 kHz: a 25 kHz bin's centre, as every channel here (the mesh maps channels to bins)
+I_BASE_MHZ = 851.0  # the identifiers' base; channels 12.5 kHz apart
+I_NAC = 0x293
+I_SYSTEM, I_SITE = 0x123, 7
+I_AMPLITUDE = 0.05
+I_TSDU_S = 360 / 4800.0  # a TSDU of three TSBKs
+I_BLOCK = 360_000  # the slot banks' block: 0.15 s at 2.4 Msps (the mesh's is shorter)
+I_FIRST = P25_FIRST  # control messages are counted from block 3 on
+I_PLAIN_BLOCKS = 2  # each system's first blocks, also through the engine on the CPU
+I_T0 = 1_800_000_000.0  # the virtual clock's start (s)
+I1_BLOCKS, I2_BLOCKS, I3_BLOCKS = 28, 24, 30  # I1: 4.2 s, whole mesh blocks too (0.12 s)
+# I1's calls: (tgid, source, channel, grant window in TSDUs [from, to), voice start s, LDUs)
+# (a call keys up on a block edge of both the slot banks' 0.15 s and the mesh's 0.12 s blocks: a
+# block a carrier enters part-way is scaled and timed partly on noise)
+I1_CALLS = ((2001, 4201, 56, (2, 26), 0.6, 8), (2002, 4202, 64, (8, 34), 1.2, 8))
+# I2: both slots of TDMA carrier 24 (IDEN_UP_TDMA identifier 2: 851.3 MHz), one call a slot
+I2_CARRIER = 24
+I2_CALLS = ((901, 0), (902, 1))
+I2_GRANTS = (2, 22)  # TSDUs
+I2_KEY_S = 0.3  # the TDMA carrier keys up (MAC_ACTIVE signalling) ...
+I2_VOICE_S = 0.9  # ... and the calls' first fragment (MAC_PTT) starts
+I2_ACQUIRE_FRAGMENTS = 3  # fragments a retuned 6000-baud slot may misread while it acquires (0.36 s)
+# I3: DMR Tier III, LCN 49 / 50 -> carrier 24 (851.3 MHz), slots 0 / 1
+I3_CALLS = ((800, 900, 49), (801, 901, 50))
+I3_GRANTS = (0.15, 1.5)  # s
+I3_VOICE_S = 0.9
+I3_SUPERFRAMES = 3
+I3_MAX_BER = 0.005  # raw AMBE bits a DMR call may flip through the 4800-baud bank (CPU rehearsal: 0.23 %)
+I4_TIMEOUT_S = 240.0
+I1_SAME_S = 0.6  # I1 and I5 count control messages from here on: a block edge of both their block lengths
+I_HANG_S = 0.3  # a voice transmitter's carrier stays up this long after the call's last voice frame
+# the kernels each system's blocks must launch (every count a block is logged)
+I_IMPLIED = {"c4fm": ("K1_unpack_arms", "K2_arm_dft", "K3_slot_frontend", "K7_strided_fir", "K12_c4fm_timing"),
+             "phase2": ("K1_unpack_arms", "K2_arm_dft", "K3_slot_frontend", "K7_strided_fir", "K13_cfo_power",
+                        "K13_cfo_lines", "K13_cqpsk_timing")}
+I_CLOCKED = ("system", "control", "recorder", "events")
+
+
+class IClock:
+    """``time`` as the trunking modules see it during program I: ``time()``
+    is ``now``, moved on a block's length as each block is published; the
+    rest is the real module.  Holds, hunting, sync loss and call ends then
+    follow the blocks, not the host's speed."""
+
+    def __init__(self, now: float = I_T0):
+        self.now = now
+
+    def time(self) -> float:
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@contextlib.contextmanager
+def i_clock():
+    import importlib
+
+    mods = [importlib.import_module(f"wavecap_tpu_torch.trunking.{n}") for n in I_CLOCKED]
+    clock, saved = IClock(), [m.time for m in mods]
+    for m in mods:
+        m.time = clock
+    try:
+        yield clock
+    finally:
+        for m, t in zip(mods, saved):
+            m.time = t
+
+
+class _IGate:
+    """The system's stop event while program I drives it: ``is_set`` is
+    False for ``steps`` calls, so ``TrunkingSystem._run`` runs that many
+    pump iterations on this thread."""
+
+    def __init__(self, steps: int):
+        self.steps = steps
+
+    def clear(self):
+        pass
+
+    def is_set(self) -> bool:
+        self.steps -= 1
+        return self.steps < 0
+
+
+def i_start(sys_) -> None:
+    """``TrunkingSystem.start()`` with the blocks fed by hand: the capture's
+    reader, fetch and health threads are not started, and the pump thread
+    leaves at once (``i_step`` runs its loop)."""
+    mgr = sys_.capture_manager
+    create = mgr.create_capture
+
+    def no_threads(**kw):
+        cap = create(**kw)
+        cap.start = lambda: None
+        cap._stream_realtime = False  # the blocks are not paced: no adaptive transport
+        return cap
+
+    mgr.create_capture = no_threads
+    sys_._stop = _IGate(0)
+    try:
+        sys_.start()
+    finally:
+        del mgr.create_capture
+    sys_._thread.join(timeout=60)
+    check(not sys_._thread.is_alive() and sys_.state == "running", f"{sys_.config.id}: start: {sys_.error}")
+    sys_._thread = None
+
+
+def i_step(sys_) -> None:
+    sys_._stop = _IGate(1)
+    sys_._run()
+    check(sys_.state == "running", f"{sys_.config.id}: the pump failed: {sys_.error}")
+
+
+def i_stop(sys_) -> None:
+    import threading
+
+    sys_._stop = threading.Event()
+    sys_.stop()
+
+
+def i_shape(dibits, rate: float, segments: list, total_s: float, modulate) -> np.ndarray:
+    """A station at 48 kHz: ``segments`` of (start s, dibits) keyed on, the
+    rest of ``total_s`` without a carrier."""
+    n48 = int(np.ceil(total_s * 48_000)) + 480
+    out = np.zeros(n48, np.complex128)
+    for t0, dib in segments:
+        x = modulate(np.asarray(dib, np.uint8))
+        a = int(round(t0 * 48_000))
+        n = max(0, min(len(x), n48 - a))
+        out[a:a + n] += x[:n]
+    return out
+
+
+def i_station(iq48: np.ndarray, offset: float, n_out: int) -> np.ndarray:
+    from scipy import signal as sps
+
+    x = sps.resample_poly(iq48, I_FS // 48_000, 1)[:n_out]
+    x = np.pad(x, (0, n_out - len(x)))
+    return (I_AMPLITUDE * x * np.exp(2j * np.pi * offset * np.arange(n_out) / I_FS)).astype(np.complex64)
+
+
+def i_tsdus(blocks_of, n_tsdu: int):
+    """``n_tsdu`` TSDUs, ``blocks_of(k)`` the three TSBK blocks of the k-th,
+    and the messages a CRC-valid TSBK of them may parse to."""
+    from wavecap_tpu_torch.decoders import p25_frames as pf
+    from wavecap_tpu_torch.decoders import p25_tsbk as tsbk
+
+    frames, sent = [], set()
+    for k in range(n_tsdu):
+        frame = pf.build_tsdu_frame(I_NAC, blocks_of(k))
+        for b in pf.decode_tsdu(frame).tsbk_blocks:
+            sent.add(g_key({"nac": I_NAC, **tsbk.parse_tsbk(b.opcode, b.mfid, b.data)}))
+        frames.append(frame)
+    return np.concatenate(frames), sent
+
+
+def i_voice(tgid: int, source: int, n_ldu: int, f0: float):
+    """A Phase 1 call: HDUs, ``n_ldu`` LDU1 / LDU2 whose link control names
+    the talkgroup and source, 9 IMBE codewords each from the IMBE encoder
+    on a harmonic tone at ``f0``, and TDUs for the hang time.  Returns its
+    dibits and the codewords in order."""
+    from wavecap_tpu_torch.decoders import imbe_vocoder as iv
+    from wavecap_tpu_torch.decoders import p25_frames as pf
+    from wavecap_tpu_torch.decoders import p25_voice as pv
+    from wavecap_tpu_torch.decoders.voice import imbe_fec_encode
+
+    t = np.arange(int(n_ldu * 9 * 0.02 * 8000) + 320) / 8000.0
+    tone = sum(np.exp(-(((h * f0 - 600.0) / 500.0) ** 2)) * np.cos(2 * np.pi * h * f0 * t + h) for h in range(1, 25))
+    cws = [imbe_fec_encode(u) for u in iv.ImbeEncoder().encode(0.3 * tone / np.max(np.abs(tone)))[: n_ldu * 9]]
+    lc = pv.encode_lc_hexbits(pv.make_group_lc_bits(tgid=tgid, source_id=source))
+    head = np.concatenate([pf.FRAME_SYNC_DIBITS, pf.encode_nid(I_NAC, pf.DUID.HDU)])
+    hdu = np.concatenate([pf.insert_status_dibits(head, 0), pf.insert_status_dibits(
+        pf.bits_to_dibits(pv.encode_hdu_payload(tgid=tgid, algid=0x80, kid=0)), 57)])
+    # the header three times: the slot acquires the carrier on them, not on the first LDU
+    pieces = [np.pad(hdu, (0, 396 - len(hdu)))] * 3
+    for k in range(n_ldu):
+        pieces.append(pf.build_ldu_frame(I_NAC, pf.DUID.LDU1 if k % 2 == 0 else pf.DUID.LDU2, lc,
+                                         imbe_codewords=cws[9 * k: 9 * k + 9]))
+    tdu = pf.insert_status_dibits(np.concatenate([pf.FRAME_SYNC_DIBITS, pf.encode_nid(I_NAC, pf.DUID.TDU)]), 0)
+    # the terminator, repeated through the transmitter's hang time: the carrier drops in a later block
+    # (the banks scale and time a block's symbols over the whole block, so a block the carrier leaves
+    # part-way decides its last symbols on a scale taken partly from noise)
+    pieces += [np.pad(tdu, (0, 72 - len(tdu)))] * int(I_HANG_S * 4800 / 72)
+    return np.concatenate(pieces).astype(np.uint8), cws
+
+
+def i1_scene(n_blocks: int, block_size: int):
+    """I1: a C4FM control channel (IDEN_UP, RFSS status with system and
+    site, and in each TSDU's middle block the grants of the calls whose
+    window holds it, else a system-service broadcast) and the two calls'
+    voice carriers at their granted frequencies, each keyed on at its start
+    for its HDU, LDUs and TDU, off before and after."""
+    from wavecap_tpu_torch.decoders import p25_frames as pf
+    from wavecap_tpu_torch.decoders import p25_tsbk as tsbk
+    from wavecap_tpu_torch.models.p25.c4fm import modulate_c4fm
+
+    total_s = n_blocks * block_size / I_FS
+    op = tsbk.TSBKOpcode
+    iden = pf.encode_tsbk_block(op.IDEN_UP, tsbk.make_iden_up_data(
+        identifier=1, base_freq_mhz=I_BASE_MHZ, channel_spacing_khz=12.5, tx_offset_mhz=-45.0))
+    rfss = pf.encode_tsbk_block(op.RFSS_STS_BCAST, tsbk.make_rfss_status_data(
+        system_id=I_SYSTEM, rfss_id=1, site_id=I_SITE, band=1, channel_number=16), last=True)
+    filler = pf.encode_tsbk_block(op.SYS_SRV_BCAST, tsbk.make_sys_srv_data(0x0F))
+    grants = {c[0]: pf.encode_tsbk_block(op.GRP_V_CH_GRANT, tsbk.make_group_grant_data(
+        tgid=c[0], source_id=c[1], band=1, channel_number=c[2])) for c in I1_CALLS}
+
+    def blocks_of(k):
+        live = [c[0] for c in I1_CALLS if c[3][0] <= k < c[3][1]]
+        return [iden, grants[live[k % len(live)]] if live else filler, rfss]
+
+    cc, sent = i_tsdus(blocks_of, int(total_s / I_TSDU_S) + 2)
+    n_out = n_blocks * block_size
+    c4fm = lambda d: modulate_c4fm(d, 48_000.0)  # noqa: E731
+    x = i_station(i_shape(cc, 4800.0, [(0.0, cc)], total_s, c4fm), I_CC - I_CENTER, n_out)
+    calls = {}
+    for tgid, source, chan, _, start, n_ldu in I1_CALLS:
+        dib, cws = i_voice(tgid, source, n_ldu, 110.0 + 20.0 * len(calls))
+        freq = I_BASE_MHZ * 1e6 + chan * 12_500.0
+        x += i_station(i_shape(dib, 4800.0, [(start, dib)], total_s, c4fm), freq - I_CENTER, n_out)
+        calls[tgid] = dict(source=source, frequency_hz=freq, codewords=cws, frames=9 * n_ldu, slot=0)
+    return x, sent, calls
+
+
+def i2_scene(n_blocks: int, block_size: int):
+    """I2: a CQPSK control channel (IDEN_UP_TDMA, RFSS status, the two
+    slots' grants in the grant window, else a system-service broadcast)
+    and the TDMA carrier at 6000 baud, keyed up at ``I2_KEY_S`` with
+    MAC_ACTIVE signalling in every burst, then one call in each slot from
+    ``I2_VOICE_S``: ``g_p2_loop``'s superframe fragments, MAC_PTT in the
+    first, AMBE+2 voice, MAC_END_PTT in the last; then MAC_HANGTIME
+    through the hang time."""
+    from wavecap_tpu_torch.decoders import p25_frames as pf
+    from wavecap_tpu_torch.decoders import p25_phase2 as p2
+    from wavecap_tpu_torch.decoders import p25_tsbk as tsbk
+    from wavecap_tpu_torch.models.p25.cqpsk import modulate_cqpsk
+
+    total_s = n_blocks * block_size / I_FS
+    op = tsbk.TSBKOpcode
+    iden = pf.encode_tsbk_block(op.IDEN_UP_TDMA, tsbk.make_iden_up_tdma_data(
+        identifier=2, base_freq_mhz=I_BASE_MHZ, channel_type=3))
+    rfss = pf.encode_tsbk_block(op.RFSS_STS_BCAST, tsbk.make_rfss_status_data(
+        system_id=I_SYSTEM, rfss_id=1, site_id=I_SITE, band=2, channel_number=0), last=True)
+    filler = pf.encode_tsbk_block(op.SYS_SRV_BCAST, tsbk.make_sys_srv_data(0x0F))
+    grants = [pf.encode_tsbk_block(op.GRP_V_CH_GRANT, tsbk.make_group_grant_data(
+        tgid=g, source_id=90_000 + g, band=2, channel_number=2 * I2_CARRIER + s)) for g, s in I2_CALLS]
+
+    def blocks_of(k):
+        return [iden, grants[k % 2] if I2_GRANTS[0] <= k < I2_GRANTS[1] else filler, rfss]
+
+    cc, sent = i_tsdus(blocks_of, int(total_s / I_TSDU_S) + 2)
+    n_out = n_blocks * block_size
+    x = i_station(i_shape(cc, 4800.0, [(0.0, cc)], total_s, lambda d: modulate_cqpsk(d, 48_000.0, 4800.0)),
+                  I_CC - I_CENTER, n_out)
+    voice, mac_sent, _ = g_p2_loop(tuple(g for g, _ in I2_CALLS))
+    # the carrier keys up at the grants, MAC_ACTIVE signalling in every burst until the calls' PTT
+    from wavecap_tpu_torch.decoders import p25_mac as mac
+
+    # and after the calls' last (MAC_END_PTT) MAC_HANGTIME through the hang time
+    def signalling(kind):
+        pdu = mac.make_mac_content(kind)
+        frag = np.zeros(p2.FRAGMENT_DIBITS, np.uint8)
+        for pos in range(4):
+            frag[180 * pos: 180 * (pos + 1)] = mac.encode_timeslot_burst(mac.BURST_SACCH, pdu, with_sync=pos >= 2)
+        return p2.build_test_fragment(frag), g_key(mac.parse_mac_pdu(pdu))
+
+    (lead, lead_key), (hang, hang_key) = signalling(mac.MAC_ACTIVE), signalling(mac.MAC_HANGTIME)
+    mac_sent = mac_sent | {lead_key, hang_key}
+    n_lead = int(round((I2_VOICE_S - I2_KEY_S) * 6000 / p2.FRAGMENT_DIBITS))
+    keyed = np.concatenate([lead] * n_lead + [voice] + [hang] * int(np.ceil(I_HANG_S * 6000 / p2.FRAGMENT_DIBITS)))
+    freq = I_BASE_MHZ * 1e6 + I2_CARRIER * 12_500.0
+    x += i_station(i_shape(keyed, 6000.0, [(I2_VOICE_S - n_lead * p2.FRAGMENT_DIBITS / 6000.0, keyed)], total_s,
+                           lambda d: modulate_cqpsk(d, 48_000.0, 6000.0, alpha=1.0)), freq - I_CENTER, n_out)
+    frags = voice.reshape(-1, p2.FRAGMENT_DIBITS)
+    calls = {g: dict(source=90_000 + g, frequency_hz=freq, slot=slot, frames=len(i2_voice_bursts(frags, slot)))
+             for g, slot in I2_CALLS}
+    return x, sent | mac_sent, calls, frags, (lead, hang)
+
+
+def i3_scene(n_blocks: int, block_size: int):
+    """I3: a DMR control channel (CSBK bursts: PV_GRANTs of the two calls
+    in the grant window, aloha after), and carrier 24 keyed up at the
+    grants with idle bursts, from ``I3_VOICE_S`` both slots' voice,
+    ``I3_SUPERFRAMES`` superframes of AMBE frames a slot
+    (``build_dual_slot_voice_stream``), then idle bursts again; the calls
+    end by the hold after their last voice."""
+    from wavecap_tpu_torch.decoders import dmr
+    from wavecap_tpu_torch.decoders.ambe_vocoder import AmbeEncoder
+    from wavecap_tpu_torch.models.p25.c4fm import modulate_c4fm
+
+    total_s = n_blocks * block_size / I_FS
+    burst_s = 144 / 4800.0
+    grants = [dmr.make_csbk_bits(0x30, dst_id=g, src_id=s, channel=lcn) for g, s, lcn in I3_CALLS]
+    aloha = dmr.make_csbk_bits(0x19, net=0x1234, site=I_SITE, ms_id=42)
+    n_bursts = int(total_s / burst_s) + 2
+    bits = [grants[k % 2] if I3_GRANTS[0] <= k * burst_s < I3_GRANTS[1] else aloha for k in range(n_bursts)]
+    cc = np.concatenate([dmr.build_data_burst(b, dmr.DataType.CSBK) for b in bits])
+    sent = {g_key({"colorCode": 1, **dmr.parse_csbk(b)}) for b in (*grants, aloha)}
+    fsk = lambda d: modulate_c4fm(d, 48_000.0)  # noqa: E731  (as tests/test_trunking.py:make_dmr_stream_iq)
+    n_out = n_blocks * block_size
+    x = i_station(i_shape(cc, 4800.0, [(0.0, cc)], total_s, fsk), I_CC - I_CENTER, n_out)
+    frames = {}
+    for g, f0 in ((I3_CALLS[0][0], 150.0), (I3_CALLS[1][0], 250.0)):
+        t = np.arange(int(I3_SUPERFRAMES * 18 * 0.02 * 8000) + 320) / 8000.0
+        tone = sum(a * np.sin(2 * np.pi * f0 * k * t) for k, a in ((1, 1.0), (2, 0.6), (3, 0.45)))
+        frames[g] = AmbeEncoder().encode((0.3 * tone / np.max(np.abs(tone))).astype(np.float32))[: 18 * I3_SUPERFRAMES]
+    g0, g1 = (c[0] for c in I3_CALLS)
+    voice = np.concatenate([dmr.build_dual_slot_voice_stream(frames[g0][18 * s: 18 * s + 18],
+                                                             frames[g1][18 * s: 18 * s + 18],
+                                                             rng=np.random.default_rng(SEED + s))
+                            for s in range(I3_SUPERFRAMES)])
+    # the repeater keys up at the grants and sends idle bursts around the voice to the run's end (its
+    # hang time): a slot on noise alone can find a voice superframe in it
+    idle = dmr.build_data_burst(np.zeros(96, np.uint8), dmr.DataType.IDLE)
+    n_lead = int(round((I3_VOICE_S - I3_GRANTS[0]) / burst_s))
+    n_hang = int(np.ceil((total_s - I3_VOICE_S) / burst_s)) - len(voice) // 144
+    keyed = np.concatenate([idle] * n_lead + [voice] + [idle] * max(n_hang, 0))
+    freq = I_BASE_MHZ * 1e6 + ((I3_CALLS[0][2] - 1) // 2) * 12_500.0
+    x += i_station(i_shape(keyed, 4800.0, [(I3_VOICE_S - n_lead * burst_s, keyed)], total_s, fsk), freq - I_CENTER,
+                   n_out)
+    calls = {g: dict(source=s, frequency_hz=freq, slot=(lcn - 1) % 2, frames=18 * I3_SUPERFRAMES, ambe=frames[g])
+             for g, s, lcn in I3_CALLS}
+    return x, sent, calls
+
+
+def i3_fields(m: dict) -> tuple:
+    """A CSBK's fields as ``parse_csbk`` gives them (``g_note``'s key)."""
+    from wavecap_tpu_torch.decoders import dmr
+
+    return ("colorCode",) + tuple(dmr.parse_csbk(dmr.make_csbk_bits(m["opcode"])) or ())
+
+
+def i_blocks(x: np.ndarray, n_blocks: int, block_size: int) -> list:
+    """The scene through the port's fake receiver (its noise added), as
+    ``n_blocks`` blocks."""
+    from wavecap_tpu_torch.devices import DeviceConfig, FakeDriver, FakeStation
+
+    dev = FakeDriver(1, [FakeStation(offset_hz=0.0, kind="iq_loop", iq_loop=x, amplitude=1.0)]).open("fake0")
+    dev.configure(DeviceConfig(center_hz=I_CENTER, sample_rate=I_FS))
+    stream = dev.start_stream()
+    return [stream.read(block_size)[0] for _ in range(n_blocks)]
+
+
+def i_config(name: str, rec_dir: str, **kw) -> dict:
+    return dict(id=name, control_channels=[I_CC], center_hz=I_CENTER, recording_dir=rec_dir, **kw)
+
+
+def i_system(cfg: dict, device, state_dir: str):
+    from wavecap_tpu_torch.capture import CaptureManager
+    from wavecap_tpu_torch.devices import FakeDriver
+    from wavecap_tpu_torch.trunking import TrunkingManager, TrunkingSystemConfig
+
+    tm = TrunkingManager(CaptureManager(FakeDriver(1), device=device), state_dir=state_dir)
+    check(tm.device == torch_device(device), f"the trunking manager runs on {tm.device}, not {device}")
+    return tm.create_system(TrunkingSystemConfig.from_dict(cfg))
+
+
+def torch_device(device):
+    import torch
+
+    return torch.device(device)
+
+
+def i_taps(sys_) -> dict:
+    """Each Phase 2 recorder's superframe fragments and MAC PDUs as its
+    ``_process_phase2`` meets them (a tap on its detector's ``process`` and
+    on ``_handle_mac``); the recorder itself is the system's, unchanged."""
+    from wavecap_tpu_torch.decoders.p25_phase2 import P25P2SuperFrameDetector
+
+    taps = {}
+    for rec in sys_.pool.recorders:
+        if rec.protocol != "p25_phase2":
+            continue
+        log = taps[rec.channel_id] = dict(fragments=[], mac=[])
+        det = rec._p2 = P25P2SuperFrameDetector()
+        process, handle = det.process, rec._handle_mac
+
+        def tapped(soft, process=process, log=log):
+            frags = list(process(soft))
+            log["fragments"] += [f.dibits.astype(np.uint8).tobytes() for f in frags]
+            return frags
+
+        def mac(pdu, handle=handle, log=log):
+            log["mac"].append(g_key(pdu))
+            return handle(pdu)
+
+        det.process, rec._handle_mac = tapped, mac
+    return taps
+
+
+def i_drive(sys_, blocks: list, clock) -> dict:
+    """The blocks through the system's capture, two a dispatch (its
+    ``blocks_per_dispatch``); after each published block the clock moves on
+    a block's length and the pump runs once; every subscription drained.
+    Returns the launches, the monitor's counts and message-log length
+    after block ``I_FIRST`` - 1 and after each block (with the clock), the
+    host's dispatch and pump ms."""
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cap = sys_.capture
+    block_s = cap.block_size / cap.config.sample_rate
+    out = dict(pump_ms=[], dispatch_ms=[], marks=[])
+    reset_launch_counts()
+    k = 0
+    for j in range(0, len(blocks), 2):
+        cap.transport_active = cap.config.transport
+        t0 = time.perf_counter()
+        cap._dispatch_blocks(blocks[j:j + 2])
+        out["dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+        for _ in blocks[j:j + 2]:
+            clock.now += block_s
+            t0 = time.perf_counter()
+            i_step(sys_)
+            out["pump_ms"].append((time.perf_counter() - t0) * 1e3)
+            k += 1
+            st = sys_.monitor.stats
+            out["marks"].append((round(clock.now - I_T0, 6), st.tsbk_total, st.tsbk_crc_ok))
+            if k == I_FIRST:
+                out["first"] = dict(total=st.tsbk_total, ok=st.tsbk_crc_ok, messages=len(sys_.message_log))
+    out["launches"] = launch_counts()
+    out["perf"] = {k_: v / max(cap.perf.get("dispatches", 1), 1) for k_, v in cap.perf.items() if k_ != "dispatches"}
+    out["block_size"] = cap.block_size
+    check(cap.blocks_processed == len(blocks) and cap.state != "failed", f"{sys_.config.id}: engine {cap.state}")
+    subs = [sys_._cc_sub, *sys_._voice_subs.values()]
+    check(all(s_.get_nowait() is None and s_.dropped == 0 for s_ in subs),
+          f"{sys_.config.id}: a symbol subscription was not drained or dropped a batch")
+    return out
+
+
+def i_counted_since(run: dict, t_s: float) -> dict:
+    """The control messages counted (all, CRC-valid) from the block ending at ``t_s`` to the run's end."""
+    at = next(m for m in run["marks"] if abs(m[0] - t_s) < 1e-3)
+    end = run["marks"][-1]
+    return dict(since_s=t_s, total=end[1] - at[1], ok=end[2] - at[2])
+
+
+def i_state_to(tree, device):
+    """A capture's carried state (tensors in NamedTuples, dicts, tuples) on ``device``."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: i_state_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(i_state_to(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(i_state_to(v, device) for v in tree)
+    return tree
+
+
+def i_vs_cpu(cfg: dict, blocks: list, device, tmp: str) -> dict:
+    """The system's capture against the same capture on the CPU (the plain
+    versions): two fresh systems of the config, started inline, take the
+    stream's first ``1 + I_PLAIN_BLOCKS`` blocks one a dispatch, the CPU
+    one from the card's carried state before each block after the first.
+    The first two blocks after the stream's first: every channel's f32 soft
+    symbols >= 50 dB against the card's (every channel is tuned to the
+    control channel, where each starts), and the messages a fresh control
+    monitor decodes from each capture's published symbols of those blocks
+    equal.  The stream's first block is reported, not held: a capture
+    starts from zero history, so the first channel samples of a station on
+    the air are near zero and their FM phase is rounding noise, which any
+    f32 arithmetic sets its own way (K2's 3xTF32 against torch's matmul:
+    2e-7 apart) and the block timing then reads a block of different
+    symbols (``PERF.md`` §6, PR 17)."""
+    from wavecap_tpu_torch.trunking.control import ControlChannelMonitor, DmrControlMonitor
+
+    systems, soft, msgs = {}, {}, {}
+    with i_clock():
+        for name, dev in (("card", device), ("cpu", "cpu")):
+            systems[name] = i_system(dict(cfg, recording_dir=os.path.join(tmp, f"{name}-rec")), dev,
+                                     os.path.join(tmp, f"{name}-state"))
+            i_start(systems[name])
+        try:
+            monitor = DmrControlMonitor if cfg.get("protocol") == "dmr_tier3" else ControlChannelMonitor
+            taps = {}
+            for name, sys_ in systems.items():
+                cap = sys_.capture
+                step = cap._step
+                soft[name], msgs[name] = [], []
+                subs = {cid: h.symbols.subscribe(maxsize=4) for cid, h in cap.channels.items()}
+                mons = {cid: monitor() for cid in subs}
+
+                def keep(batch, state, ctl, step=step, out=soft[name]):
+                    o, state = step(batch, state, ctl)
+                    out.append({g: host(o[g]["soft"])[0] for g in ("p25", "p25p2") if g in o})
+                    return o, state
+
+                cap._step = keep
+                taps[name] = (subs, mons)
+            for k in range(1 + I_PLAIN_BLOCKS):
+                if k:
+                    systems["cpu"].capture._dev_state = i_state_to(systems["card"].capture._dev_state,
+                                                                    systems["cpu"].capture.torch_device)
+                for name, sys_ in systems.items():
+                    sys_.capture.transport_active = sys_.capture.config.transport
+                    sys_.capture._dispatch_blocks([blocks[k]])
+                    subs, mons = taps[name]
+                    for cid, sub in subs.items():
+                        got = sub.get_nowait()
+                        check(got is not None, f"{cfg['id']}: no symbols from {cid} in block {k}")
+                        if k:
+                            msgs[name] += [(cid, {f: v for f, v in m.items() if f != "data"})
+                                           for m in mons[cid].process_symbols(np.asarray(got["soft"], np.float32),
+                                                                              now=float(k))]
+            channels = {cid: (h.mode_group, h.slot) for cid, h in systems["card"].capture.channels.items()}
+        finally:
+            for sys_ in systems.values():
+                i_stop(sys_)
+    per_block = {cid: [snr_db(soft["cpu"][k][g][slot], soft["card"][k][g][slot]) for k in range(1 + I_PLAIN_BLOCKS)]
+                 for cid, (g, slot) in channels.items()}
+    held = [cid for cid, (g, _) in channels.items() if g == "p25"]
+    worst = min(min(per_block[c][1:]) for c in held)
+    check(worst >= 50.0, f"{cfg['id']}: blocks 2-{1 + I_PLAIN_BLOCKS}' f32 soft {worst:.1f} dB < 50 against the CPU "
+          f"engine from the same state: {per_block}")
+    check(canon_json(msgs["card"]) == canon_json(msgs["cpu"]),
+          f"{cfg['id']}: the messages decoded from blocks 2-{1 + I_PLAIN_BLOCKS} differ between card and CPU: "
+          f"{len(msgs['card'])} / {len(msgs['cpu'])}")
+    check(len(msgs["card"]) > 0, f"{cfg['id']}: no message decoded from blocks 2-{1 + I_PLAIN_BLOCKS}")
+    return dict(blocks_held=[2, 1 + I_PLAIN_BLOCKS], soft_snr_db_min=worst,
+                soft_snr_db_by_block={c: v for c, v in per_block.items()}, messages_same=len(msgs["card"]),
+                first_block_soft_snr_db=min(per_block[c][0] for c in held))
+
+
+def canon_json(x) -> str:
+    return json.dumps(x, sort_keys=True, default=str)
+
+
+def i_tsbks(sys_, run: dict, sent: set, what: str, fields=None) -> dict:
+    """Every control message counted from block ``I_FIRST`` + 1 on decoded
+    (no CRC failure in the monitor's count since then), each as sent
+    (``fields(m)``: the fields compared, default all but the time), and as
+    many as the counted blocks carry."""
+    st = sys_.monitor.stats
+    first = run["first"]
+    total, ok = st.tsbk_total - first["total"], st.tsbk_crc_ok - first["ok"]
+    msgs = list(sys_.message_log)[first["messages"]:]
+    check(len(sys_.message_log) < sys_.message_log.maxlen, f"{what}: the message log filled")
+    keys = [g_key({k: v for k, v in m.items() if (k in fields(m) if fields else k != "time")}) for m in msgs]
+    bad = [k for k in keys if k not in sent]
+    check(not bad, f"{what}: a control message was not sent: {bad[:2]}")
+    check(total == ok == len(keys), f"{what}: {ok} of {total} messages from block {I_FIRST + 1} on decoded "
+          f"({len(keys)} logged)")
+    return dict(messages=len(keys), failed=total - ok)
+
+
+def i_files(rec_dir: str, tgid: int) -> dict:
+    from pathlib import Path
+
+    found = {p.suffix: p for p in Path(rec_dir).rglob(f"*_tg{tgid}_*")}
+    check({".wav", ".json"} <= set(found), f"talkgroup {tgid}: the call's recording is missing: {sorted(found)}")
+    return found
+
+
+def i_wav_pcm(path) -> np.ndarray:
+    import wave
+
+    with wave.open(str(path), "rb") as w:
+        check(w.getframerate() == 8000 and w.getnchannels() == 1, f"{path}: not 8 kHz mono")
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def i_calls(sys_, calls: dict, rec_dir: str, decode, what: str) -> dict:
+    """Each call the station made was granted, started at the frequency the
+    identifiers give, held to its end and written: as many voice frames as
+    the station sent in it, the frames as sent (``decode(tgid, files)`` ->
+    (frames as sent?, the PCM the CPU decodes from the recorded frames)),
+    the WAV's PCM that PCM, the sidecar's counts."""
+    hist = {c.tgid: c for c in sys_.call_history}
+    check(not sys_.active_calls and set(hist) == set(calls) and len(sys_.call_history) == len(calls),
+          f"{what}: calls {[c.tgid for c in sys_.call_history]}, active {list(sys_.active_calls)}, not {sorted(calls)}")
+    starts = {e["tgid"]: e for e in sys_.events if e["type"] == "call_start"}
+    check(len({starts[g]["recorder"] for g in calls}) == len(calls), f"{what}: the calls did not get their own recorders")
+    out = {}
+    for tgid, want in calls.items():
+        c = hist[tgid]
+        check(abs(c.frequency_hz - want["frequency_hz"]) < 1.0 and abs(starts[tgid]["frequencyHz"] - want["frequency_hz"]) < 1.0,
+              f"{what}: talkgroup {tgid} at {c.frequency_hz}, not {want['frequency_hz']}")
+        check(c.tdma_slot == want["slot"] and c.source_id == want["source"],
+              f"{what}: talkgroup {tgid}: slot {c.tdma_slot}, source {c.source_id}, not {want['slot']}, {want['source']}")
+        check(c.imbe_frames == want["frames"], f"{what}: talkgroup {tgid}: {c.imbe_frames} voice frames, "
+              f"the station sent {want['frames']}")
+        files = i_files(rec_dir, tgid)
+        meta = json.loads(files[".json"].read_text())
+        check(meta["imbeFrames"] == want["frames"] and meta["tgid"] == tgid, f"{what}: talkgroup {tgid}: sidecar {meta}")
+        as_sent, pcm = decode(tgid, files)
+        check(as_sent, f"{what}: talkgroup {tgid}: the recorded frames are not the frames sent")
+        wav = i_wav_pcm(files[".wav"])
+        from wavecap_tpu_torch.utils.wavio import pack_pcm16
+
+        check(np.array_equal(wav, pack_pcm16(pcm)), f"{what}: talkgroup {tgid}: the WAV ({len(wav)} samples) is not "
+              f"the CPU decode of its frames ({len(pcm)} samples)")
+        check(np.sqrt(np.mean((wav / 32768.0) ** 2)) > 1e-3, f"{what}: talkgroup {tgid}: the WAV is silent")
+        out[tgid] = dict(frequency_hz=c.frequency_hz, slot=c.tdma_slot, source=c.source_id, frames=c.imbe_frames,
+                         seconds=round(c.end_time - c.start_time, 3), audio_s=c.audio_seconds,
+                         recorder=starts[tgid]["recorder"])
+    return out
+
+
+def i_launches(run: dict, n_blocks: int, implied: tuple, what: str) -> dict:
+    per = {k: v / n_blocks for k, v in run["launches"].items() if v}
+    zero = [k for k in implied if not run["launches"].get(k)]
+    check(not zero, f"{what}: {zero} launched no time, though the scene implies them: {per}")
+    return per
+
+
+def i_report(sys_, run: dict, n_blocks: int) -> dict:
+    st = sys_.status()
+    pump = np.asarray(run["pump_ms"])
+    return dict(status={k: st[k] for k in ("synced", "nac", "systemId", "siteId", "tsbkCount", "tsbkCrcRate",
+                                           "tsbkCountSteady", "tsbkCrcRateSteady")},
+                pump_ms_per_block=dict(mean=float(pump.mean()), warm_mean=float(pump[2:].mean()), max=float(pump.max())),
+                dispatch_ms_per_dispatch=dict(mean=float(np.mean(run["dispatch_ms"])),
+                                              warm_mean=float(np.mean(run["dispatch_ms"][1:])),
+                                              per_dispatch=run["dispatch_ms"]),
+                block_ms=run["block_size"] / I_FS * 1e3, blocks=n_blocks, engine_ms_per_dispatch=run["perf"])
+
+
+def i_imbe_decode(calls: dict, flipped: dict):
+    """``i_calls``'s ``decode`` for Phase 1: the recorded codewords (the
+    call's ``.imbe``, 144 coded bits each as received) are the ones sent
+    once the IMBE FEC has decoded both (the raw bits the air path flipped
+    are counted in ``flipped``), and the PCM a fresh ``VoiceDecoder``
+    gives for the recorded codewords, 9 a frame."""
+    def decode(tgid, files):
+        from wavecap_tpu_torch.decoders.voice import VoiceDecoder, imbe_fec_decode
+
+        sent = [np.asarray(c, np.uint8)[:144] for c in calls[tgid]["codewords"]]
+        raw = np.frombuffer(files[".imbe"].read_bytes() if ".imbe" in files else b"", np.uint8)
+        got = [np.unpackbits(raw[18 * i: 18 * i + 18])[:144] for i in range(len(raw) // 18)]
+        flipped[tgid] = int(sum(np.sum(a != b) for a, b in zip(got, sent)))
+        as_sent = len(got) == len(sent) and all(
+            (fa := imbe_fec_decode(a)) is not None and (fb := imbe_fec_decode(b)) is not None and fa.u == fb.u
+            for a, b in zip(got, sent))
+        dec = VoiceDecoder()
+        pcm = [dec.decode_codewords(got[9 * k: 9 * k + 9]) for k in range(len(got) // 9)]
+        return as_sent, np.concatenate([p for p in pcm if p is not None and len(p)] or [np.zeros(0, np.float32)])
+    return decode
+
+
+def run_program_i1(device, samples=None, mesh: str | None = None) -> dict:
+    """I1: P25 Phase 1 on the engine, the reference's default deployment
+    (``TrunkingSystemConfig``: 2.4 Msps, i8 words, 4 voice recorders; C4FM):
+    the system locks the control channel, learns its NAC, system, site and
+    IDEN_UP, follows two talkgroups' grants onto two recorders, and each
+    call's TDU ends it: WAV, IMBE frames and sidecar written."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="program_i1_")
+    t_all = time.perf_counter()
+    try:
+        cfg = i_config("i1" if mesh is None else "i5", os.path.join(tmp, "rec"), mesh=mesh)
+        with i_clock() as clock:
+            s = i_system(cfg, device, os.path.join(tmp, "state"))
+            i_start(s)
+            try:
+                check(s.config.sample_rate == I_FS and s.config.transport == "i8" and s.config.max_voice_channels == 4
+                      and s.capture.config.p25_modulation == "c4fm", "I1 is not the default deployment")
+                bs = s.capture.block_size
+                check(mesh is not None or bs == I_BLOCK, f"I1: {bs}-sample blocks, not {I_BLOCK}")
+                x, sent, calls = i1_scene(I1_BLOCKS, I_BLOCK)
+                if samples is None:
+                    samples = np.concatenate(i_blocks(x, I1_BLOCKS, I_BLOCK))
+                del x
+                # the same samples in the capture's blocks (the mesh's are shorter: M x 8 shards)
+                check(len(samples) % bs == 0, f"I1's {len(samples)} samples are not whole {bs}-sample blocks")
+                blocks = [samples[i: i + bs] for i in range(0, len(samples), bs)]
+                n_blocks = len(blocks)
+                t_run = time.perf_counter()
+                run = i_drive(s, blocks, clock)
+                run_s = time.perf_counter() - t_run
+                st = s.status()
+                check(st["synced"] and st["nac"] == I_NAC and st["systemId"] == I_SYSTEM and st["siteId"] == I_SITE,
+                      f"I1: not locked on the site: {st}")
+                iden = s.identifiers.get(1)
+                check(iden is not None and abs(iden.base_freq_mhz - I_BASE_MHZ) < 1e-6
+                      and abs(iden.channel_spacing_khz - 12.5) < 1e-9, f"I1: IDEN_UP not learned: {s.identifiers}")
+                tsbks = i_tsbks(s, run, sent, "I1")
+                counted = (n_blocks - I_FIRST) * int(bs / I_FS * 4800)
+                lo, hi = g_sent_bounds(counted, 360, 3)
+                check(lo <= tsbks["messages"] <= hi, f"I1: {tsbks['messages']} TSBKs, not {lo} .. {hi}")
+            finally:
+                i_stop(s)
+        flipped = {}
+        result = i_calls(s, calls, cfg["recording_dir"], i_imbe_decode(calls, flipped), "I1" if mesh is None else "I5")
+        for g in result:
+            result[g]["imbe_bits_flipped"] = flipped[g]
+        report = dict(tsbks=tsbks, tsbk_bounds=[lo, hi], tsbks_since=i_counted_since(run, I1_SAME_S), calls=result,
+                      **i_report(s, run, n_blocks), run_s=run_s)
+        if mesh is None:
+            report["launches_per_block"] = i_launches(run, n_blocks, I_IMPLIED["c4fm"], "I1")
+            report["vs_cpu"] = i_vs_cpu(cfg, blocks, device, tmp)
+        else:
+            report["launches_per_block"] = i_launches(run, n_blocks, I_IMPLIED["c4fm"], "I5")
+        report.update(phase=f"trunking on the engine, {'I5 (I1 on the mesh ' + mesh + ')' if mesh else 'I1 (P25 Phase 1, C4FM)'}",
+                      wall_s=time.perf_counter() - t_all, _samples=samples,
+                      _wav={g: i_wav_pcm(i_files(cfg["recording_dir"], g)[".wav"]).tobytes() for g in calls})
+        return report
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_program_i2(device) -> dict:
+    """I2: P25 Phase 2: the CQPSK control channel (4800 baud, with the
+    dedicated probe slot beside it) and the TDMA carrier on the 6000-baud
+    bank, a call in each slot; each recorder's Phase 2 path takes its slot's
+    superframe fragments, its MAC PDUs (PTT: the source; END_PTT: the end)
+    and AMBE+2 voice to PCM."""
+    import tempfile
+
+    from wavecap_tpu_torch.decoders import p25_phase2 as p2
+    from wavecap_tpu_torch.decoders.ambe_vocoder import AmbeDecoder
+
+    tmp = tempfile.mkdtemp(prefix="program_i2_")
+    t_all = time.perf_counter()
+    try:
+        cfg = i_config("i2", os.path.join(tmp, "rec"), protocol="p25_phase2")
+        with i_clock() as clock:
+            s = i_system(cfg, device, os.path.join(tmp, "state"))
+            i_start(s)
+            try:
+                cap = s.capture
+                check(cap.channels["probe"].mode_group == "p25" and cap.config.p25_modulation == "cqpsk"
+                      and cap.config.p25p2_capacity == 4, "I2: not the Phase 2 capture")
+                x, sent, calls, frags, lead = i2_scene(I2_BLOCKS, cap.block_size)
+                blocks = i_blocks(x, I2_BLOCKS, cap.block_size)
+                del x
+                taps = i_taps(s)
+                t_run = time.perf_counter()
+                run = i_drive(s, blocks, clock)
+                run_s = time.perf_counter() - t_run
+                st = s.status()
+                check(st["synced"] and st["nac"] == I_NAC and st["systemId"] == I_SYSTEM, f"I2: not locked: {st}")
+                ident = s.identifiers.get(2)
+                check(ident is not None and ident.is_tdma and ident.slots_per_carrier == 2, f"I2: no TDMA identifier")
+                tsbks = i_tsbks(s, run, sent, "I2")
+                starts = {e["tgid"]: e["recorder"] for e in s.events if e["type"] == "call_start"}
+            finally:
+                i_stop(s)
+        call_frags = [f.astype(np.uint8).tobytes() for f in frags]
+        other = {f.astype(np.uint8).tobytes() for f in lead}
+        per_slot = {}
+        for g, slot in I2_CALLS:
+            # from the retune on: signalling fragments (the first after the retune may be cut or
+            # misread), the call's (each as sent, none missed), signalling
+            log = taps[f"voice{starts[g]}"]
+            got = log["fragments"]
+            at = got.index(call_frags[0]) if call_frags[0] in got else -1
+            check(at >= 0 and got[at:at + len(call_frags)] == call_frags,
+                  f"I2: talkgroup {g}'s recorder found {len(got)} fragments, not the call's {len(call_frags)} "
+                  f"amid signalling ({sum(f in call_frags for f in got)} of the call's as sent)")
+            macs = [m for m in log["mac"] if m != "null"]
+            ptt_end = [m for m in macs if json.loads(m)["mac"] in ("PTT", "END_PTT")]
+            check(len(ptt_end) == 2 and all(m in sent for m in macs), f"I2: talkgroup {g}: MAC PDUs {ptt_end}")
+            rest = got[:at] + got[at + len(call_frags):]
+            # signalling fragments misread while the slot acquires after its retune: their bursts that
+            # do not decode as MAC are the recorder's voice too (trunking/recorder.py's rule), counted
+            misread = [np.frombuffer(f, np.uint8) for f in rest if f not in other]
+            kinds = "".join("c" if f in call_frags else "s" if f in other else "x" for f in got)
+            check(kinds.lstrip("x").count("x") == 0 and len(misread) <= I2_ACQUIRE_FRAGMENTS,
+                  f"I2: talkgroup {g}: fragments {kinds} (c: the call's, s: signalling, x: misread): misread "
+                  f"past the {I2_ACQUIRE_FRAGMENTS} the retune may take")
+            voice = i2_voice_bursts(misread, slot) + i2_voice_bursts(frags, slot)
+            calls[g]["frames"], calls[g]["bursts"] = len(voice), voice
+            per_slot[g] = dict(fragments=len(call_frags), signalling_fragments=len(rest),
+                               signalling_as_sent=len(rest) - len(misread), misread_bursts=len(voice) - len(
+                                   i2_voice_bursts(frags, slot)), mac_pdus=len(macs))
+
+        def decode(tgid, files):
+            want = calls[tgid]["bursts"]
+            got = files[".ambe"].read_bytes() if ".ambe" in files else b""
+            dec = AmbeDecoder()
+            pcm = [dec.decode_frames(p2.extract_voice_frames(np.frombuffer(got, np.uint8)[180 * i: 180 * i + 180]))
+                   for i in range(len(got) // 180)]
+            return got == b"".join(want), np.concatenate([p for p in pcm if p is not None and len(p)]
+                                                         or [np.zeros(0, np.float32)])
+
+        result = i_calls(s, calls, cfg["recording_dir"], decode, "I2")
+        for g in result:
+            result[g].update(per_slot[g])
+        report = dict(phase="trunking on the engine, I2 (P25 Phase 2: CQPSK control, 6000-baud TDMA voice)",
+                      tsbks=tsbks, calls=result, launches_per_block=i_launches(run, I2_BLOCKS, I_IMPLIED["phase2"], "I2"),
+                      vs_cpu=i_vs_cpu(cfg, blocks, device, tmp), **i_report(s, run, I2_BLOCKS), run_s=run_s,
+                      wall_s=time.perf_counter() - t_all)
+        return report
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def i2_voice_bursts(frags: np.ndarray, slot: int) -> list:
+    """The voice bursts (not MAC) a slot carries in the fragments, as bytes."""
+    from wavecap_tpu_torch.decoders import p25_mac
+    from wavecap_tpu_torch.decoders.p25_phase2 import FRAGMENT_DIBITS
+
+    out = []
+    for f in frags:
+        for pos in range(4):
+            # positions 0 and 2 are slot 0's, 1 and 3 slot 1's
+            if pos % 2 != slot:
+                continue
+            b = f[180 * pos: 180 * (pos + 1)]
+            m = p25_mac.decode_burst(b)
+            if m is not None and m[0] in (p25_mac.BURST_SACCH, p25_mac.BURST_FACCH):
+                continue
+            out.append(b.astype(np.uint8).tobytes())
+    assert FRAGMENT_DIBITS == 720
+    return out
+
+
+def run_program_i3(device) -> dict:
+    """I3: DMR Tier III: CSBK PV_GRANTs on the control channel map
+    logical channels 49 and 50 to both slots of one carrier; the recorders
+    follow the CACH slot tags, each call's AMBE frames to PCM, ended by
+    the hold after the voice."""
+    import tempfile
+
+    from wavecap_tpu_torch.decoders.ambe_vocoder import AmbeDecoder
+
+    tmp = tempfile.mkdtemp(prefix="program_i3_")
+    t_all = time.perf_counter()
+    try:
+        cfg = i_config("i3", os.path.join(tmp, "rec"), protocol="dmr_tier3", dmr_base_hz=I_BASE_MHZ * 1e6)
+        with i_clock() as clock:
+            s = i_system(cfg, device, os.path.join(tmp, "state"))
+            i_start(s)
+            try:
+                x, sent, calls = i3_scene(I3_BLOCKS, s.capture.block_size)
+                blocks = i_blocks(x, I3_BLOCKS, s.capture.block_size)
+                del x
+                t_run = time.perf_counter()
+                run = i_drive(s, blocks, clock)
+                run_s = time.perf_counter() - t_run
+                check(s.status()["synced"], "I3: the DMR control channel is not locked")
+                csbks = i_tsbks(s, run, sent, "I3", fields=i3_fields)
+                check(any(m.get("type") == "PV_GRANT" for m in s.message_log), "I3: no PV_GRANT logged")
+                check(not any(e["type"] == "grant_same_carrier_busy" for e in s.events), "I3: a grant was refused")
+            finally:
+                i_stop(s)
+
+        raw_bits = {}
+
+        def pcm_of(bits):
+            dec = AmbeDecoder()
+            pcm = [dec.decode_frames(bits[18 * k: 18 * k + 18]) for k in range(len(bits) // 18)]
+            return np.concatenate([p for p in pcm if p is not None and len(p)] or [np.zeros(0, np.float32)])
+
+        def decode(tgid, files):
+            # the recorded AMBE frames (72 coded bits each, as received) are the frames sent but for
+            # the bits the air path flipped (counted; at most I3_MAX_BER of them)
+            got = files[".ambe"].read_bytes() if ".ambe" in files else b""
+            want = calls[tgid]["ambe"]
+            bits = np.unpackbits(np.frombuffer(got, np.uint8)).reshape(-1, want.shape[1]) if got else want[:0]
+            raw_bits[tgid] = int(np.sum(bits != want)) if bits.shape == want.shape else None
+            return bits.shape == want.shape and raw_bits[tgid] <= I3_MAX_BER * want.size, pcm_of(bits)
+
+        result = i_calls(s, calls, cfg["recording_dir"], decode, "I3")
+        for g in result:
+            result[g]["ambe_bits_flipped"] = raw_bits[g]
+        return dict(phase="trunking on the engine, I3 (DMR Tier III: CSBK grants, both slots of one carrier)",
+                    csbks=csbks, calls=result, launches_per_block=i_launches(run, I3_BLOCKS, I_IMPLIED["c4fm"], "I3"),
+                    vs_cpu=i_vs_cpu(cfg, blocks, device, tmp), **i_report(s, run, I3_BLOCKS), run_s=run_s,
+                    wall_s=time.perf_counter() - t_all)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_program_i4(device) -> dict:
+    """I4: ``TrunkingProcessManager`` spawns one worker on ``device`` (the
+    card) for I1's control channel, looped by the worker's fake receiver;
+    its ``status`` RPC answers with the system synced and TSBKs counted,
+    ``ping`` answers, and ``stop_all`` leaves no worker and no process."""
+    import tempfile
+
+    from wavecap_tpu_torch.trunking.process_manager import TrunkingProcessManager
+
+    tmp = tempfile.mkdtemp(prefix="program_i4_")
+    t_all = time.perf_counter()
+    mgr = None
+    proc = None
+    try:
+        x, _, _ = i1_scene(8, I_BLOCK)
+        mgr = TrunkingProcessManager(state_dir=os.path.join(tmp, "state"), driver="fake", device=device,
+                                     stations=[dict(offset_hz=0.0, kind="iq_loop", iq_loop=x, amplitude=1.0)])
+        mgr.add_system(i_config("i4", os.path.join(tmp, "rec")))
+        mgr.start()
+        proc = mgr.workers["default"].process
+        check(mgr.workers["default"].worker_cfg["device"] == str(torch_device(device)),
+              f"I4: the worker config names {mgr.workers['default'].worker_cfg.get('device')}")
+        t0, st, polls = time.perf_counter(), None, 0
+        while True:
+            check(time.perf_counter() - t0 < I4_TIMEOUT_S, f"I4: the worker was not synced with TSBKs counted within "
+                  f"{I4_TIMEOUT_S} s: {st}")
+            check(proc.is_alive(), f"I4: the worker died: {mgr.status()}")
+            try:
+                got = mgr.rpc("default", "status", timeout=10.0)
+                polls += 1
+                st = got[0] if got else None
+                if st and st["synced"] and st["tsbkCount"] > 0:
+                    break
+            except (TimeoutError, RuntimeError):
+                pass
+            time.sleep(0.5)
+        first_s = time.perf_counter() - t0
+        pong = mgr.rpc("default", "ping", timeout=10.0)
+        check(pong["pong"] > 0, "I4: no ping")
+        mgr.stop_all()
+        check(not mgr.workers, "I4: stop_all left a worker")
+        proc.join(timeout=30)
+        check(not proc.is_alive(), "I4: the worker process is still alive after stop_all")
+        return dict(phase="trunking worker process on the card (I4)", synced_after_s=first_s, polls=polls,
+                    status={k: st[k] for k in ("state", "synced", "nac", "tsbkCount", "tsbkCrcRate")},
+                    exitcode=proc.exitcode, wall_s=time.perf_counter() - t_all)
+    finally:
+        if mgr is not None and mgr.workers:
+            mgr.stop_all()
+        if proc is not None and proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_program_i(device) -> dict:
+    """Program I: the port's trunking on the engine, I1-I5."""
+    t0 = time.perf_counter()
+    i1 = run_program_i1(device)
+    samples, wav = i1.pop("_samples"), i1.pop("_wav")
+    log(i1)
+    log(run_program_i2(device))
+    log(run_program_i3(device))
+    log(run_program_i4(device))
+    os.environ["WAVECAP_TORCH_DEVICE_COUNT"] = str(MESH_SHARDS)
+    i5 = run_program_i1(device, samples=samples, mesh=MESH_SPEC)
+    i5.pop("_samples")
+    mesh_wav = i5.pop("_wav")
+    # the same samples in 0.12 s blocks: the site, and the control messages from the first block edge
+    # the two block lengths share on (the first blocks acquire differently)
+    keys = ("synced", "nac", "systemId", "siteId")
+    check({k: i5["status"][k] for k in keys} == {k: i1["status"][k] for k in keys}
+          and i5["tsbks_since"] == i1["tsbks_since"] and i1["tsbks_since"]["total"] == i1["tsbks_since"]["ok"],
+          f"I5: the mesh's control channel {i5['status']}, {i5['tsbks_since']} differs from I1's "
+          f"{i1['status']}, {i1['tsbks_since']}")
+    # a call's timing follows the blocks' edges, and the raw bits flipped are counted, not compared
+    same = ("frequency_hz", "slot", "source", "frames", "audio_s")
+    check({g: {k: c[k] for k in same} for g, c in i5["calls"].items()}
+          == {g: {k: c[k] for k in same} for g, c in i1["calls"].items()},
+          f"I5: the mesh's calls {i5['calls']} differ from I1's {i1['calls']}")
+    check(mesh_wav == wav, "I5: the mesh's WAVs differ from I1's")
+    i5["same_as_i1"] = dict(control_channel={k: i1["status"][k] for k in keys}, tsbks_since=i1["tsbks_since"],
+                            calls=same, wav=True)
+    log(i5)
+    return dict(phase="program I", wall_s=time.perf_counter() - t0)
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -5790,6 +6794,11 @@ def main(argv=None) -> int:
     cfg = slice_config()
     mixed = mixed_config()
     p25 = p25_configs()
+    t_phases, stamps = time.perf_counter(), []
+
+    def stamp(name: str) -> None:
+        stamps.append((name, round(time.perf_counter() - t_phases, 1)))
+
     try:
         kernels = kernel_checks(cfg, device)
         for k in kernels:
@@ -5799,6 +6808,7 @@ def main(argv=None) -> int:
         for k in k4_k12_path_checks(device):
             log(dict(phase="kernel-case", **k))
         log(dict(phase="empty blocks", **empty_block_checks(device)))
+        stamp("kernel checks")
         # the P25 kernels before the mixed checks' plain scans, whose many
         # thousand launches make CUPTI drop later ones (see device_ms)
         p25_lines, cases = p25_kernel_checks(p25, device)
@@ -5818,8 +6828,10 @@ def main(argv=None) -> int:
         for k in cases:
             log(dict(phase="kernel-case", **k))
         kernels += scan_lines
+        stamp("P25, engine, mixed and scan kernel checks")
         for g in other_geometry_checks(device):
             log(g)
+        stamp("geometry checks")
         sl = run_slice(cfg, device)
         log(sl)
         mx = run_mixed(mixed, device)
@@ -5830,23 +6842,34 @@ def main(argv=None) -> int:
         log(pb)
         pc = run_program_bc(p25["C"], device, "C")
         log(pc)
+        stamp("slice, mixed, A, B, C")
         pa_s, pb_s, pc_s = run_scan_programs(p25, device)
         for r in (pa_s, pb_s, pc_s):
             log(r)
+        stamp("scan programs")
         pd = run_engine(device)
         log({k: v for k, v in pd.items() if k != "latency_ms"})
         log(dict(phase="engine latency", latency_ms=pd["latency_ms"]))
+        stamp("D")
         pe = run_engine_mesh(device)
         log({k: v for k, v in pe.items() if k not in ("latency_ms", "k15")})
         log(dict(phase="engine on the mesh latency", latency_ms=pe["latency_ms"]))
         log(dict(phase="kernel-case", **pe["k15"]))
+        stamp("E")
         pf = run_program_f(p25, device)
         log(pf)
+        stamp("F")
         # program G: the port's decoders on the engine's P25 banks
         log(run_program_g1(device))
         log(run_program_g2(device))
+        stamp("G1, G2")
         # program H: the channel attachments and the scanner on the engine
         log(run_program_h(device))
+        stamp("H")
+        # program I: the port's trunking on the engine
+        log(run_program_i(device))
+        stamp("I")
+        log(dict(phase="seconds since the build", stamps=stamps))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

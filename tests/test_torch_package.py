@@ -240,3 +240,72 @@ def test_p25_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     state = pipeline.pipeline_init(cfg, device="cpu")
     assert state.chan_state is not None  # the P25 banks alone still channelize
     assert state.p25.c4fm.cfo_phase.dtype == torch.uint32
+
+
+def test_trunking_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """``TrunkingManager`` runs on its capture manager's device,
+    ``TrunkingProcessManager`` carries its workers' device, and the worker
+    builds its ``CaptureManager`` on the device its config names: each
+    wants the card, and raises with none, unless ``"cpu"`` is asked for."""
+    from wavecap_tpu_torch.capture import CaptureManager
+    from wavecap_tpu_torch.devices import FakeDriver
+    from wavecap_tpu_torch.trunking import TrunkingManager, process_worker
+    from wavecap_tpu_torch.trunking.process_manager import TrunkingProcessManager
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrunkingManager(CaptureManager(FakeDriver()))
+    assert TrunkingManager(CaptureManager(FakeDriver(), device="cpu")).device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrunkingProcessManager()
+    assert TrunkingProcessManager(device="cpu").device == torch.device("cpu")
+
+    class Conn:
+        def __init__(self):
+            self.sent = []
+
+        def send(self, obj):
+            self.sent.append(obj)
+
+        def poll(self, timeout=None):
+            return True
+
+        def recv(self):
+            return {"id": 1, "cmd": "shutdown"}
+
+    made = []
+    monkeypatch.setattr("wavecap_tpu_torch.capture.CaptureManager.__init__",
+                        lambda self, driver, device=None, **kw: made.append(device) or
+                        setattr(self, "device", device))
+    evt = Conn()
+    process_worker.run_trunking_worker(Conn(), evt, {"systems": []})
+    assert evt.sent and evt.sent[0]["type"] == "worker_error" and "CUDA" in evt.sent[0]["traceback"]
+    assert not made
+    cmd = Conn()
+    process_worker.run_trunking_worker(cmd, Conn(), {"systems": [], "device": "cpu"})
+    assert made == [torch.device("cpu")] and cmd.sent == [{"id": 1, "result": {"ok": True}}]
+
+
+def test_the_trunking_worker_child_imports_neither_jax_nor_the_jax_package():
+    """A fresh interpreter importing the worker's module, as the spawned
+    child does to run ``run_trunking_worker``, and running it on the CPU
+    with a shutdown command: no ``jax`` and no ``wavecap_tpu`` module."""
+    code = (
+        "import sys, json\n"
+        "from wavecap_tpu_torch.trunking.process_worker import run_trunking_worker\n"
+        "class C:\n"
+        "    def __init__(self): self.sent = []\n"
+        "    def send(self, o): self.sent.append(o)\n"
+        "    def poll(self, t=None): return True\n"
+        "    def recv(self): return {'id': 1, 'cmd': 'shutdown'}\n"
+        "cmd = C()\n"
+        "run_trunking_worker(cmd, C(), {'systems': [{'id': 's', 'control_channels': [851.2e6],\n"
+        "                    'sample_rate': 800000, 'max_voice_channels': 1}], 'device': 'cpu',\n"
+        "                    'auto_start': False})\n"
+        "print(json.dumps([cmd.sent, sorted(m for m in sys.modules if m == 'jax' or m.startswith(\n"
+        "    ('jax.', 'jaxlib', 'wavecap_tpu.')) or m == 'wavecap_tpu')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    sent, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sent == [{"id": 1, "result": {"ok": True}}] and not bad, (sent, bad)

@@ -21,7 +21,10 @@ every shard).
 The host decoders hand over by ``decoder_state_from_reference``: a
 reference framer, detector, vocoder or DMR tracker becomes the port's
 object of the same class with the same buffers, counters and parameters,
-so a decode can move from one package to the other mid-stream.
+so a decode can move from one package to the other mid-stream.  The
+trunking host objects hand over the same way: the control-channel
+monitors, a voice recorder mid-call, the grant duplicate detector and the
+control-channel scanner.
 """
 
 from __future__ import annotations
@@ -133,31 +136,37 @@ def grid_control_from_numpy(cfg: ShardedGridConfig, mesh: Mesh, tree) -> GridCon
                               None if wide is None else _map(wide, lambda a: a))
 
 
-# --- the host decoders ----------------------------------------------------------------
+# --- the host decoders and the trunking host objects ---------------------------------
 
-_REFERENCE_DECODERS = "wavecap_tpu.decoders."
+_REFERENCE = ("wavecap_tpu.decoders.", "wavecap_tpu.trunking.")
 DECODER_CLASSES = ("P25Framer", "P25P2SuperFrameDetector", "ImbeDecoder", "VoiceDecoder",
-                   "AmbeDecoder", "DMRDecoder", "DMRVoiceTracker")
+                   "AmbeDecoder", "DMRDecoder", "DMRVoiceTracker", "ControlChannelMonitor",
+                   "DmrControlMonitor", "VoiceRecorder", "DuplicateDetector", "CCScanner")
+
+
+def _is_reference(t: type) -> bool:
+    return t.__module__.startswith(_REFERENCE)
 
 
 def _port_type(obj) -> type:
-    """The port's class of a reference decoder object, by module and name
-    (read from the object: nothing of the reference is imported)."""
+    """The port's class of a reference decoder or trunking object, by module
+    and name (read from the object: nothing of the reference is imported)."""
     mod = type(obj).__module__
-    if not mod.startswith(_REFERENCE_DECODERS):
-        raise TypeError(f"{type(obj).__qualname__} from {mod} is not a reference decoder class")
-    port = importlib.import_module("wavecap_tpu_torch.decoders." + mod[len(_REFERENCE_DECODERS):])
+    if not mod.startswith(_REFERENCE):
+        raise TypeError(f"{type(obj).__qualname__} from {mod} is not a reference decoder or trunking class")
+    port = importlib.import_module("wavecap_tpu_torch." + mod[len("wavecap_tpu."):])
     return getattr(port, type(obj).__qualname__)
 
 
 def _decoder_value(v):
-    """A copy of one attribute: arrays copied, containers rebuilt, reference
-    decoder objects and enum members as the port's, generators with their
-    state; plain values (and callbacks) as they are."""
+    """A copy of one attribute: arrays copied, containers rebuilt (dict keys
+    too), reference objects and enum members as the port's, generators with
+    their state, a reference ``FanOut`` as a fresh one of the same size (its
+    subscribers stay behind); plain values (and callbacks) as they are."""
     if isinstance(v, np.ndarray):
         return v.copy()
     if isinstance(v, enum.Enum):
-        return getattr(_port_type(v), v.name) if type(v).__module__.startswith(_REFERENCE_DECODERS) else v
+        return getattr(_port_type(v), v.name) if _is_reference(type(v)) else v
     if isinstance(v, np.random.Generator):
         g = np.random.Generator(type(v.bit_generator)())
         g.bit_generator.state = v.bit_generator.state
@@ -165,10 +174,14 @@ def _decoder_value(v):
     if isinstance(v, deque):
         return deque((_decoder_value(x) for x in v), maxlen=v.maxlen)
     if isinstance(v, dict):
-        return {k: _decoder_value(x) for k, x in v.items()}
+        return {_decoder_value(k): _decoder_value(x) for k, x in v.items()}
     if isinstance(v, (list, tuple)) and not hasattr(v, "_fields"):
         return type(v)(_decoder_value(x) for x in v)
-    if type(v).__module__.startswith(_REFERENCE_DECODERS):
+    if type(v).__module__ == "wavecap_tpu.utils.broadcast" and type(v).__name__ == "FanOut":
+        from .utils.broadcast import FanOut
+
+        return FanOut(maxsize=v.maxsize)
+    if _is_reference(type(v)):
         return _decoder_object(v)
     return v
 
@@ -180,16 +193,23 @@ def _decoder_object(obj):
     new = cls() if handles else cls.__new__(cls)
     for k, v in vars(obj).items():
         if k not in handles:
-            setattr(new, k, _decoder_value(v))
+            # object.__setattr__: frozen dataclasses (``CallSignature``) too
+            object.__setattr__(new, k, _decoder_value(v))
     return new
 
 
 def decoder_state_from_reference(obj):
-    """The reference's decoder ``obj`` (one of ``DECODER_CLASSES``: the P25
-    framer with its NAC tracker, the Phase 2 superframe detector, the IMBE
-    and AMBE vocoders, the voice facade minus its library handle, the DMR
-    burst decoder and voice tracker) as the port's object of the same class,
-    its state copied as numpy arrays and plain values."""
+    """The reference's decoder or trunking host object ``obj`` (one of
+    ``DECODER_CLASSES``: the P25 framer with its NAC tracker, the Phase 2
+    superframe detector, the IMBE and AMBE vocoders, the voice facade minus
+    its library handle, the DMR burst decoder and voice tracker; the P25 and
+    DMR control-channel monitors, a voice recorder mid-call with its call,
+    the grant duplicate detector, the control-channel scanner with its
+    measurements and probe) as the port's object of the same class, its
+    state copied as numpy arrays and plain values.  Callbacks (a monitor's
+    ``on_tsbk``, a recorder's ``on_location``) are kept as they are: the
+    caller points them at the port's system; a recorder's live PCM fan-out
+    starts with no subscribers."""
     if type(obj).__qualname__ not in DECODER_CLASSES:
         raise TypeError(f"no hand-over for {type(obj).__qualname__}; one of {DECODER_CLASSES}")
     return _decoder_object(obj)
