@@ -49,7 +49,10 @@ It drives the port's paths at full width:
   source);
 * trunking (program I: P25 Phase 1 and 2 and DMR Tier III sites at 2.4
   Msps, each locked, its grants followed and its calls recorded; a worker
-  process; Phase 1 on the mesh).
+  process; Phase 1 on the mesh);
+* the server, the harness and the CLI (program J: the REST and WebSocket
+  surface, streams at the shipped limits, a worker-hosted system's
+  streams, the ``python -m`` entry points).
 
 Phases:
 
@@ -200,7 +203,25 @@ Phases:
     system's launches a block (the ones its scene implies > 0), and its
     second and third blocks against the engine on the CPU from the card's
     carried state (>= 50 dB, the same messages; the first block reported);
-14. a JSON line of the kernels (K15 with its copies and bytes) and the
+14. program J, the port's server, harness and CLI (``server/``,
+    ``harness.py``, ``cli.py``) on the card, spoken to over HTTP and
+    WebSocket through the standard library: J1 the shipped deployment
+    (``wavecap.yaml.example`` as a dict) on the card and on the CPU, the
+    route smoke's walk, the REST script and every WebSocket upgrade
+    answering alike (the routes that read YAML listed apart) and every
+    ``docs/api-spec.md`` route registered; J2 the server filled to the
+    shipped limits through REST (4 captures, one at 10 Msps with 8 narrow,
+    2 wide and 4 P25 channels), every channel's audio and every capture's
+    spectrum over WebSocket: each station's tone >= 20 dB above the rest,
+    the empty channels squelched, the spectra peaking at the stations, one
+    channel >= 50 dB against the CPU engine fed the same blocks from block
+    2 on, the time to first audio (cold, warm) and launches a block; J3 a
+    worker-hosted P25 system (the worker on the card) whose voice and
+    spectrum the server serves; J4 ``python -m wavecap_tpu_torch serve``
+    with no config file (``/health``, ``POST /shutdown``), ``demod``
+    (>= 50 dB), ``decode-iq`` and the harness's scenes, each against the
+    same command with ``WAVECAP_TORCH_DEVICE=cpu``;
+15. a JSON line of the kernels (K15 with its copies and bytes) and the
     final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -6510,6 +6531,851 @@ def run_program_i(device) -> dict:
     return dict(phase="program I", wall_s=time.perf_counter() - t0)
 
 
+# --- program J: the server, the harness and the CLI on the card (phase 14) -------------------------
+
+# the shipped deployment (wavecap.yaml.example) as a dict: no PyYAML on the card's machine
+J_SHIPPED = {
+    "server": {"host": "127.0.0.1", "port": 0},
+    "stream": {"audio_rate": 48000, "fft_size": 2048, "spectrum_fps": 10.0},
+    "limits": {"max_captures": 4, "max_channels_per_capture": 8, "max_wide_channels": 2, "max_p25_channels": 4},
+    "device": {"driver": "fake"},
+    "recovery": {"watchdog_timeout_s": 30.0, "startup_timeout_s": 45.0, "max_restarts_per_hour": 6},
+    "captures": [{"id": "fm", "center_hz": 90.3e6, "sample_rate": 2.4e6, "auto_start": True,
+                  "channels": [{"id": "kexp", "mode": "wbfm", "frequency_hz": 90.3e6, "name": "KEXP"}]}],
+    "pocsag_aliases": {"1234567": "City Fire Dispatch"},
+    "trunking_systems": [{"id": "example-p25", "name": "Example P25 System",
+                          "control_channels": [851.2e6, 852.35e6], "sample_rate": 2.4e6, "hunt_mode": "hunt",
+                          "max_voice_channels": 4, "auto_start": False,
+                          "talkgroups": [{"tgid": 101, "name": "PD Dispatch", "priority": 1, "record": True},
+                                         {"tgid": 201, "name": "FD Dispatch", "priority": 2, "record": True}]}],
+}
+J_RATE_LIMIT = 1_000_000  # the route walk makes more calls a minute than the shipped limiter allows
+J_NEEDS_YAML = ("/recipes", "/identify")  # routes that read YAML (recipes; band names through utils/namers.py)
+# J2: (capture id, device, centre Hz, rate, channels: (mode, offset Hz or None for an empty channel, tone Hz))
+J2_CAPTURES = (
+    ("wide10", "fake0", 152.0e6, 10_000_000,
+     (("nbfm", 100e3, 1000.0), ("nbfm", -1.2e6, 1500.0), ("nbfm", 2.05e6, 700.0), ("am", 3.1e6, 900.0),
+      ("am", -2.5e6, 1100.0), ("nbfm", 1.3e6, None), ("nbfm", -3.3e6, None), ("am", 4.1e6, None),
+      ("wbfm", 1.6e6, 440.0), ("wbfm", -4.0e6, None),
+      ("p25", -3.6e6, "cc"), ("p25", -3.8e6, None), ("p25", 3.5e6, None), ("p25", 0.6e6, None))),
+    ("vhf", "fake1", 155.0e6, 2_400_000,
+     (("nbfm", 100e3, 1000.0), ("am", -300e3, 800.0), ("wbfm", 600e3, 440.0), ("nbfm", -500e3, None))),
+    ("uhf", "fake2", 460.0e6, 2_400_000,
+     (("nbfm", -150e3, 1300.0), ("am", 250e3, 600.0), ("wbfm", -700e3, 440.0), ("nbfm", 450e3, None))),
+    ("air", "fake3", 120.0e6, 2_400_000,
+     (("am", 50e3, 1000.0), ("nbfm", -350e3, 900.0), ("wbfm", 800e3, 440.0), ("am", -600e3, None))),
+)
+J2_AMPLITUDE = 0.05
+J2_SQUELCH_DB = -50.0
+J2_BLOCKS = 8  # audio blocks collected a channel
+J2_PARITY = "vhf"  # the capture whose first channel is held against the CPU engine
+J3_TIMEOUT_S = 240.0
+J4_TIMEOUT_S = 300.0
+
+
+class JDriver:
+    """The fake driver with a scene a device: ``scenes`` maps a device id to
+    its ``FakeStation`` list."""
+
+    name = "fake"
+
+    def __init__(self, scenes: dict):
+        from wavecap_tpu_torch.devices import FakeDriver
+
+        self.scenes = scenes
+        self._fake = FakeDriver(n_devices=len(scenes))
+
+    def enumerate(self):
+        return self._fake.enumerate()
+
+    def open(self, device_id: str):
+        dev = self._fake.open(device_id)
+        dev.stations = self.scenes[device_id]
+        return dev
+
+
+class JServer:
+    """The port's ``AppServer`` on ``device`` in an event loop of its own
+    thread (the tests' ``ServerHarness``); ``driver`` replaces the
+    configured one before the boot, as ``harness.py`` does."""
+
+    def __init__(self, cfg: dict, device, driver=None):
+        import asyncio
+        import threading
+
+        from wavecap_tpu_torch.server.app import AppServer
+        from wavecap_tpu_torch.utils.config import config_from_dict
+
+        self.server = AppServer(config_from_dict(cfg), device=device)
+        if driver is not None:
+            self.server.state.driver = driver
+            self.server.state.captures.driver = driver
+        self.loop = asyncio.new_event_loop()
+        self._started = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        import asyncio
+
+        asyncio.set_event_loop(self.loop)
+
+        async def boot():
+            await self.server.start()
+            self._started.set()
+
+        self.loop.create_task(boot())
+        self.loop.run_forever()
+
+    def start(self) -> "JServer":
+        self._thread.start()
+        check(self._started.wait(120), "J: the server did not boot within 120 s")
+        return self
+
+    def stop(self) -> None:
+        import asyncio
+
+        async def shutdown():
+            await self.server.stop()
+            self.loop.stop()
+
+        asyncio.run_coroutine_threadsafe(shutdown(), self.loop)
+        self._thread.join(timeout=30)
+
+    @property
+    def port(self) -> int:
+        return self.server.port
+
+    @property
+    def state(self):
+        return self.server.state
+
+
+def j_http(port: int, method: str, path: str, body=None, timeout: float = 60.0) -> tuple:
+    """One request: (status, content type, body: JSON parsed, else bytes).
+    A streaming body (not JSON) is not read."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json"} if data else {})
+        r = conn.getresponse()
+        kind = (r.getheader("content-type") or "").split(";")[0]
+        if kind == "application/json":
+            return r.status, kind, json.loads(r.read())
+        return r.status, kind, None
+    finally:
+        conn.close()
+
+
+def j_api(port: int, method: str, path: str, body=None):
+    status, _, out = j_http(port, method, "/api/v1" + path, body)
+    check(status < 300, f"J: {method} {path} answered {status}: {out}")
+    return out
+
+
+def j_shape(answer: tuple):
+    """Status and JSON key sets (a list: the union of its elements' keys;
+    capture ids, which a process numbers across its servers, as ``cap*``);
+    other bodies by content type."""
+    import re
+
+    status, kind, body = answer
+    keys = lambda d: {re.sub(r"^cap\d+$", "cap*", k) for k in d}  # noqa: E731
+    if isinstance(body, dict):
+        return status, sorted(keys(body))
+    if isinstance(body, list):
+        return status, "list", sorted({k for x in body if isinstance(x, dict) for k in keys(x)})
+    return status, kind
+
+
+class JWs:
+    """A minimal WebSocket client (RFC 6455) on a socket: the upgrade,
+    frames read (pings answered) and sent masked, the close."""
+
+    def __init__(self, port: int, path: str, timeout: float = 30.0):
+        import base64
+        import hashlib
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+                          f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                          f"Sec-WebSocket-Version: 13\r\n\r\n".encode())
+        self.buf = b""
+        while b"\r\n\r\n" not in self.buf:
+            chunk = self.sock.recv(4096)
+            check(bool(chunk), f"J: {path}: the server closed during the upgrade")
+            self.buf += chunk
+        head, self.buf = self.buf.split(b"\r\n\r\n", 1)
+        accept = base64.b64encode(hashlib.sha1((key + "258EAFA5-E914-47DA-95CA-C5AB0DC85B11").encode())
+                                  .digest()).decode()
+        head = head.decode("latin1")
+        check(head.split(" ", 2)[1] == "101" and accept in head, f"J: {path}: upgrade refused: {head[:80]}")
+
+    def _read(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            chunk = self.sock.recv(1 << 16)
+            if not chunk:
+                raise ConnectionError("websocket closed")
+            self.buf += chunk
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def send(self, opcode: int, payload: bytes = b"") -> None:
+        import struct
+
+        n = len(payload)
+        head = bytes([0x80 | opcode]) + (bytes([0x80 | n]) if n < 126 else bytes([0x80 | 126]) + struct.pack(">H", n))
+        mask = os.urandom(4)
+        self.sock.sendall(head + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+    def recv(self, timeout: float = 60.0):
+        """The next data message: bytes, or str for text."""
+        import struct
+
+        self.sock.settimeout(timeout)
+        parts, kind = [], None
+        while True:
+            h = self._read(2)
+            fin, op, n = h[0] & 0x80, h[0] & 0x0F, h[1] & 0x7F
+            if n == 126:
+                n = struct.unpack(">H", self._read(2))[0]
+            elif n == 127:
+                n = struct.unpack(">Q", self._read(8))[0]
+            payload = self._read(n)
+            if op == 0x9:
+                self.send(0xA, payload)
+                continue
+            if op == 0x8:
+                raise ConnectionError("websocket closed by the server")
+            if op in (0x1, 0x2):
+                kind, parts = op, [payload]
+            elif op == 0x0:
+                parts.append(payload)
+            if fin and kind is not None:
+                data = b"".join(parts)
+                return data.decode() if kind == 0x1 else data
+
+    def close(self) -> None:
+        try:
+            self.send(0x8, b"\x03\xe8")
+        except OSError:
+            pass
+        self.sock.close()
+
+
+def j_until(pred, what: str, timeout: float = 120.0, dt: float = 0.01) -> float:
+    """Wait on a count (``pred``, a subscriber or block count); the seconds."""
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout, f"J: never {what} within {timeout} s")
+        time.sleep(dt)
+    return time.perf_counter() - t0
+
+
+def j_spec_routes(path: str = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "api-spec.md")) -> list:
+    """(method, path) of ``docs/api-spec.md``'s tables, parsed as
+    ``tests/test_api_conformance.py`` parses them (``WS`` for the WebSocket
+    table; a one-segment continuation replaces the base's last segment)."""
+    import re
+
+    out, in_ws = [], False
+    for line in open(path).read().splitlines():
+        if line.startswith("## "):
+            in_ws = "WebSocket" in line
+        if line.startswith("## Reference endpoint"):
+            break
+        if not line.startswith("|"):
+            continue
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        if len(cells) < 2 or cells[0] in ("Method", "Path", "---") or set(cells[0]) <= {"-"}:
+            continue
+        if in_ws:
+            out.extend(("WS", p) for p in re.findall(r"`(/[^`\s?]+)", cells[0]))
+            continue
+        methods = [m for m in re.split(r"[/,\s]+", cells[0]) if m.isupper()]
+        base = None
+        for p in re.findall(r"`([^`]+)`", cells[1]) if methods else []:
+            p = p.split("?")[0]
+            if not p.startswith("/"):
+                continue
+            if base is None or p.count("/") > 1:
+                base = p
+            else:
+                p = base.rsplit("/", 1)[0] + p
+            out.extend((m, p) for m in methods)
+    return out
+
+
+def j_spec_fill(path: str) -> str:
+    import re
+
+    path = path.replace("\\", "")
+    path = re.sub(r"\{freqHz\}", "851200000", path)
+    path = re.sub(r"\{tgid\}", "101", path)
+    path = re.sub(r"\{recorderId\}|\{rid\}|\{streamId\}", "0", path)
+    path = re.sub(r"\{name\}", "call", path)
+    return re.sub(r"\{[^}]+\}", "x1", path)
+
+
+def j_smoke_ids(port: int) -> dict:
+    """``tests/test_route_smoke.py``'s live ids: a capture, a channel, a
+    trunking system (not started) and a scanner (not started)."""
+    cap = j_api(port, "POST", "/captures", {"centerHz": 155e6, "sampleRate": 800_000})
+    ch = j_api(port, "POST", f"/captures/{cap['id']}/channels", {"mode": "nbfm", "frequencyHz": 155.05e6})
+    j_api(port, "POST", "/trunking/systems", {"id": "smoke1", "control_channels": [851.2e6],
+                                             "sample_rate": 2_400_000})
+    scn = j_api(port, "POST", "/scanners", {"captureId": cap["id"], "channelId": ch["id"],
+                                           "entries": [{"frequencyHz": 155.05e6}], "autoStart": False})
+    return {"cid": cap["id"], "chid": ch["id"], "sid": "smoke1", "rid": "airband", "did": "fake0",
+            "scanner": scn["id"]}
+
+
+def j_walk_urls(router, ids: dict) -> list:
+    import re
+
+    urls = []
+    for method, rx, _ in router.routes:
+        if method != "GET":
+            continue
+        pat = rx.pattern.strip("^$")
+
+        def fill(m, pat=pat):
+            name = m.group(1)
+            if name == "sid":
+                return ids["sid"] if "/trunking/" in pat else ids["scanner"]
+            return ids.get(name, "dummy")
+
+        url = re.sub(r"\(\?P<(\w+)>[^)]*\)", fill, pat).replace("\\", "")
+        if "(" not in url:
+            urls.append(url)
+    return urls
+
+
+def j_ws_urls(router, ids: dict) -> list:
+    import re
+
+    urls = []
+    for rx, _ in router.ws_routes:
+        url = re.sub(r"\(\?P<(\w+)>[^)]*\)", lambda m: {"cid": ids["cid"], "chid": ids["chid"],
+                                                           "sid": ids["sid"]}.get(m.group(1), "dummy"),
+                     rx.pattern.strip("^$"))
+        if "(" not in url:
+            urls.append(url)
+    return urls
+
+
+# tests/test_server.py's CRUD, error, metrics and trunking calls: (name, method, path, body)
+J1_SCRIPT = (
+    ("create capture", "POST", "/captures", {"centerHz": 155e6, "sampleRate": 800_000}),
+    ("create channel", "POST", "/captures/{cid}/channels", {"mode": "nbfm", "frequencyHz": 155.1e6, "name": "t"}),
+    ("get capture", "GET", "/captures/{cid}", None),
+    ("patch channel", "PATCH", "/channels/{chid}", {"name": "renamed", "squelchDb": -40}),
+    ("spectrum of a stopped capture", "GET", "/captures/{cid}/spectrum", None),
+    ("delete channel", "DELETE", "/channels/{chid}", None),
+    ("stop capture", "POST", "/captures/{cid}/stop", None),
+    ("delete capture", "DELETE", "/captures/{cid}", None),
+    ("unknown capture", "GET", "/captures/nope", None),
+    ("delete unknown channel", "DELETE", "/channels/nope", None),
+    ("channel out of range", "POST", "/captures/fm/channels", {"mode": "nbfm", "frequencyHz": 999e9}),
+    ("channel without frequency", "POST", "/captures/fm/channels", {"mode": "nbfm"}),
+    ("create system", "POST", "/trunking/systems",
+     {"id": "tsys", "control_channels": [851.2e6], "sample_rate": 960_000,
+      "talkgroups": [{"tgid": 100, "name": "Dispatch"}]}),
+    ("talkgroups", "GET", "/trunking/systems/tsys/talkgroups", None),
+    ("calls", "GET", "/trunking/systems/tsys/calls", None),
+    ("delete system", "DELETE", "/trunking/systems/tsys", None),
+)
+
+
+def j_surface(srv: JServer) -> dict:
+    """The REST script, then the route smoke's walk over every GET route
+    with live ids, then its ids removed: each answer's shape."""
+    out, ids = {}, {}
+    for name, method, path, body in J1_SCRIPT:
+        ans = j_http(srv.port, method, "/api/v1" + path.format(**ids), body)
+        if name == "create capture":
+            ids["cid"] = ans[2]["id"]
+        if name == "create channel":
+            ids["chid"] = ans[2]["id"]
+        out[name] = j_shape(ans)
+    ids = j_smoke_ids(srv.port)
+    for url in j_walk_urls(srv.server.router, ids):
+        out[url.replace(ids["cid"], "{cid}").replace(ids["chid"], "{chid}").replace(ids["scanner"], "{scan}")] = \
+            j_shape(j_http(srv.port, "GET", url))
+    ws = {}
+    for url in j_ws_urls(srv.server.router, ids):
+        w = JWs(srv.port, url)
+        w.close()
+        ws[url] = True
+    j_api(srv.port, "DELETE", f"/scanners/{ids['scanner']}")
+    j_api(srv.port, "DELETE", f"/captures/{ids['cid']}")
+    j_api(srv.port, "DELETE", "/trunking/systems/smoke1")
+    return dict(answers=out, ws=len(ws))
+
+
+def run_program_j1(device) -> dict:
+    """J1, the surface: the shipped deployment on the card and on the CPU
+    (the port's servers, the fake driver): the route smoke and the
+    conformance calls answer alike."""
+    t0 = time.perf_counter()
+    cfg = json.loads(json.dumps(J_SHIPPED))
+    cfg["server"]["rate_limit_per_min"] = J_RATE_LIMIT
+    card = JServer(cfg, device).start()
+    cpu = None
+    try:
+        fm = card.state.get_capture("fm")
+        boot_s = j_until(lambda: fm.blocks_processed > 0, "the shipped fm capture processed a block")
+        check(fm.status()["device"] == str(torch_device(device)), f"J1: fm runs on {fm.status()['device']}")
+        cpu = JServer(cfg, "cpu").start()
+        card_s, cpu_s = j_surface(card), j_surface(cpu)
+        held = {k: v for k, v in card_s["answers"].items() if not any(y in k for y in J_NEEDS_YAML)}
+        apart = {k: (v, cpu_s["answers"].get(k)) for k, v in card_s["answers"].items() if k not in held}
+        differ = {k: (v, cpu_s["answers"].get(k)) for k, v in held.items() if cpu_s["answers"].get(k) != v}
+        check(not differ, f"J1: the card's server answers differently from the CPU's: {differ}")
+        server_errors = {k: v for k, v in held.items() if isinstance(v[0], int) and v[0] >= 500 and v[0] != 501}
+        check(not server_errors, f"J1: 5xx answers: {server_errors}")
+        router = card.server.router
+        missing = []
+        for method, path in j_spec_routes():
+            concrete = "/api/v1" + j_spec_fill(path)
+            if method == "WS":
+                ok = router.find_ws(concrete)[0] is not None
+            else:
+                try:
+                    ok = router.find(method, concrete)[0] is not None
+                except Exception:
+                    ok = True  # 405: the path exists with another method
+            if not ok:
+                missing.append((method, path))
+        check(not missing, f"J1: spec routes not registered: {missing}")
+        check(card_s["ws"] == len(router.ws_routes) >= 10, f"J1: {card_s['ws']} WebSocket routes answered the upgrade")
+        return dict(phase="program J1: the server's surface on the card", boot_to_first_block_s=boot_s,
+                    held=len(held), needs_pyyaml=apart, ws_routes=card_s["ws"], spec_routes=len(j_spec_routes()),
+                    routes=[len(router.routes), len(router.ws_routes)], fm=fm.status()["transportActive"],
+                    wall_s=time.perf_counter() - t0)
+    finally:
+        if cpu is not None:
+            cpu.stop()
+        card.stop()
+
+
+def j2_scene(rate: int, chans: tuple) -> list:
+    """A capture's stations: an FM or AM tone a station, a WBFM one, and a
+    looped C4FM control channel (``g_tsdu_loop``) for ``"cc"``."""
+    from wavecap_tpu_torch.devices import FakeStation
+    from wavecap_tpu_torch.models.p25.c4fm import modulate_c4fm_cyclic
+
+    out = []
+    for mode, off, tone in chans:
+        if tone is None:
+            continue
+        if tone == "cc":
+            dibits, _ = g_tsdu_loop(0x293, 7)
+            out.append(FakeStation(**g_station(modulate_c4fm_cyclic(dibits, 48_000.0), rate, off, J2_AMPLITUDE)))
+        elif mode == "am":
+            out.append(FakeStation(offset_hz=off, kind="am", tone_hz=tone, amplitude=J2_AMPLITUDE))
+        else:
+            out.append(FakeStation(offset_hz=off, kind=mode, tone_hz=tone, amplitude=J2_AMPLITUDE,
+                                   deviation_hz=75e3 if mode == "wbfm" else 4000.0))
+    return out
+
+
+def j_tone_db(pcm: np.ndarray, tone: float, rate: int = 48_000) -> float:
+    """The tone's power against the rest of 100 Hz - 15 kHz, in dB."""
+    x = pcm - pcm.mean()
+    p = np.abs(np.fft.rfft(x * np.hanning(len(x)))) ** 2
+    f = np.fft.rfftfreq(len(x), 1 / rate)
+    band = (f >= 100) & (f <= 15_000)
+    on = band & (np.abs(f - tone) <= 20)
+    return 10 * np.log10(p[on].sum() / max(p[band & ~on].sum(), 1e-30))
+
+
+def run_program_j2(device) -> dict:
+    """J2: the server filled to the shipped limits through REST, every
+    channel's audio and every capture's spectrum over WebSocket; one
+    channel against the CPU engine fed the same blocks."""
+    import dataclasses
+
+    from wavecap_tpu_torch.capture import Capture, ChannelSpec
+    from wavecap_tpu_torch.devices import FakeDriver
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    t_all = time.perf_counter()
+    cfg = json.loads(json.dumps(J_SHIPPED))
+    cfg.update(captures=[], trunking_systems=[])
+    cfg["server"]["rate_limit_per_min"] = J_RATE_LIMIT
+    scenes = {dev: j2_scene(rate, chans) for _, dev, _, rate, chans in J2_CAPTURES}
+    srv = JServer(cfg, device, driver=JDriver(scenes)).start()
+    socks = []
+    try:
+        port = srv.port
+        plan, caps, label = {}, {}, {}
+        for name, dev, center, rate, chans in J2_CAPTURES:
+            cid = j_api(port, "POST", "/captures", {"deviceId": dev, "centerHz": center, "sampleRate": rate})["id"]
+            caps[cid], label[name] = srv.state.get_capture(cid), cid
+            for mode, off, tone in chans:
+                ch = j_api(port, "POST", f"/captures/{cid}/channels",
+                           {"mode": mode, "frequencyHz": center + off, "squelchDb": J2_SQUELCH_DB})
+                plan[ch["id"]] = (cid, mode, off, tone)
+        limits = cfg["limits"]
+        check(len(caps) == limits["max_captures"], f"J2: {len(caps)} captures")
+        statuses = j_api(port, "GET", "/captures")
+        check({c["id"] for c in statuses} == set(caps) and all(c["device"] == str(torch_device(device))
+                                                            for c in statuses), f"J2: captures {statuses}")
+        # the parity capture: its dispatches (blocks, transport) and its first channel's audio, in process
+        par = caps[label[J2_PARITY]]
+        par_ch = next(i for i, p in plan.items() if p[0] == label[J2_PARITY])
+        par_sub = par.channels[par_ch].audio.subscribe(maxsize=1024)
+        dispatched = []
+        real = par._dispatch_blocks
+
+        def record(blocks):
+            dispatched.append(([np.array(b) for b in blocks], par.transport_active))
+            return real(blocks)
+
+        par._dispatch_blocks = record
+        audio = {i: [] for i, p in plan.items() if p[1] != "p25"}
+        for chid in audio:
+            socks.append((chid, JWs(port, f"/api/v1/stream/channels/{chid}")))
+        spec_ws = {cid: JWs(port, f"/api/v1/stream/captures/{cid}/spectrum") for cid in caps}
+        j_until(lambda: all(srv.state.find_channel(c)[1].audio.count >= 1 for c in audio)
+                and all(c.spectrum_subs.count == 1 for c in caps.values()), "every stream subscribed")
+        reset_launch_counts()
+        first_audio = {}
+        for cid in caps:
+            t0 = time.perf_counter()
+            j_api(port, "POST", f"/captures/{cid}/start")
+            chid = next(i for i, p in plan.items() if p[0] == cid)
+            w = dict(socks)[chid]
+            audio[chid].append(w.recv(timeout=300))
+            first_audio[cid] = time.perf_counter() - t0
+        for chid, w in socks:
+            while len(audio[chid]) < J2_BLOCKS:
+                audio[chid].append(w.recv(timeout=300))
+        spectra = {cid: json.loads(w.recv(timeout=60)) for cid, w in spec_ws.items()}
+        for cid in caps:
+            j_api(port, "POST", f"/captures/{cid}/stop")
+        blocks = sum(c.blocks_processed for c in caps.values())
+        launches = {k: round(v / blocks, 3) for k, v in launch_counts().items() if v}
+        # warm: the parity capture again, its kernels and program built
+        par._dispatch_blocks = real
+        fresh = par.channels[par_ch].audio.subscribe(maxsize=4)  # as a client that connects now
+        t0 = time.perf_counter()
+        j_api(port, "POST", f"/captures/{label[J2_PARITY]}/start")
+        check(fresh.get(timeout=300) is not None, "J2: no audio after the warm start")
+        warm_s = time.perf_counter() - t0
+        fresh.close()
+        j_api(port, "POST", f"/captures/{label[J2_PARITY]}/stop")
+        # each station's tone, the empty channels squelched
+        lines, silent = {}, {}
+        for chid, chunks in audio.items():
+            cid, mode, off, tone = plan[chid]
+            pcm = np.concatenate([np.frombuffer(c, np.int16) for c in chunks[2:]]).astype(np.float32) / 32768.0
+            if tone is None:
+                silent[chid] = float(np.abs(pcm).max()) if len(pcm) else 0.0
+                if mode != "wbfm":
+                    check(silent[chid] == 0.0, f"J2: empty {mode} channel {chid} of {cid} not squelched: "
+                          f"peak {silent[chid]}")
+            else:
+                lines[chid] = round(j_tone_db(pcm, tone), 1)
+                check(lines[chid] >= 20.0, f"J2: {mode} station {chid} of {cid} at {off} Hz: its {tone} Hz "
+                      f"tone {lines[chid]} dB above the rest")
+        peaks = {}
+        for name, dev, center, rate, chans in J2_CAPTURES:
+            cid = label[name]
+            db = np.array(spectra[cid]["db"])
+            n = len(db)
+            for mode, off, tone in chans:
+                if tone is None:
+                    continue
+                k = n // 2 + round(off / rate * n)
+                # a frame catches a WBFM station anywhere in its +-75 kHz swing
+                half = 3 if mode != "wbfm" else int(np.ceil(80e3 / (rate / n)))
+                key = f"{name}{off:+.0f}"
+                peaks[key] = round(float(db[max(k - half, 0):k + half + 1].max() - np.median(db)), 1)
+                check(peaks[key] >= 15.0, f"J2: {name}'s spectrum has no peak at {off} Hz: {peaks[key]} dB over "
+                      "the median")
+        # the parity capture's first channel against the CPU engine fed the same dispatches inline
+        card_pcm = []
+        while (c := par_sub.get_nowait()) is not None:
+            card_pcm.append(c)
+        cpu_cap = Capture(FakeDriver(1).open("fake0"), dataclasses.replace(par.config), torch_device="cpu")
+        for chid, (cid, mode, off, tone) in plan.items():
+            if cid == label[J2_PARITY]:
+                spec = srv.state.find_channel(chid)[1].spec
+                cpu_cap.create_channel(ChannelSpec(id=spec.id, mode=spec.mode, frequency_hz=spec.frequency_hz,
+                                                   squelch_db=spec.squelch_db, name=spec.name, dsp=dict(spec.dsp)))
+        cpu_sub = cpu_cap.channels[par_ch].audio.subscribe(maxsize=1024)
+        n_par = min(len(dispatched), 6)
+        for batch, transport in dispatched[:n_par]:
+            cpu_cap.transport_active = transport
+            cpu_cap._dispatch_blocks(batch)
+        cpu_pcm = []
+        while (c := cpu_sub.get_nowait()) is not None:
+            cpu_pcm.append(c)
+        n_blk = sum(len(b) for b, _ in dispatched[:n_par])
+        check(len(cpu_pcm) == n_blk and len(card_pcm) >= n_blk, f"J2: {len(card_pcm)} card and {len(cpu_pcm)} CPU "
+              f"audio chunks for {n_blk} blocks")
+        vs_cpu = [round(snr_db(cpu_pcm[k], card_pcm[k]), 1) for k in range(n_blk)]
+        check(min(vs_cpu[1:]) >= 50.0, f"J2: {par_ch}'s audio against the CPU engine {vs_cpu} dB (>= 50 from "
+              "block 2 on)")
+        return dict(phase="program J2: streams at the shipped limits on the card", captures=len(caps),
+                    channels={n: sum(1 for p in plan.values() if p[0] == c) for n, c in label.items()},
+                    lines_db=lines, empty_peak=silent, spectrum_peaks_db=peaks,
+                    vs_cpu_db=dict(channel=par_ch, blocks=vs_cpu, transports=[t for _, t in dispatched[:n_par]]),
+                    first_audio_s=dict(cold={n: first_audio[c] for n, c in label.items()}, warm=warm_s),
+                    blocks=blocks,
+                    launches_per_block=launches, wall_s=time.perf_counter() - t_all)
+    finally:
+        for _, w in socks:
+            w.close()
+        for w in locals().get("spec_ws", {}).values():
+            w.close()
+        srv.stop()
+
+
+def run_program_j3(device) -> dict:
+    """J3, the inherited trunking case on the card: a P25 system in a
+    worker process on the card (I1's scene looped by the worker's fake
+    receiver; the worker runs on its own clock: program I's virtual clock
+    cannot reach into it); the server's ``/trunking/stream/{sid}/voice``
+    carries the worker's voice, the spectrum snapshot its spectrum."""
+    import tempfile
+
+    from wavecap_tpu_torch.trunking.process_manager import TrunkingProcessManager
+
+    t_all = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="program_j3_")
+    cfg = json.loads(json.dumps(J_SHIPPED))
+    cfg.update(captures=[], trunking_systems=[], trunking_workers={"mode": "per_device"})
+    srv = JServer(cfg, device).start()
+    mgr = voice = events = None
+    try:
+        state = srv.state
+        check(state.trunking_workers is not None and str(state.trunking_workers.device) == str(torch_device(device)),
+              "J3: the per-device server did not build its worker manager on the card")
+        x, _, calls = i1_scene(24, I_BLOCK)
+        mgr = TrunkingProcessManager(state_dir=os.path.join(tmp, "state"), driver="fake", device=device,
+                                     stations=[dict(offset_hz=0.0, kind="iq_loop", iq_loop=x, amplitude=1.0)])
+        state.trunking_workers = mgr
+        state.attach_worker_streams(mgr)
+        mgr.add_system(i_config("j3", os.path.join(tmp, "rec")))
+        mgr.start()
+        check(mgr.workers["default"].worker_cfg["device"] == str(torch_device(device)), "J3: the worker's device")
+        hub = state.worker_streams
+        voice = JWs(srv.port, "/api/v1/trunking/stream/j3/voice")
+        events = JWs(srv.port, "/api/v1/trunking/stream/j3")
+        j_until(lambda: hub._get(hub.voice_all, "j3").count == 1, "the voice subscriber")
+        t0 = time.perf_counter()
+        pcm = [voice.recv(timeout=J3_TIMEOUT_S)]
+        first_voice_s = time.perf_counter() - t0
+        while sum(len(p) for p in pcm) < 2 * 8000:  # 1 s of 8 kHz int16 voice
+            pcm.append(voice.recv(timeout=60))
+        seen = []
+        while not any(e.get("type") in ("call_start", "grant") for e in seen):
+            seen.append(json.loads(events.recv(timeout=60)))
+        j_until(lambda: "j3" in hub.latest_spectrum, "a forwarded spectrum", timeout=60)
+        status, _, snap = j_http(srv.port, "GET", "/api/v1/trunking/systems/j3/spectrum")
+        check(status == 200 and snap["centerHz"] == I_CENTER and len(snap["db"]) == cfg["stream"]["fft_size"],
+              f"J3: the spectrum snapshot {status} {snap and {k: v for k, v in snap.items() if k != 'db'}}")
+        audio = np.frombuffer(b"".join(pcm), np.int16).astype(np.float32) / 32768.0
+        check(float(np.sqrt(np.mean(audio ** 2))) > 0.01, "J3: the worker's voice is silent")
+        st = mgr.rpc("default", "status", timeout=10.0)[0]
+        mgr.stop_all()
+        return dict(phase="program J3: a worker-hosted P25 system's voice and spectrum through the card's server",
+                    first_voice_s=first_voice_s, voice_s=len(audio) / 8000, voice_rms=float(np.sqrt(np.mean(audio ** 2))),
+                    events=[e.get("type") for e in seen][-5:], spectrum_bins=len(snap["db"]),
+                    worker={k: st[k] for k in ("state", "synced", "nac", "tsbkCount")},
+                    calls_sent=sorted(calls), wall_s=time.perf_counter() - t_all)
+    finally:
+        for w in (voice, events):
+            if w is not None:
+                w.close()
+        if mgr is not None and mgr.workers:
+            mgr.stop_all()
+        srv.stop()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def j4_inputs(tmp: str) -> dict:
+    """The CLI's inputs: 1 s of each demod mode's signal at its rate (a
+    1 kHz program) and a C4FM control channel at 48 kHz (30 TSDUs), from
+    the seed."""
+    from wavecap_tpu_torch.models.p25.c4fm import modulate_c4fm
+    from wavecap_tpu_torch.utils.wavio import write_iq_wav
+
+    rng = np.random.default_rng(SEED + 18)
+    paths = {}
+    for mode in ("wbfm", "nbfm", "am", "sam"):
+        rate = 240_000 if mode == "wbfm" else 48_000
+        t = np.arange(rate) / rate
+        prog = np.sin(2 * np.pi * 1000.0 * t)
+        if mode in ("wbfm", "nbfm"):
+            iq = np.exp(2j * np.pi * (75e3 if mode == "wbfm" else 2.5e3) * np.cumsum(0.8 * prog) / rate)
+        else:
+            iq = (1.0 + 0.6 * prog) * np.exp(2j * np.pi * 150.0 * t)
+        iq = 0.5 * iq + 0.01 * (rng.standard_normal(rate) + 1j * rng.standard_normal(rate))
+        paths[mode] = os.path.join(tmp, f"{mode}.wav")
+        write_iq_wav(paths[mode], iq.astype(np.complex64), rate)
+    dibits, _ = g_tsdu_loop(0x293, 7, n_tsdus=30)
+    iq = modulate_c4fm(dibits, 48_000.0)
+    iq = iq + 0.02 * (rng.standard_normal(len(iq)) + 1j * rng.standard_normal(len(iq)))
+    paths["cc"] = os.path.join(tmp, "cc.wav")
+    write_iq_wav(paths["cc"], iq.astype(np.complex64), 48_000)
+    return paths
+
+
+def j4_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_program_j4(device) -> dict:
+    """J4, the process entry points on the card (``python -m``), each beside
+    the same command with ``WAVECAP_TORCH_DEVICE=cpu``, all started
+    together: ``serve`` with no config file (``/health``, then ``POST
+    /shutdown``), ``demod`` (wbfm, nbfm, am, sam; >= 50 dB), ``decode-iq``
+    (the same statistics and messages) and the harness's tone and
+    p25-trunk scenes (the reports' fixed fields).  Then each ``demod`` and
+    ``decode-iq`` in this process on the card with the kernels' launches
+    counted."""
+    import shutil
+    import tempfile
+
+    from wavecap_tpu_torch import cli
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from wavecap_tpu_torch.utils.wavio import read_audio_wav
+
+    t_all = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="program_j4_")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    try:
+        paths = j4_inputs(tmp)
+        serve_dir = os.path.join(tmp, "serve")
+        os.makedirs(serve_dir)
+        port = j4_free_port()
+        base_env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        base_env.pop("WAVECAP_TORCH_DEVICE", None)
+        base_env.pop("WAVECAP_TORCH_DEVICE_COUNT", None)
+        # one intra-op thread a process: 15 processes at once on a few cores
+        # with torch's default threads each stall the CPU runs
+        base_env["OMP_NUM_THREADS"] = "1"
+        runs = {"serve": (["-m", "wavecap_tpu_torch", "serve", "--port", str(port)], serve_dir, "card")}
+        for where in ("card", "cpu"):
+            for mode in ("wbfm", "nbfm", "am", "sam"):
+                runs[f"demod {mode} {where}"] = (["-m", "wavecap_tpu_torch", "demod", "--input", paths[mode], "--mode",
+                                                  mode, "--output", os.path.join(tmp, f"{mode}_{where}.wav")], tmp, where)
+            runs[f"decode-iq {where}"] = (["-m", "wavecap_tpu_torch", "decode-iq", "--input", paths["cc"],
+                                           "--messages", os.path.join(tmp, f"msgs_{where}.json")], tmp, where)
+            for preset in ("tone", "p25-trunk"):
+                runs[f"harness {preset} {where}"] = (["-m", "wavecap_tpu_torch.harness", "--preset", preset,
+                                                      "--duration", "1.5", "--out-dir",
+                                                      os.path.join(tmp, f"h_{where}")], tmp, where)
+        t0 = time.perf_counter()
+        on_card = torch_device(device).type == "cuda"
+        for name, (argv, cwd, where) in runs.items():
+            # the card's runs name no device: unset means the card
+            env = dict(base_env, **({} if where == "card" and on_card else {"WAVECAP_TORCH_DEVICE": "cpu"}))
+            procs[name] = subprocess.Popen([sys.executable, *argv], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+        # serve: /health, then a clean POST /shutdown
+        health_s = None
+        while health_s is None:
+            check(time.perf_counter() - t0 < J4_TIMEOUT_S and procs["serve"].poll() is None,
+                  f"J4: serve did not answer /health: {procs['serve'].poll()}")
+            try:
+                status, _, body = j_http(port, "GET", "/api/v1/health", timeout=5)
+                if status == 200 and body["status"] == "ok":
+                    health_s = time.perf_counter() - t0
+            except OSError:
+                time.sleep(0.2)
+        status, _, body = j_http(port, "POST", "/api/v1/shutdown")
+        check(status == 200 and body.get("shuttingDown"), f"J4: POST /shutdown answered {status} {body}")
+        outs = {}
+        for name, p in procs.items():
+            try:
+                out, _ = p.communicate(timeout=max(1.0, J4_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+            outs[name] = out
+            check(p.returncode == 0, f"J4: {name} exited {p.returncode}: {out[-2000:]}")
+        procs_s = time.perf_counter() - t0
+        check("wavecap_tpu listening" in outs["serve"], f"J4: serve's output {outs['serve'][-500:]}")
+        demod = {}
+        for mode in ("wbfm", "nbfm", "am", "sam"):
+            (ca, cr), (pa, pr) = (read_audio_wav(os.path.join(tmp, f"{mode}_{w}.wav")) for w in ("card", "cpu"))
+            check(cr == pr == 48_000 and ca.shape == pa.shape and len(ca) > 0, f"J4: demod {mode}'s WAVs differ")
+            demod[mode] = round(snr_db(pa, ca), 1)
+            check(demod[mode] >= 50.0, f"J4: demod {mode} card against CPU {demod[mode]} dB")
+
+        def stats(where):
+            s = json.loads(outs[f"decode-iq {where}"].split("wrote")[0])
+            s.pop("realtime_x")
+            return s, json.load(open(os.path.join(tmp, f"msgs_{where}.json")))
+
+        check(stats("card") == stats("cpu"), f"J4: decode-iq card {stats('card')[0]} against CPU {stats('cpu')[0]}")
+        check(stats("card")[0]["tsbk_crc_ok"] >= 75, f"J4: decode-iq {stats('card')[0]}")
+        harness = {}
+        for preset, fixed in (("tone", ("preset", "samples", "audio_rate", "dominant_hz")),
+                              ("p25-trunk", ("preset", "synced", "nac", "systemId", "siteId", "calls",
+                                             "tsbkCrcRateSteady"))):
+            card_r, cpu_r = (json.load(open(os.path.join(tmp, f"h_{w}", f"harness_{preset}.json")))
+                             for w in ("card", "cpu"))
+            check({k: card_r[k] for k in fixed} == {k: cpu_r[k] for k in fixed},
+                  f"J4: harness {preset} card {card_r} against CPU {cpu_r}")
+            if preset == "tone":
+                check(abs(card_r["rms"] - cpu_r["rms"]) <= 0.01 * cpu_r["rms"], f"J4: harness tone rms {card_r} {cpu_r}")
+            harness[preset] = card_r
+        # the CLI paths' launches, in this process on the card
+        launches = {}
+        for mode in ("wbfm", "nbfm", "am", "sam"):
+            reset_launch_counts()
+            with mock.patch.dict(os.environ, {"WAVECAP_TORCH_DEVICE": str(torch_device(device))}), \
+                    mock.patch.object(sys, "argv", ["wavecap_tpu", "demod", "--input", paths[mode], "--mode", mode,
+                                                    "--output", os.path.join(tmp, f"{mode}_again.wav")]), \
+                    contextlib.redirect_stdout(None):
+                check(cli.main() == 0, f"J4: demod {mode} in process")
+            launches[f"demod {mode}"] = {k: v for k, v in launch_counts().items() if v}
+        reset_launch_counts()
+        with mock.patch.dict(os.environ, {"WAVECAP_TORCH_DEVICE": str(torch_device(device))}), \
+                mock.patch.object(sys, "argv", ["wavecap_tpu", "decode-iq", "--input", paths["cc"]]), \
+                contextlib.redirect_stdout(None):
+            check(cli.main() == 0, "J4: decode-iq in process")
+        launches["decode-iq"] = {k: v for k, v in launch_counts().items() if v}
+        # NBFM at 48 kHz in and out with the filters off (its defaults) is torch ops alone
+        for name in ("demod wbfm", "demod am", "demod sam", "decode-iq"):
+            check(launches[name] or not on_card, f"J4: {name} launched no kernel on the card")
+        return dict(phase="program J4: the process entry points on the card", serve_health_s=health_s,
+                    processes=len(procs), processes_s=procs_s, demod_vs_cpu_db=demod,
+                    decode_iq={k: stats("card")[0][k] for k in ("frames", "tsdu", "tsbk", "tsbk_crc_ok")},
+                    harness={p: {k: v for k, v in r.items() if k != "wav_path"} for p, r in harness.items()},
+                    launches=launches, wall_s=time.perf_counter() - t_all)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_program_j(device) -> dict:
+    """Program J: the port's server, harness and CLI on the card, J1-J4."""
+    t0 = time.perf_counter()
+    for run in (run_program_j1, run_program_j2, run_program_j3, run_program_j4):
+        log(dict(run(device), card=card_line()))
+    return dict(phase="program J", wall_s=time.perf_counter() - t0)
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -6869,6 +7735,9 @@ def main(argv=None) -> int:
         # program I: the port's trunking on the engine
         log(run_program_i(device))
         stamp("I")
+        # program J: the port's server, harness and CLI
+        log(run_program_j(device))
+        stamp("J")
         log(dict(phase="seconds since the build", stamps=stamps))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

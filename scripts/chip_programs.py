@@ -1,10 +1,10 @@
-"""Programs G1, G2, H and I of ``chip_smoke.py`` alone on the card.
+"""Programs G1, G2, H, I and J of ``chip_smoke.py`` alone on the card.
 
 Run from the repository root on a machine with one NVIDIA card::
 
-    python3 scripts/chip_programs.py [h] [g1] [g2] [i] [--out DIR]
+    python3 scripts/chip_programs.py [h] [g1] [g2] [i] [j] [--out DIR]
 
-Builds the kernels, then runs each program named (all four by default)
+Builds the kernels, then runs each program named (all five by default)
 in its own ``try``, so that one failure does not hide the others: each
 report goes to standard output as a JSON line and, with ``--out``, to
 ``DIR/<program>.json``.  The card's name and power limit come first and
@@ -25,12 +25,13 @@ import torch  # noqa: E402
 import chip_smoke as c  # noqa: E402
 from wavecap_tpu_torch.kernels import build_all  # noqa: E402
 
-PROGRAMS = {"g1": c.run_program_g1, "g2": c.run_program_g2, "h": c.run_program_h, "i": c.run_program_i}
+PROGRAMS = {"g1": c.run_program_g1, "g2": c.run_program_g2, "h": c.run_program_h, "i": c.run_program_i,
+            "j": c.run_program_j}
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="Programs G1, G2, H and I of chip_smoke.py alone on the card.")
-    ap.add_argument("programs", nargs="*", help="of g1, g2, h, i (all four by default)")
+    ap = argparse.ArgumentParser(description="Programs G1, G2, H, I and J of chip_smoke.py alone on the card.")
+    ap.add_argument("programs", nargs="*", help="of g1, g2, h, i, j (all five by default)")
     ap.add_argument("--out", help="also write each report to DIR/<program>.json")
     args = ap.parse_args(argv)
     bad = sorted(set(args.programs) - set(PROGRAMS))
@@ -47,7 +48,7 @@ def main(argv=None) -> int:
     if out:
         out.mkdir(parents=True, exist_ok=True)
     ok = True
-    for name in args.programs or ["h", "g1", "g2", "i"]:
+    for name in args.programs or ["h", "g1", "g2", "i", "j"]:
         t0 = time.perf_counter()
         try:
             report = PROGRAMS[name](torch.device("cuda"))

@@ -2,6 +2,7 @@
 
 import ast
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import torch
 
 import wavecap_tpu_torch
 from wavecap_tpu_torch.kernels import build
+from wavecap_tpu_torch.utils.config import config_from_dict
 
 torch.set_num_threads(1)
 
@@ -309,3 +311,59 @@ def test_the_trunking_worker_child_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     sent, bad = json.loads(out.stdout.strip().splitlines()[-1])
     assert sent == [{"id": 1, "result": {"ok": True}}] and not bad, (sent, bad)
+
+
+@pytest.mark.parametrize("blocked", [("jax", "wavecap_tpu"), ("jax", "wavecap_tpu", "yaml", "httpx", "websockets")],
+                         ids=["no-jax", "no-jax-yaml-httpx-websockets"])
+def test_server_harness_and_cli_import_without(blocked, tmp_path):
+    """In a fresh interpreter with these packages blocked (the card's
+    machine has no JAX, PyYAML, httpx or websockets), the server, the
+    harness, the CLI and ``python -m``'s module import, and
+    ``load_config(None)`` in a directory with no config file gives the
+    defaults."""
+    code = (
+        "import sys, importlib, json\n"
+        f"for name in {list(blocked)!r}: sys.modules[name] = None\n"
+        "for name in ('wavecap_tpu_torch.server', 'wavecap_tpu_torch.server.app',\n"
+        "             'wavecap_tpu_torch.server.__main__', 'wavecap_tpu_torch.harness',\n"
+        "             'wavecap_tpu_torch.cli', 'wavecap_tpu_torch.__main__'):\n"
+        "    importlib.import_module(name)\n"
+        "from wavecap_tpu_torch.utils.config import AppConfig, load_config\n"
+        "cfg = load_config(None)\n"
+        "print(json.dumps([cfg.config_paths, cfg.server.port == AppConfig().server.port]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], True]
+
+
+def test_server_cli_and_harness_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """``AppServer``, the server's ``main``, ``cli.main`` and
+    ``harness.main`` want the card: with none and no
+    ``WAVECAP_TORCH_DEVICE`` they raise; with ``cpu`` they run."""
+    from wavecap_tpu_torch import cli, harness
+    from wavecap_tpu_torch.server import __main__ as server_main
+    from wavecap_tpu_torch.server.app import AppServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WAVECAP_TORCH_DEVICE", raising=False)
+    monkeypatch.chdir(tmp_path)
+    fake = config_from_dict({"device": {"driver": "fake"}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AppServer(fake)
+    server = AppServer(fake, device="cpu")
+    assert server.state.captures.device == torch.device("cpu")
+    server.state.shutdown()
+    calls = [(cli.main, ["wavecap_tpu", "list-devices", "--driver", "fake"]),
+             (harness.main, ["wavecap_tpu harness", "--preset", "p25-trunk", "--out-dir", str(tmp_path)]),
+             (server_main.main, ["wavecap_tpu server", "--port", "1"])]
+    for main, argv in calls:
+        monkeypatch.setattr(sys, "argv", argv)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main()
+    monkeypatch.setenv("WAVECAP_TORCH_DEVICE", "cpu")
+    for main, argv in calls[:2]:
+        monkeypatch.setattr(sys, "argv", argv)
+        assert main() == 0

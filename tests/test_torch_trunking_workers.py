@@ -11,9 +11,11 @@ are equal between the packages, except that the port's worker config
 carries the worker's torch device (``"device": "cpu"`` here).  Then a
 real worker of the port's, spawned as the manager spawns it, on the CPU:
 it answers ``status`` and ``ping`` within its own timeout, and
-``stop_all`` leaves no worker.  The server's streaming of worker voice
-and spectrum (``TestWorkerStreaming::test_server_streams_worker_voice_and_spectrum``)
-needs the server, which the port does not have yet.
+``stop_all`` leaves no worker.  Last, ``TestWorkerStreaming::
+test_server_streams_worker_voice_and_spectrum`` on the port's server
+(``AppServer(cfg, device="cpu")``): a worker-hosted system's voice on
+``/trunking/stream/{sid}/voice`` and its spectrum snapshot, every wait
+on a subscriber or message count.
 """
 
 from __future__ import annotations
@@ -286,3 +288,41 @@ def test_real_worker_on_the_cpu_answers_status(tmp_path):
     assert not mgr.workers
     proc.join(timeout=30)
     assert not proc.is_alive()
+
+
+def test_server_streams_worker_voice_and_spectrum():
+    """WS ``/trunking/stream/{sid}/voice`` and the spectrum snapshot serve
+    a worker-hosted system (no in-process ``TrunkingSystem`` for the id)
+    on the port's server, the worker config on the CPU."""
+    import httpx
+    from websockets.sync.client import connect
+
+    from tests.test_torch_server import port_harness, until
+
+    h = port_harness({"server": {"host": "127.0.0.1", "port": 0}, "device": {"driver": "fake"}})
+    try:
+        mgr = make_manager(PORT)
+        state = h.server.state
+        state.trunking_workers = mgr
+        state.attach_worker_streams(mgr)
+        mgr.add_system({"id": "wsys", "control_channels": [851e6]})
+        mgr.start()
+        assert mgr.workers["default"].worker_cfg["device"] == "cpu"
+        _cmd_child, evt_child, _cfg = mgr._spawned[0][2]
+        hub = state.worker_streams
+        pcm = np.arange(160, dtype=np.int16).tobytes()
+        with connect(f"{h.ws_base}/trunking/stream/wsys/voice", open_timeout=20) as ws:
+            # push voice once the WS has subscribed, so the fan-out delivers it
+            until(lambda: hub._get(hub.voice_all, "wsys").count == 1, "the voice subscriber")
+            evt_child.send({"type": "voice_pcm", "systemId": "wsys", "recorderId": 0, "pcm": pcm})
+            assert ws.recv(timeout=20) == pcm
+        evt_child.send({"type": "spectrum", "systemId": "wsys", "centerHz": 851.5e6, "sampleRate": 960_000,
+                        "db": np.linspace(-100, -40, 32).astype(np.float32)})
+        until(lambda: "wsys" in hub.latest_spectrum, "the forwarded spectrum")
+        with httpx.Client(base_url=h.base, timeout=20) as c:
+            body = c.get("/trunking/systems/wsys/spectrum").json()
+            assert body["centerHz"] == 851.5e6 and len(body["db"]) == 32
+            assert c.get("/trunking/systems/nosuch/spectrum").status_code == 404
+        mgr.stop_all()
+    finally:
+        h.stop()

@@ -154,10 +154,10 @@ def _config_chain(path: str | Path | None) -> list[Path]:
 
 def load_config(path: str | Path | None = None) -> AppConfig:
     """Load base + ``.local`` overlay (overlay wins key-by-key)."""
-    import yaml  # here, not at import: the package imports without PyYAML
-
     merged: dict[str, Any] = {}
     paths = _config_chain(path)
+    if paths:
+        import yaml  # only to parse a file: the package runs without PyYAML
     for p in paths:
         try:
             with open(p) as f:

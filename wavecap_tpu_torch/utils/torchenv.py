@@ -4,6 +4,12 @@ The port runs on the CUDA card unless the caller asks for the CPU.  There
 is no silent fallback: an entry point called without a device on a
 machine with no card raises, so a CPU run is always one that was asked
 for (the tests pass ``device="cpu"``).
+
+The entry points started from a shell (the server, the CLI, the harness)
+take their device from ``WAVECAP_TORCH_DEVICE`` (:func:`entry_device`),
+the counterpart of ``JAX_PLATFORMS``: unset means the card, ``cpu`` the
+CPU.  There is no compile cache to set up: the kernels' build directory
+(``kernels/build.py``) is the port's counterpart.
 """
 
 from __future__ import annotations
@@ -31,6 +37,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def entry_device() -> torch.device:
+    """The device of a process's entry point: ``WAVECAP_TORCH_DEVICE``
+    (a torch device name such as ``cpu`` or ``cuda:0``), unset or empty
+    meaning the card.  Raises where that is the card and there is none."""
+    return resolve_device(os.environ.get("WAVECAP_TORCH_DEVICE") or None)
 
 
 def devices(device: DeviceLike = None) -> list[torch.device]:
