@@ -52,7 +52,10 @@ It drives the port's paths at full width:
   process; Phase 1 on the mesh);
 * the server, the harness and the CLI (program J: the REST and WebSocket
   surface, streams at the shipped limits, a worker-hosted system's
-  streams, the ``python -m`` entry points).
+  streams, the ``python -m`` entry points);
+* ``ops/planar.py``'s channelizer (K1 + K2 on planes), spectrum and
+  elementwise functions, and ``conv_valid``'s banded-matmul route
+  (``WAVECAP_FIR_MATMUL=1``), off the programs' paths.
 
 Phases:
 
@@ -221,7 +224,22 @@ Phases:
     with no config file (``/health``, ``POST /shutdown``), ``demod``
     (>= 50 dB), ``decode-iq`` and the harness's scenes, each against the
     same command with ``WAVECAP_TORCH_DEVICE=cpu``;
-15. a JSON line of the kernels (K15 with its copies and bytes) and the
+15. planar and the banded route (``run_planar``, in a process of its
+    own, where CUPTI keeps every event): ``planar_channelize`` at the
+    first slice's geometry (M = 800, 1,968,000-sample blocks) and
+    program B's (M = 96, 360,000), three blocks with the history carried:
+    one K1 and one K2 a call, rel L2 <= 1e-5 against its plain version
+    and against ``channelize``, the history bit for bit;
+    ``planar_power_spectrum`` on 16 rows of 2048 against the CPU (1e-3 dB
+    within 60 dB of the peak) and cuFFT's ``power_spectrum`` (0.5 dB);
+    ``planar_freq_shift``, ``planar_quadrature_demod`` and
+    ``planar_rssi_dbfs`` on a 160 x 9,447 bank against the CPU (NCO words,
+    phases and next phase bit-equal, outputs within 1e-5); ``conv_valid``
+    with ``WAVECAP_FIR_MATMUL=1`` (this check only) at programs A's, B's
+    and D's ``fir_filter`` shapes within 2e-5 of K7, K7 again once the
+    variable is restored; a line each with its time, bound and library
+    time;
+16. a JSON line of the kernels (K15 with its copies and bytes) and the
     final ``{"ok": true, ...}`` line.
 
 Any failed check exits non-zero before the last line.  Without a CUDA
@@ -427,7 +445,7 @@ def device_ms(fn, kernel="", reps: int = 20, warm: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if not kernel:
+        if not kernel and on_card:
             return float(sum(e.self_device_time_total for e in on_card)) / reps / 1e3
         kept = [e for e in on_card if e.count and any(k in e.key for k in names)]
         if kept:
@@ -1667,7 +1685,10 @@ def mixed_kernel_checks(cfg, device, timer=device_ms, wall_timer=time_ms, clock_
                # the step's dependent path, counted from the kernel's SASS
                chain_ms=chain_ms(s, K10_CHAIN_CYCLES[det], clock_hz),
                ms=timer(lambda: fn(z), K10_KERNELS), wrapper_ms=wall_timer(lambda: fn(z)),
-               plain_ms=timer(plain_call(lambda: fn(z)), reps=1, warm=1),
+               # the plain loop steps sample by sample: its wall time, one call
+               # (a CUPTI profile of its launches took ~65 s a case)
+               plain_ms=wall_timer(plain_call(lambda: fn(z)), reps=1),
+               plain_note="wall time between CUDA events (the loop over samples)",
                library_note="no torch op runs a phase-locked loop")
     cases.append(k10_function_checks(device))
 
@@ -7376,6 +7397,284 @@ def run_program_j(device) -> dict:
     return dict(phase="program J", wall_s=time.perf_counter() - t0)
 
 
+# --- phase 15: planar.py and conv_valid's banded route -------------------------------------
+
+# (name, sample rate, channel bandwidth, block): the first slice's geometry
+# (M = 800, S = 4,920) and program B's (M = 96, S = 7,500)
+PLANAR_GEOMETRIES = (("the first slice", 10_000_000.0, 12_500.0, 1_968_000),
+                     ("program B", 2_400_000.0, 25_000.0, 360_000))
+PLANAR_BLOCKS = 3
+PLANAR_ROWS = (160, 9_447)  # a bank of program D's 160 slots
+SPECTRUM_ROWS = 16
+# conv_valid's call sites on the programs' paths: (what, taps, rows, outputs a row, complex rows)
+MATMUL_SITES = (("program A's C4FM low-pass", "lpf", 50, 12_500, True),
+                ("program A's C4FM RRC", "rrc", 50, 12_500, False),
+                ("program B's CQPSK RRC", "cqpsk_rrc", 21, 7_500, True),
+                ("program D's voice-band FIR", "voice", 160, 4_920, False))
+
+
+def planar_line(function: str, replaces: str, route: str, err: float, ms: float, bound_ms: float,
+                library_ms, **extra) -> dict:
+    return dict(phase="planar", function=function, replaces=replaces, route=route, err=err, ms=ms,
+                bound_ms=bound_ms, library_ms=library_ms, **extra)
+
+
+def planar_channelize_checks(device, timer=device_ms, wall_timer=time_ms, geometries=PLANAR_GEOMETRIES) -> list:
+    """``planar_channelize`` over consecutive blocks at each geometry: K1
+    and K2 once a call, rel L2 <= 1e-5 against its plain version and
+    against ``channelize`` on the same samples, the history carried bit
+    for bit; timed beside ``channelize`` and the plain version."""
+    import torch
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from wavecap_tpu_torch.ops import channelizer as chz, planar
+
+    rng = np.random.default_rng(SEED + 19)
+    lines = []
+    for what, fs, bw, n in geometries:
+        cfg = chz.ChannelizerConfig(sample_rate=fs, channel_bandwidth=bw)
+        m, h = cfg.channel_count, cfg.channel_count * cfg.taps_per_channel
+        k = np.arange(PLANAR_BLOCKS * n)
+        x = 0.05 * (rng.standard_normal(k.size) + 1j * rng.standard_normal(k.size))
+        for b in rng.choice(m, 6, replace=False):  # tones on six bins
+            x += 0.2 * np.exp(2j * np.pi * (b / m + rng.uniform(-0.2, 0.2) / m) * k)
+        x = torch.from_numpy(x.astype(np.complex64)).to(device)
+        st = planar.planar_channelizer_init(cfg, device=device)
+        st_p = planar.planar_channelizer_init(cfg, device=device)
+        st_c = chz.channelizer_init(cfg, device=device)
+        errs_p, errs_c = [], []
+        for blk in range(PLANAR_BLOCKS):
+            xb = x[blk * n:(blk + 1) * n]
+            re, im = xb.real.contiguous(), xb.imag.contiguous()
+            reset_launch_counts()
+            yr, yi, st = planar.planar_channelize(re, im, st, cfg)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                counts = {k_: v for k_, v in launch_counts().items() if v}
+                check(counts == {"K1_unpack_arms": 1, "K2_arm_dft": 1},
+                      f"planar_channelize at {what}: launches {counts}, not one K1 and one K2")
+            pr, pi, st_p = planar.planar_channelize_plain(re, im, st_p, cfg)
+            yc, st_c = chz.channelize(xb, st_c, cfg)
+            got = host(torch.complex(yr, yi))
+            check(got.shape == (m, 2 * n // m), f"planar_channelize at {what}: shape {got.shape}")
+            errs_p.append(rel_l2(host(torch.complex(pr, pi)), got))
+            errs_c.append(rel_l2(host(yc), got))
+            check(torch.equal(st[0], re[-h:]) and torch.equal(st[1], im[-h:]),
+                  f"planar_channelize at {what}: the history is not the block's last {h} samples")
+            check(torch.equal(st_p[0], st[0]) and torch.equal(st_p[1], st[1]),
+                  f"planar_channelize at {what}: the plain version carried another history")
+        check(max(errs_p) <= 1e-5, f"planar_channelize at {what}: rel L2 {max(errs_p):.3g} > 1e-5 "
+              "against its plain version")
+        check(max(errs_c) <= 1e-5, f"planar_channelize at {what}: rel L2 {max(errs_c):.3g} > 1e-5 "
+              "against channelize")
+        b_ms, b_by = bound(2 * n * 4 + 2 * m * (2 * n // m) * 4, 0.0)
+        lines.append(planar_line(
+            "planar_channelize", "wavecap_tpu/ops/planar.py:205", "cuda (K1 + K2)", max(errs_p),
+            timer(lambda: planar.planar_channelize(re, im, st, cfg)), b_ms, None,
+            case=f"{what}: M = {m}, N = {n:,}, S = {2 * n // m:,}, {PLANAR_BLOCKS} blocks",
+            rel_l2_vs_channelize=max(errs_c), bound_by=b_by,
+            wall_ms=wall_timer(lambda: planar.planar_channelize(re, im, st, cfg)),
+            channelize_ms=timer(lambda: chz.channelize(xb, st_c, cfg)),
+            plain_ms=timer(lambda: planar.planar_channelize_plain(re, im, st_p, cfg)),
+            library_note="no torch call channelizes"))
+        del x, xb, re, im, yr, yi, pr, pi, yc
+    return lines
+
+
+def planar_spectrum_check(device, timer=device_ms) -> dict:
+    """``planar_power_spectrum`` on 16 rows at 2048 bins against the same
+    call on the CPU (1e-3 dB within 60 dB of the peak, the same argmax) and
+    the port's ``power_spectrum`` on cuFFT (0.5 dB in the strong bins)."""
+    import torch
+    from wavecap_tpu_torch.ops import planar
+    from wavecap_tpu_torch.ops.spectrum import power_spectrum
+
+    rng = np.random.default_rng(SEED + 20)
+    nfft, rows = 2048, SPECTRUM_ROWS
+    k = np.arange(nfft)
+    x = np.stack([np.exp(2j * np.pi * rng.uniform(-0.45, 0.45) * k) for _ in range(rows)])
+    x = (x + 1e-3 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    xc = torch.from_numpy(x)
+    xd = xc.to(device)
+    re, im = xd.real.contiguous(), xd.imag.contiguous()
+    got = host(planar.planar_power_spectrum(re, im, nfft))
+    cpu = host(planar.planar_power_spectrum(xc.real.contiguous(), xc.imag.contiguous(), nfft))
+    lib = host(power_spectrum(xd, nfft))
+    d_cpu = d_lib = 0.0
+    for g, c, lb in zip(got, cpu, lib):
+        check(int(np.argmax(g)) == int(np.argmax(c)) == int(np.argmax(lb)),
+              "planar_power_spectrum: the peak bin differs from the CPU's or cuFFT's")
+        near = c > c.max() - 60.0
+        d_cpu = max(d_cpu, float(np.max(np.abs(g[near] - c[near]))))
+        strong = lb > -60.0
+        d_lib = max(d_lib, float(np.max(np.abs(g[strong] - lb[strong]))))
+    check(d_cpu <= 1e-3, f"planar_power_spectrum: {d_cpu:.3g} dB from the CPU's within 60 dB of the peak")
+    check(d_lib <= 0.5, f"planar_power_spectrum: {d_lib:.3g} dB from power_spectrum in the strong bins")
+    # the function's own work: planes in, dB out; an FFT's 5 N log2 N a row
+    b_ms, b_by = bound(rows * nfft * (8 + 4), rows * 5.0 * nfft * np.log2(nfft))
+    return planar_line("planar_power_spectrum", "wavecap_tpu/ops/planar.py:272", "plain (four f32 matmuls)",
+                       d_cpu, timer(lambda: planar.planar_power_spectrum(re, im, nfft)), b_ms,
+                       timer(lambda: power_spectrum(xd, nfft)),
+                       case=f"{rows} rows x {nfft}", bound_by=b_by, db_vs_power_spectrum=d_lib,
+                       # the matmul form's own floor: four (rows, N) @ (N, N) f32 products
+                       form_bound_ms=bound(0.0, 4 * 2.0 * rows * nfft * nfft)[0],
+                       library_note="power_spectrum: torch.fft.fft (cuFFT), from the same complex rows")
+
+
+def planar_elementwise_checks(device, timer=device_ms) -> list:
+    """``planar_freq_shift``, ``planar_quadrature_demod`` and
+    ``planar_rssi_dbfs`` on a 160 x 9,447 bank, card against CPU: NCO words
+    and phases bit-equal, outputs within 1e-5."""
+    import torch
+    from wavecap_tpu_torch.ops import planar
+    from wavecap_tpu_torch.ops.nco import nco_phases, tuning_word
+
+    rng = np.random.default_rng(SEED + 21)
+    rows, n = PLANAR_ROWS
+    fs = 25_000.0
+    x = (0.3 * np.exp(1j * rng.uniform(-np.pi, np.pi, (rows, n)))
+         * (1 + 0.1 * rng.standard_normal((rows, n)))).astype(np.complex64)
+    re_c, im_c = torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy())
+    re, im = re_c.to(device), im_c.to(device)
+    off_c = torch.from_numpy(rng.uniform(-3000.0, 3000.0, rows).astype(np.float32))
+    ph0_c = torch.from_numpy(rng.integers(0, 2**32, rows, dtype=np.uint64).astype(np.uint32))
+    off, ph0 = off_c.to(device), ph0_c.to(device)
+    lines = []
+
+    dphi, dphi_c = tuning_word(off, fs), tuning_word(off_c, fs)
+    check(torch.equal(dphi.cpu(), dphi_c), "planar_freq_shift: the card's tuning words differ from the CPU's")
+    check(torch.equal(nco_phases(n, dphi, ph0).cpu(), nco_phases(n, dphi_c, ph0_c)),
+          "planar_freq_shift: the card's NCO phases differ from the CPU's")
+    gr, gi, gp = planar.planar_freq_shift(re, im, off, fs, ph0)
+    cr, ci, cp = planar.planar_freq_shift(re_c, im_c, off_c, fs, ph0_c)
+    check(torch.equal(gp.cpu(), cp), "planar_freq_shift: the next phase differs from the CPU's")
+    err = max(max_abs(host(cr), host(gr)), max_abs(host(ci), host(gi)))
+    check(err <= 1e-5, f"planar_freq_shift: {err:.3g} from the CPU's")
+    b_ms, b_by = bound(rows * n * 16, 0.0)
+    lines.append(planar_line("planar_freq_shift", "wavecap_tpu/ops/planar.py:169", "plain (torch)", err,
+                             timer(lambda: planar.planar_freq_shift(re, im, off, fs, ph0)), b_ms, None,
+                             case=f"{rows} x {n}", bound_by=b_by))
+
+    prev_re_c, prev_im_c = re_c[:, 0].contiguous(), im_c[:, 0].contiguous()
+    prev_re, prev_im = prev_re_c.to(device), prev_im_c.to(device)
+    ga, glr, gli = planar.planar_quadrature_demod(re, im, fs, prev_re, prev_im, 5_000.0)
+    ca, clr, cli = planar.planar_quadrature_demod(re_c, im_c, fs, prev_re_c, prev_im_c, 5_000.0)
+    err = max_abs(host(ca), host(ga))
+    check(err <= 1e-5, f"planar_quadrature_demod: {err:.3g} from the CPU's")
+    check(torch.equal(glr.cpu(), clr) and torch.equal(gli.cpu(), cli),
+          "planar_quadrature_demod: the last samples differ")
+    b_ms, b_by = bound(rows * n * 12, 0.0)
+    lines.append(planar_line("planar_quadrature_demod", "wavecap_tpu/ops/planar.py:179", "plain (torch)", err,
+                             timer(lambda: planar.planar_quadrature_demod(re, im, fs, prev_re, prev_im, 5_000.0)),
+                             b_ms, None, case=f"{rows} x {n}", bound_by=b_by))
+
+    g = host(planar.planar_rssi_dbfs(re, im))
+    err = max_abs(host(planar.planar_rssi_dbfs(re_c, im_c)), g)
+    check(err <= 1e-5, f"planar_rssi_dbfs: {err:.3g} dB from the CPU's")
+    b_ms, b_by = bound(rows * n * 8, 0.0)
+    lines.append(planar_line("planar_rssi_dbfs", "wavecap_tpu/ops/planar.py:190", "plain (torch)", err,
+                             timer(lambda: planar.planar_rssi_dbfs(re, im)), b_ms, None,
+                             case=f"{rows} x {n}", bound_by=b_by))
+    return lines
+
+
+def matmul_site_case(device, taps_name: str, rows: int, n_out: int, cplx: bool, rng):
+    """The taps and a block of rows of one ``conv_valid`` call site."""
+    import torch
+    from wavecap_tpu_torch.models import analog
+    from wavecap_tpu_torch.models.p25 import c4fm, cqpsk
+
+    if taps_name in ("lpf", "rrc"):
+        taps = c4fm._filters_on(50_000.0, 0.2, device)[taps_name == "rrc"]
+    elif taps_name == "cqpsk_rrc":
+        taps = cqpsk._rrc_on(50_000.0, 4800.0, 0.2, device)
+    else:
+        cfg = analog.NbfmConfig(sample_rate=25_000, audio_rate=25_000, enable_highpass=True,
+                                enable_lowpass=True, filter_impl="fir")
+        taps = torch.from_numpy(analog.voice_band_taps(cfg)).to(device)
+    n = n_out + taps.shape[0] - 1
+    x = rng.standard_normal((rows, n))
+    if cplx:
+        x = x + 1j * rng.standard_normal((rows, n))
+    return torch.from_numpy((0.3 * x).astype(np.complex64 if cplx else np.float32)).to(device), taps
+
+
+def matmul_route_checks(device, timer=device_ms, sites=MATMUL_SITES) -> list:
+    """``conv_valid`` with ``WAVECAP_FIR_MATMUL=1`` (this check only) at
+    each ``fir_filter`` site's shape: within 2e-5 (max |a - b| / max |a|)
+    of K7's direct path, no K7 launched; once the variable is restored the
+    same call launches K7 again.  Timed beside K7 and cuDNN's conv1d."""
+    import torch
+    from wavecap_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from wavecap_tpu_torch.ops import fir
+
+    rng = np.random.default_rng(SEED + 22)
+    lines = []
+    for what, taps_name, rows, n_out, cplx in sites:
+        x, taps = matmul_site_case(device, taps_name, rows, n_out, cplx, rng)
+        t = taps.shape[0]
+        direct = host(fir._conv_valid_direct(x, taps))
+        with mock.patch.dict(os.environ, {"WAVECAP_FIR_MATMUL": "1"}):
+            reset_launch_counts()
+            got = fir.conv_valid(x, taps)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                check(not any(launch_counts().values()),
+                      f"the banded route at {what} launched {launch_counts()}")
+            got = host(got)
+            route_ms = timer(lambda: fir.conv_valid(x, taps))
+        check(got.shape == direct.shape == (rows, n_out), f"the banded route at {what}: shape {got.shape}")
+        err = float(np.max(np.abs(direct - got))) / float(np.max(np.abs(direct)))
+        check(err < 2e-5, f"the banded route at {what}: {err:.3g} from K7's direct path")
+        reset_launch_counts()
+        fir.conv_valid(x, taps)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            check(launch_counts()["K7_strided_fir"] == 1,
+                  f"conv_valid at {what} without the variable did not launch K7")
+        planes = 2 if cplx else 1
+        b_ms, b_by = bound(rows * planes * 4 * ((n_out + t - 1) + n_out), 2.0 * t * rows * planes * n_out)
+        tiles = -(-n_out // fir._CONV_TILE)
+        form_ops = 2.0 * rows * planes * tiles * (fir._CONV_TILE + t - 1) * fir._CONV_TILE
+        lines.append(planar_line(
+            "_conv_valid_matmul", "wavecap_tpu/ops/fir.py:107", "plain (banded f32 einsum)", err, route_ms,
+            b_ms, timer(lambda: fir.strided_fir_plain(x, taps, 1)),
+            case=f"{what}: {t} taps, {rows} x {n_out} {'complex' if cplx else 'real'}", bound_by=b_by,
+            form_bound_ms=bound(0.0, form_ops)[0],  # the band's products, zeros included
+            k7_ms=timer(lambda: fir._conv_valid_direct(x, taps), ("strided_fir_kernel",)),
+            library_note="F.conv1d (cuDNN), the plain version of K7"))
+    return lines
+
+
+def run_planar(device) -> list:
+    """Phase 15: ``ops/planar.py``'s channelizer, spectrum and elementwise
+    functions, and ``conv_valid``'s banded-matmul route."""
+    return (planar_channelize_checks(device) + [planar_spectrum_check(device)]
+            + planar_elementwise_checks(device) + matmul_route_checks(device))
+
+
+PLANAR_CHILD = """
+import json, torch
+import chip_smoke as cs
+from wavecap_tpu_torch.kernels import build_all
+
+build_all()
+for line in cs.run_planar(torch.device("cuda")):
+    print(json.dumps(line), flush=True)
+"""
+
+
+def run_planar_in_child() -> list:
+    """Phase 15 in a process of its own: after the many thousand launches
+    of the phases before it, CUPTI keeps few or none of a profile's events
+    in this process (see ``device_ms``).  The kernels are built already."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", PLANAR_CHILD], cwd=here, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise CheckFailed(f"phase 15 (planar) failed:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -7738,6 +8037,10 @@ def main(argv=None) -> int:
         # program J: the port's server, harness and CLI
         log(run_program_j(device))
         stamp("J")
+        # planar.py and conv_valid's banded route, off the programs' paths
+        for line in run_planar_in_child():
+            log(line)
+        stamp("planar")
         log(dict(phase="seconds since the build", stamps=stamps))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -71,6 +71,7 @@ def test_kernel_wrappers_have_no_fallback():
         "ops/channelizer.py": {"unpack_arms", "arm_dft"},
         "models/channel_bank.py": {"slot_frontend", "voice_fir"},
         "ops/fir.py": {"strided_fir", "polyphase_resample"},
+        "ops/planar.py": {"planar_channelize"},
         "ops/iir.py": {"onepole_filter", "sos_filter", "_k9"},
         "ops/agc.py": {"envelope"},
         "ops/pll.py": {"_loop"},
@@ -154,6 +155,74 @@ def test_build_targets_sm90a_without_fast_math():
         text = src.read_text()
         # the note each kernel carries: what it replaces, what bounds it
         assert "Bound on the H100" in text and "Replaces" in text and "wavecap_tpu/" in text, src
+
+
+# the reference's names the port has no counterpart of, by design, and why
+JIT = "jax.jit, eager on the device in the port"
+NOT_PORTED = {
+    "jit_capture_step": JIT, "jit_capture_multi": JIT, "jit_pipeline_init": JIT,
+    "jit_mesh_init": JIT, "jit_mesh_capture_multi": JIT, "_jit_c4fm": JIT,
+    "default_cache_dir": "XLA's compilation cache: the port's kernels build into kernels/build/",
+    "ensure_platform": "JAX's platform override: the port's entry points take torchenv.entry_device()",
+}
+
+
+def _reference_names(tree: ast.Module) -> dict:
+    """Public module-level names of a reference module (dunders too): its
+    defs, classes and assignments, and what it imports from the package
+    (relative or ``wavecap_tpu.*``); names imported from other libraries
+    are not its own."""
+    out = {}
+
+    def walk(body):
+        for n in body:
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                out[n.name] = "def"
+            elif isinstance(n, (ast.Assign, ast.AnnAssign)):
+                for target in (n.targets if isinstance(n, ast.Assign) else [n.target]):
+                    out.update((x.id, "assignment") for x in ast.walk(target) if isinstance(x, ast.Name))
+            elif isinstance(n, ast.ImportFrom) and (n.level or (n.module or "").split(".")[0] == "wavecap_tpu"):
+                out.update((a.asname or a.name, "import") for a in n.names)
+            elif isinstance(n, (ast.If, ast.Try)):
+                walk(n.body)
+                walk(n.orelse)
+                for h in getattr(n, "handlers", []):
+                    walk(h.body)
+                walk(getattr(n, "finalbody", []))
+
+    walk(tree.body)
+    return {k: v for k, v in out.items() if not k.startswith("_") or k.startswith("__") or k in NOT_PORTED}
+
+
+def test_the_port_has_every_module_and_name_of_the_reference():
+    """Every module of ``wavecap_tpu/`` has its counterpart here
+    (``utils/jaxenv.py`` -> ``utils/torchenv.py``), and every public
+    module-level name of it is an attribute of the counterpart, but for
+    ``NOT_PORTED``.  The reference is read by ``ast``: nothing of JAX is
+    imported."""
+    import importlib
+
+    ref_root = ROOT / "wavecap_tpu"
+    missing, gaps, seen = [], [], set()
+    for path in sorted(ref_root.rglob("*.py")):
+        rel = path.relative_to(ref_root)
+        if rel.as_posix() == "utils/jaxenv.py":
+            rel = rel.with_name("torchenv.py")
+        if not (PKG / rel).exists():
+            missing.append(rel.as_posix())
+            continue
+        module = importlib.import_module(
+            ".".join(("wavecap_tpu_torch",) + rel.with_suffix("").parts).removesuffix(".__init__"))
+        for name, kind in _reference_names(ast.parse(path.read_text())).items():
+            if name in NOT_PORTED:
+                seen.add(name)
+                assert not hasattr(module, name), (rel.as_posix(), name)
+            elif not hasattr(module, name):
+                gaps.append((rel.as_posix(), name, kind))
+    assert not missing, missing
+    assert not gaps, gaps
+    assert seen == set(NOT_PORTED)  # every exception still names a reference name
+    assert wavecap_tpu_torch.__version__ == "0.1.0"
 
 
 def test_launch_counts_start_at_zero_and_reset():

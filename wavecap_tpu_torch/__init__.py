@@ -26,4 +26,6 @@ costs tens of dB of DFT and FIR accuracy).
 
 from .utils.torchenv import disable_tf32
 
+__version__ = "0.1.0"
+
 disable_tf32()

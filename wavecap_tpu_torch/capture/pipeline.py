@@ -31,18 +31,20 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .. import ops
+from .. import models, ops
 from ..models import channel_bank
 from ..models.channel_bank import (
     ChannelAssignment,
     ChannelBankConfig,
+    ChannelBankState,
     _stack_states,
     assignment_init,
     bank_demod_step,
     bank_init,
+    bank_step,
 )
 from ..models.analog import WbfmConfig, wbfm_demod_baseband, wbfm_init
-from ..models.p25.c4fm import C4fmConfig, c4fm_demodulate, c4fm_init
+from ..models.p25.c4fm import C4fmConfig, C4fmState, c4fm_demodulate, c4fm_init
 from ..models.p25.cqpsk import CqpskConfig, cqpsk_demodulate, cqpsk_init
 from ..models.registry import get_demod
 from ..ops.channelizer import ChannelizerConfig, _channelize, channelizer_init, unpack_words

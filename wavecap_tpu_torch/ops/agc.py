@@ -16,7 +16,7 @@ import torch
 
 from ..utils.torchenv import DeviceLike, resolve_device
 from .clip import soft_clip
-from .iir import _K9_ENVELOPE, _k9, onepole_filter_plain
+from .iir import _K9_ENVELOPE, _k9, onepole_filter, onepole_filter_plain
 
 
 class AgcState(NamedTuple):

@@ -37,13 +37,6 @@ from scipy import signal as _sps
 
 from ..kernels import launch
 from ..utils.torchenv import DeviceLike, resolve_device
-from .planar import (
-    _dft_factor,
-    _factored_mats,
-    dft_matrices,
-    planar_factored_dft,
-    planar_matmul_dft,
-)
 
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block can have on Hopper
 
@@ -129,6 +122,8 @@ def _epilogue_tables(m: int, device: torch.device) -> tuple[torch.Tensor, torch.
 def _k2_factors(m: int) -> tuple[int, int]:
     """(m1, m2) of K2's two stages; an unfactorable m runs as 1 x m, which
     is the single matmul DFT of ``planar_matmul_dft``."""
+    from .planar import _dft_factor  # planar imports this module
+
     return _dft_factor(m) or (1, m)
 
 
@@ -182,6 +177,8 @@ def k2_stage_mats(m: int):
     """``((c1, s1), (c2, s2), (twc, tws))``: the f32 (cos, sin) planes of
     K2's two stages and its stage twiddle, the plain version's tables; an
     unfactorable ``m`` runs as 1 x m."""
+    from .planar import _dft_factor, _factored_mats, dft_matrices
+
     if _dft_factor(m) is not None:
         return _factored_mats(m, False)
     one, zero = np.ones((1, 1), np.float32), np.zeros((1, 1), np.float32)
@@ -373,6 +370,8 @@ def _fft_arms(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
 def arm_dft_plain(u: torch.Tensor, cfg: ChannelizerConfig) -> torch.Tensor:
     """Plain version of K2: the matmul DFT across arms (factored where M
     factors, else one matmul), then the epilogue; ``(M, S)`` complex64."""
+    from .planar import _dft_factor, planar_factored_dft, planar_matmul_dft
+
     m = cfg.channel_count
     dft = planar_factored_dft if _dft_factor(m) is not None else planar_matmul_dft
     yr, yi = dft(u.real, u.imag, m, inverse=False)

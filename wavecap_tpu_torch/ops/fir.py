@@ -23,11 +23,15 @@ version here:
   centered one-shot, of ``resample_poly_stream`` and ``resample_poly``.
 
 FFT convolution (``_conv_valid_fft``, taps > 128) runs on ``torch.fft``
-(cuFFT on the card), as the reference runs XLA's FFT.
+(cuFFT on the card), as the reference runs XLA's FFT.  With
+``WAVECAP_FIR_MATMUL=1`` (read at each call), ``conv_valid`` takes the
+reference's banded-matmul route (``_conv_valid_matmul``, an f32 ``einsum``,
+cuBLAS on the card) where the reference takes it; unset or ``0`` keeps K7.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from math import gcd
 from typing import NamedTuple
@@ -344,11 +348,64 @@ def conv_same(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     return _conv_valid_direct(xin, taps)
 
 
+_CONV_TILE = 128
+
+
+@lru_cache(maxsize=32)
+def _band_index(t: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where the band of a ``t``-tap filter holds a tap, and which:
+    ``band[i, o] = taps[o + t-1-i]`` for ``0 <= o + t-1-i < t``."""
+    i = np.arange(_CONV_TILE + t - 1)[:, None]
+    o = np.arange(_CONV_TILE)[None, :]
+    k_idx = o + (t - 1) - i
+    valid = (k_idx >= 0) & (k_idx < t)
+    return torch.from_numpy(valid).to(device), torch.from_numpy(np.clip(k_idx, 0, t - 1)).to(device)
+
+
+def _conv_valid_matmul(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Valid convolution as a banded-matrix tile matmul (the reference's MXU
+    route).
+
+    The outputs of each row are cut into ``_CONV_TILE``-sample tiles; a
+    tile is its ``tile + T - 1`` input samples times the band
+    ``band[i, o] = taps[o + T-1-i]`` (zero off the band), one f32 ``einsum``
+    over every row and tile.  ``x`` is ``B + (n,)``, real or complex
+    (complex rows ride as two real planes); ``taps`` are real, shared
+    ``(T,)`` or one set per row ``B + (T,)`` (a band per row).
+    """
+    t = taps.shape[-1]
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    m_out = n - t + 1
+    tile = _CONV_TILE
+    n_tiles = -(-m_out // tile)
+    valid, k_idx = _band_index(t, x.device)
+    band = torch.where(valid, taps.to(device=x.device, dtype=torch.float32)[..., k_idx], 0.0)
+
+    planes = torch.stack([x.real, x.imag], dim=-2) if x.is_complex() else x.to(torch.float32)[..., None, :]
+    pad = n_tiles * tile + tile - n  # one spare tile for the last window
+    rows = F.pad(planes, (0, pad)).reshape(lead + (planes.shape[-2], n_tiles + 1, tile))
+    win = torch.cat([rows[..., :-1, :], rows[..., 1:, : t - 1]], dim=-1)  # B + (P, n_tiles, tile+T-1)
+    spec = "...pnk,ko->...pno" if taps.dim() == 1 else "...pnk,...ko->...pno"
+    y = torch.einsum(spec, win, band).reshape(lead + (planes.shape[-2], n_tiles * tile))[..., :m_out]
+    return torch.complex(y[..., 0, :], y[..., 1, :]) if x.is_complex() else y[..., 0, :]
+
+
 def conv_valid(x: torch.Tensor, taps: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Valid convolution: FFT for long filters, else the direct path (the
-    reference's choice off the TPU)."""
-    if stride == 1 and int(taps.shape[-1]) > 128:
+    """Valid convolution: FFT for long filters; with ``WAVECAP_FIR_MATMUL=1``
+    the banded matmul where the reference takes it; else the direct path
+    (K7 on the card, the reference's choice off the TPU)."""
+    t = int(taps.shape[-1])
+    if stride == 1 and t > 128:
         return _conv_valid_fft(x, taps)
+    if (
+        stride == 1
+        and t > 8
+        and os.environ.get("WAVECAP_FIR_MATMUL") == "1"  # read each call, as the reference
+        and not taps.is_complex()
+        and x.shape[-1] >= 4 * _CONV_TILE
+    ):
+        return _conv_valid_matmul(x, taps)
     return _conv_valid_direct(x, taps, stride)
 
 

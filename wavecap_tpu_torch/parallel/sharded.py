@@ -39,7 +39,7 @@ from .. import ops
 from ..models.analog import wbfm_demod_baseband, wbfm_init
 from ..models.channel_bank import ChannelAssignment, ChannelBankConfig, _stack_states, slot_frontend
 from ..models.registry import get_demod
-from ..ops.channelizer import ChannelizerConfig, _channelize, unpack_words
+from ..ops.channelizer import ChannelizerConfig, _channelize, channelize, design_prototype, unpack_words
 from ..ops.fir import design_decimation_fir, strided_fir
 from ..ops.nco import _i64_to_u32, _u32_to_i64, tuning_word
 from .collectives import Shard, all_gather, all_to_all_tiled, ppermute, replicate, scatter
